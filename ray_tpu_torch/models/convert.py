@@ -1,0 +1,37 @@
+"""Carry a parameter tree across from the JAX package.
+
+``params_from_numpy(tree, device)`` takes the JAX parameter tree as numpy
+arrays (``jax.tree.map(np.asarray, params)``) and returns the same dict of
+the port's tensors, key for key and shape for shape — the layouts already
+agree (see ``models/transformer.py``), so nothing is transposed. This module
+imports no JAX: it reads numpy only.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from ray_tpu_torch.utils.device import resolve_device
+
+
+def _to_tensor(a, dev: torch.device) -> torch.Tensor:
+    a = np.array(a, order="C")     # a private copy: jax's arrays are read-only
+    if a.dtype.name == "bfloat16":            # ml_dtypes' numpy bfloat16
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(dev)
+
+
+def params_from_numpy(tree, device: Optional[Union[str, torch.device]] = None):
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return _to_tensor(node, dev)
+
+    return walk(tree)
