@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA card.
 
 Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 
@@ -13,8 +13,10 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    sources, one ``nvcc`` per source, all started together; prints the
    ``-Xptxas -v`` lines (registers, shared memory, spills);
 3. kernels — each kernel's wrapper against its plain PyTorch version at the
-   main path's shapes, in bf16 and f32, with its time, the plain version's
-   time, one library call's time (a yardstick only) and the bound;
+   main paths' shapes, in bf16 and f32, with its time, the plain version's
+   time, one library call's time (a yardstick only) and the bound: the
+   paged-attention kernel at the engine's shapes, the three flash-attention
+   kernels at the train step's (B=16, L=1024, H=12, D=64, causal);
 4. engine — ``PagedLLMEngine`` on ``gpt2_small()`` at full width (bf16,
    random weights from a seed) answers 8 requests from concurrent threads,
    with a shared-prefix hit and a copy-on-write tail fork; the kernels'
@@ -23,7 +25,17 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    share, time by kernel);
 5. end to end — the same greedy requests through the kernel path and
    through the plain (gather) path, at gpt2_small widths with 2 layers in
-   f32, must give the same tokens.
+   f32, must give the same tokens;
+6. train — ``bench.py``'s configuration: ``gpt2_small(max_seq_len=1024,
+   remat=True)``, 16 × 1024 tokens a step, AdamW(3e-4, weight_decay=0.1),
+   3 warm-up and 10 timed steps with the launch counts set to 0 just
+   before and read just after (per step: the flash forward 2 × n_layers,
+   forward plus the remat recompute, dq and dkv n_layers each); a finite,
+   falling loss; tokens/s, step time, peak memory; then one step under
+   torch.profiler;
+7. train end to end — gpt2_small widths with 2 layers, f32, B=2, L=1024:
+   the flash kernels and ``attn_impl="dense"`` give the same loss and
+   gradients, then the same losses over 3 AdamW steps.
 
 It prints the kernels line ``{"kernels": [...]}`` and, last, the line
 ``{"ok": true, "device": {...}}``. Details go to
@@ -47,7 +59,20 @@ PEAK_FLOPS = {"bfloat16": 989e12,    # dense tensor-core rate
 TOL = {"float32": 1e-4,              # f32 sums over up to 1280 keys in another order
        "bfloat16": 1e-2}             # one rounding of the bf16 output (2^-8 rel.)
 TOP2_TIE = 1e-3                      # end-to-end: a first divergence is a tie below this
+LSE_TOL = 1e-4                       # flash lse: f32 in both versions
+TRAIN_GRAD_TOL = 1e-4                # train e2e: per leaf, relative to its scale
+TRAIN_LOSS_TOL = 1e-4                # train e2e: relative, losses of 3 steps
 DEVICE = "cuda"
+
+# Kernel name -> (module of ray_tpu_torch.ops, its launch counter).
+COUNTERS = {
+    "paged_attention": ("paged_attention", "launches"),
+    "flash_forward": ("flash_attention", "forward_launches"),
+    "flash_dq": ("flash_attention", "dq_launches"),
+    "flash_dkv": ("flash_attention", "dkv_launches"),
+}
+# The train step's shape (bench.py's configuration).
+TRAIN_B, TRAIN_L, TRAIN_WARMUP, TRAIN_STEPS = 16, 1024, 3, 10
 
 
 def fail(msg: str) -> None:
@@ -264,7 +289,26 @@ def _requests(np):
     ]
 
 
-def phase_engine(torch, np, card, kernel_mods):
+class Counts:
+    """The kernels' launch counters, set to 0 and read together."""
+
+    def __init__(self):
+        import importlib
+
+        self.where = {name: (importlib.import_module(
+            f"ray_tpu_torch.ops.{mod}"), attr)
+            for name, (mod, attr) in COUNTERS.items()}
+
+    def reset(self):
+        for mod, attr in self.where.values():
+            setattr(mod, attr, 0)
+
+    def read(self):
+        return {name: getattr(mod, attr)
+                for name, (mod, attr) in self.where.items()}
+
+
+def phase_engine(torch, np, card, counts):
     from ray_tpu_torch.models import transformer
     from ray_tpu_torch.serve.llm import PagedLLMEngine
 
@@ -313,8 +357,7 @@ def phase_engine(torch, np, card, kernel_mods):
             events[f"{r['name']}:done"].set()
 
     # Counts to 0 just before the run, read just after.
-    for mod in kernel_mods.values():
-        mod.launches = 0
+    counts.reset()
     st0 = eng.stats()
     t0 = time.perf_counter()
     threads = [threading.Thread(target=client, args=(r,)) for r in reqs]
@@ -324,7 +367,7 @@ def phase_engine(torch, np, card, kernel_mods):
         t.join(timeout=900)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: mod.launches for name, mod in kernel_mods.items()}
+    launches = counts.read()
     st1 = eng.stats()
     if any(t.is_alive() for t in threads):
         fail("engine requests did not finish within 900 s")
@@ -381,6 +424,24 @@ def phase_engine(torch, np, card, kernel_mods):
     return summary
 
 
+def _device_rows(torch, prof):
+    """(kernels, operators) as (name, self device µs, calls), largest first.
+    Kernel rows are the device's own events, so their sum is the device's
+    busy time on one stream; an operator row sums the kernels it launched
+    itself, which groups the same time by torch operator."""
+    kernels, ops = [], []
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0)
+        if dev > 0:
+            on_device = e.device_type == torch.autograd.DeviceType.CUDA
+            (kernels if on_device else ops).append((e.key, dev, e.count))
+    kernels.sort(key=lambda r: -r[1])
+    ops.sort(key=lambda r: -r[1])
+    return kernels, ops
+
+
 def _profile_decode(torch, np, eng, card):
     """Where a decode step's time goes: torch.profiler over 4 concurrent
     greedy requests (500-token prompts, 64 new tokens) on the warm engine.
@@ -413,14 +474,7 @@ def _profile_decode(torch, np, eng, card):
     if errors or any(t.is_alive() for t in threads):
         fail(f"profiled requests failed: {errors or 'timeout'}")
     steps = int(eng.stats()["decode_forwards"] - st0["decode_forwards"])
-    rows = []
-    for e in prof.key_averages():
-        dev = getattr(e, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(e, "self_cuda_time_total", 0)
-        if dev > 0:
-            rows.append((e.key, dev, e.count))
-    rows.sort(key=lambda r: -r[1])
+    rows, _ = _device_rows(torch, prof)
     busy_us = sum(r[1] for r in rows)
     out = {"wall_ms": wall_us / 1e3, "decode_steps": steps,
            "device_busy_ms": busy_us / 1e3,
@@ -491,6 +545,341 @@ def phase_end_to_end(torch, np):
     return {"prompts": [len(p) for p in prompts], "ties": ties}
 
 
+# -- phase 3, flash attention --------------------------------------------------
+# (label, B, Lq, Lk, dtype, causal); "train" is the train step's and is timed.
+FLASH_SHAPES = [("train", TRAIN_B, TRAIN_L, TRAIN_L, "bfloat16", True),
+                ("train B=4", 4, TRAIN_L, TRAIN_L, "float32", True),
+                ("ragged full", 2, 333, 333, "bfloat16", False),
+                ("Lq<Lk", 2, 200, 520, "float32", True)]
+FLASH = {  # kernel name -> (TPU kernel it replaces, flops per attended pair / D)
+    "flash_forward": ("ray_tpu/ops/flash_attention.py:39", 4),
+    "flash_dq": ("ray_tpu/ops/flash_attention.py:146", 6),
+    "flash_dkv": ("ray_tpu/ops/flash_attention.py:200", 8),
+}
+
+
+def _flash_bound(name, B, Lq, Lk, H, D, dtype, causal):
+    """Least time for the work: each input read once and each output
+    written once (q, k, v; g, lse and delta for the backward; o and lse,
+    dq, or dk and dv), and 4, 6 or 8 · D flops per attended (query, key)
+    pair per head — the score product, dO·Vᵀ, and one product per
+    output."""
+    el = 2 if dtype == "bfloat16" else 4
+    pairs = (sum(min(r + 1, Lk) for r in range(Lq)) if causal
+             else Lq * Lk) * B * H
+    q_el, kv_el, rows = B * Lq * H * D, B * Lk * H * D, B * H * Lq
+    if name == "flash_forward":
+        nbytes = (2 * q_el + 2 * kv_el) * el + 4 * rows
+    elif name == "flash_dq":
+        nbytes = (3 * q_el + 2 * kv_el) * el + 8 * rows
+    else:
+        nbytes = (2 * q_el + 4 * kv_el) * el + 8 * rows
+    flops = FLASH[name][1] * D * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
+def phase_flash_kernels(torch, np, card):
+    """K1-K3 against their plain versions: the train step's shape in bf16
+    (timed), at B=4 in f32, and a ragged, non-causal and Lk != Lq case."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    timer = Timer(torch)
+    rng = np.random.default_rng(7)
+    H, D = 12, 64
+    cases = []
+    for label, B, Lq, Lk, dtype, causal in FLASH_SHAPES:
+        dt = getattr(torch, dtype)
+
+        def rnd(L):
+            return torch.tensor(rng.standard_normal((B, L, H, D)),
+                                dtype=torch.float32, device=DEVICE).to(dt)
+
+        q, k, v, g = rnd(Lq), rnd(Lk), rnd(Lk), rnd(Lq)
+        s = 1.0 / D ** 0.5
+        o, lse = fa.flash_forward(q, k, v, scale=s, causal=causal)
+        grads = fa.flash_backward(q, k, v, g, o, lse, scale=s, causal=causal)
+        torch.cuda.synchronize()
+        want_o, want_lse = fa.flash_forward_reference(q, k, v, scale=s,
+                                                      causal=causal)
+        delta = fa._delta(g, o)
+        want_dq = fa.flash_dq_reference(q, k, v, g, lse, delta, scale=s,
+                                        causal=causal)
+        want_dk, want_dv = fa.flash_dkv_reference(q, k, v, g, lse, delta,
+                                                  scale=s, causal=causal)
+        tol = TOL[dtype]
+        checks = {"flash_forward": [(o, want_o, tol), (lse, want_lse,
+                                                       LSE_TOL)],
+                  "flash_dq": [(grads[0], want_dq, tol)],
+                  "flash_dkv": [(grads[1], want_dk, tol),
+                                (grads[2], want_dv, tol)]}
+        for name, pairs in checks.items():
+            err = 0.0
+            for got, want, t in pairs:
+                if not torch.isfinite(got).all():
+                    fail(f"{name} {label} {dtype}: non-finite output")
+                e = (got.float() - want.float()).abs().max().item()
+                if not torch.allclose(got.float(), want.float(), atol=t,
+                                      rtol=t):
+                    fail(f"{name} {label} {dtype}: max abs err {e} over "
+                         f"tolerance {t}")
+                err = max(err, e)
+            rec = {"kernel": name, "case": label, "dtype": dtype, "B": B,
+                   "Lq": Lq, "Lk": Lk, "H": H, "D": D, "causal": causal,
+                   "max_abs_err": err, "tol": tol,
+                   "plain_max_abs": max(w.abs().max().item()
+                                        for _, w, _ in pairs)}
+            if label == "train":
+                bound_ms, bound_by, nbytes, flops = _flash_bound(
+                    name, B, Lq, Lk, H, D, dtype, causal)
+                rec.update(bound_ms=bound_ms, bound_by=bound_by,
+                           bytes=nbytes, flops=flops)
+            cases.append(rec)
+        if label != "train":
+            errs = ", ".join(f"{c['kernel']} {c['max_abs_err']:.2e}"
+                             for c in cases[-3:])
+            log(f"[kernel] flash {label:12s} {dtype:8s} B={B} Lq={Lq} "
+                f"Lk={Lk} causal={causal}: within tolerance ({errs})")
+            continue
+        # Times at the train step's shape. The library yardstick is torch's
+        # scaled_dot_product_attention on the same [B, H, L, D] views; the
+        # port never calls it.
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        gt = g.transpose(1, 2)
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        lib_err = (lib_out.transpose(1, 2).float() - want_o.float()).abs(
+        ).max().item()
+
+        def lib_bwd():
+            torch.autograd.grad(lib_out, (qt, kt, vt), gt, retain_graph=True)
+
+        def lib_fwd_bwd():
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            torch.autograd.grad(out, (qt, kt, vt), gt)
+
+        with torch.no_grad():
+            times = {
+                "flash_forward": (
+                    timer(lambda: fa.flash_forward(q, k, v, scale=s,
+                                                   causal=True)),
+                    timer(lambda: fa.flash_forward_reference(
+                        q, k, v, scale=s, causal=True), iters=5)),
+                "flash_dq": (
+                    timer(lambda: fa.flash_dq(q, k, v, g, lse, delta,
+                                              scale=s, causal=True)),
+                    timer(lambda: fa.flash_dq_reference(
+                        q, k, v, g, lse, delta, scale=s, causal=True),
+                        iters=5)),
+                "flash_dkv": (
+                    timer(lambda: fa.flash_dkv(q, k, v, g, lse, delta,
+                                               scale=s, causal=True)),
+                    timer(lambda: fa.flash_dkv_reference(
+                        q, k, v, g, lse, delta, scale=s, causal=True),
+                        iters=5)),
+            }
+            lib_fwd_ms = timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True))
+        lib_bwd_ms = timer(lib_bwd)
+        lib_fwd_bwd_ms = timer(lib_fwd_bwd)
+        for rec in cases[-3:]:
+            ms, plain_ms = times[rec["kernel"]]
+            rec.update(ms=ms, plain_ms=plain_ms,
+                       library_ms=(lib_fwd_ms if rec["kernel"] ==
+                                   "flash_forward" else lib_bwd_ms),
+                       library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms,
+                       library_fwd_bwd_ms=lib_fwd_bwd_ms,
+                       library_max_abs_err=lib_err)
+            log(f"[kernel] {rec['kernel']:13s} train {dtype} B={B} L={Lq} "
+                f"H={H} D={D} causal: err {rec['max_abs_err']:.2e} (tol "
+                f"{tol:g}, outputs up to {rec['plain_max_abs']:.3g})  "
+                f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                f"library {rec['library_ms']:.4f} ms  bound "
+                f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})  [{card}]")
+        log(f"[kernel] library yardstick (SDPA, is_causal): forward "
+            f"{lib_fwd_ms:.4f} ms, backward {lib_bwd_ms:.4f} ms, forward + "
+            f"backward {lib_fwd_bwd_ms:.4f} ms  [{card}]")
+        del qt, kt, vt, lib_out
+    return cases
+
+
+# -- phase 6 -----------------------------------------------------------------
+def _profile_step(torch, step, card):
+    """Where a train step's time goes: torch.profiler over one step. Device
+    busy time is the sum of the kernels' own times (one stream)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows, ops = _device_rows(torch, prof)
+    busy_us = sum(r[1] for r in rows)
+    out = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+           "device_idle_share": 1 - busy_us / wall_us if rows else None,
+           "top_kernels": [{"name": k[:90], "device_ms": d / 1e3,
+                            "calls": c} for k, d, c in rows[:20]],
+           "top_ops": [{"name": k[:90], "device_ms": d / 1e3, "calls": c}
+                       for k, d, c in ops[:20]]}
+    if not rows:
+        log("[profile] the profiler recorded no device time: not measured")
+        return out
+    log(f"[profile] one train step: {wall_us / 1e3:.1f} ms wall under the "
+        f"profiler; device busy {busy_us / 1e3:.1f} ms, idle share "
+        f"{out['device_idle_share']:.3f}  [{card}]")
+    for k, d, c in rows[:10]:
+        log(f"[profile]   {d / 1e3:9.2f} ms {c:6d}x  {k[:80]}")
+    log("[profile] by torch operator:")
+    for k, d, c in ops[:10]:
+        log(f"[profile]   {d / 1e3:9.2f} ms {c:6d}x  {k[:80]}")
+    return out
+
+
+def phase_train(torch, np, card, counts):
+    from ray_tpu_torch.models import training, transformer
+
+    cfg = transformer.gpt2_small(max_seq_len=TRAIN_L, remat=True)
+    t0 = time.perf_counter()
+    bundle = training.make_train_step(
+        loss_fn=lambda p, b: transformer.lm_loss(p, b, cfg),
+        init_params_fn=lambda seed: transformer.init_params(cfg, seed,
+                                                            device=DEVICE),
+        optimizer=training.adamw(3e-4, weight_decay=0.1), device=DEVICE)
+    params, opt = bundle.init(0)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.tensor(rng.integers(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_L)), device=DEVICE)}
+    losses, norms = [], []
+    for _ in range(TRAIN_WARMUP):
+        params, opt, m = bundle.step(params, opt, batch)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    per_step = []
+    # Counts to 0 just before the timed run, read just after.
+    counts.reset()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        before = counts.read()
+        params, opt, m = bundle.step(params, opt, batch)
+        after = counts.read()
+        per_step.append({k: after[k] - before[k] for k in after})
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts.read()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [x.item() for x in losses]
+    norms = [x.item() for x in norms]
+    n = cfg.n_layers
+    want = {"flash_forward": 2 * n, "flash_dq": n, "flash_dkv": n,
+            "paged_attention": 0}
+    for i, got in enumerate(per_step):
+        if got != want:
+            fail(f"train step {i}: launches {got}, wanted {want} (forward "
+                 f"+ remat recompute = 2 x {n}, backward {n} each)")
+    if not all(np.isfinite(losses + norms)):
+        fail(f"train: non-finite loss or grad norm: {losses} {norms}")
+    if not losses[-1] < losses[0]:
+        fail(f"train: loss did not fall: {losses}")
+    tokens = TRAIN_B * TRAIN_L * TRAIN_STEPS
+    out = {"config": "gpt2_small(max_seq_len=1024, remat=True) bf16, f32 "
+                     "params, AdamW(3e-4, wd 0.1)",
+           "batch": [TRAIN_B, TRAIN_L], "warmup": TRAIN_WARMUP,
+           "steps": TRAIN_STEPS, "setup_and_warmup_s": setup_s,
+           "wall_s": wall, "step_ms": wall / TRAIN_STEPS * 1e3,
+           "tokens_per_s": tokens / wall, "peak_memory_bytes": peak,
+           "losses": losses, "grad_norms": norms, "launches": launches,
+           "launches_per_step": want}
+    log(f"[train] gpt2_small L={TRAIN_L} B={TRAIN_B} remat bf16: "
+        f"{TRAIN_STEPS} steps in {wall:.3f} s = {out['step_ms']:.1f} ms a "
+        f"step, {out['tokens_per_s']:.0f} tokens/s, peak memory "
+        f"{peak / 2**30:.2f} GiB  [{card}]")
+    log(f"[train] loss {losses[0]:.4f} -> {losses[-1]:.4f}, grad norm "
+        f"{norms[0]:.3f} -> {norms[-1]:.3f}; launches a step: flash forward "
+        f"{2 * n}, dq {n}, dkv {n} (total {launches})")
+
+    def one_step():
+        nonlocal params, opt
+        params, opt, _ = bundle.step(params, opt, batch)
+
+    out["profile"] = _profile_step(torch, one_step, card)
+    return out
+
+
+# -- phase 7 -----------------------------------------------------------------
+def phase_train_end_to_end(torch, np):
+    from ray_tpu_torch.models import training, transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = transformer.gpt2_small(n_layers=2, dtype=torch.float32,
+                                  max_seq_len=1024)
+    tokens = torch.tensor(np.random.default_rng(8).integers(
+        0, base.vocab_size, (2, 1024)), device=DEVICE)
+    res = {}
+    for attn in ("flash", "dense"):
+        cfg = base.replace(attn_impl=attn, remat=True)
+        bundle = training.make_train_step(
+            loss_fn=lambda p, b, cfg=cfg: transformer.lm_loss(p, b, cfg),
+            init_params_fn=lambda seed: transformer.init_params(
+                base, seed, device=DEVICE),
+            optimizer=training.adamw(3e-4, weight_decay=0.1), device=DEVICE)
+        params, opt = bundle.init(5)
+        loss = transformer.lm_loss(params, {"tokens": tokens}, cfg)
+        loss.backward()
+        grads = {name: p.grad.clone() for name, p in zip(
+            _leaf_names(params), training._leaves(params))}
+        losses = []
+        for _ in range(3):
+            params, opt, m = bundle.step(params, opt, {"tokens": tokens})
+            losses.append(m["loss"].item())
+        res[attn] = (loss.item(), grads, losses)
+        del params, opt, bundle
+    (lf, gf, sf), (ld, gd, sd) = res["flash"], res["dense"]
+    if abs(lf - ld) > 1e-5 * abs(ld):
+        fail(f"train e2e: loss {lf} (flash) vs {ld} (dense)")
+    # Each leaf relative to its largest entry, floored at 1e-3 of the
+    # model's largest: bk's gradient is 0 in exact arithmetic (softmax does
+    # not see a per-row constant), so both paths give rounding noise there.
+    floor = 1e-3 * max(g.abs().max().item() for g in gd.values())
+    worst = 0.0
+    for name in gd:
+        rel = ((gf[name] - gd[name]).abs().max().item()
+               / max(gd[name].abs().max().item(), floor))
+        worst = max(worst, rel)
+        if rel > TRAIN_GRAD_TOL:
+            fail(f"train e2e: gradient {name} differs by {rel:.2e} of its "
+                 f"scale (tolerance {TRAIN_GRAD_TOL})")
+    for a, b in zip(sf, sd):
+        if abs(a - b) > TRAIN_LOSS_TOL * abs(b):
+            fail(f"train e2e: step losses {sf} (flash) vs {sd} (dense)")
+    log(f"[train e2e] gpt2_small widths x 2 layers, f32, B=2 L=1024: loss "
+        f"{lf:.6f} (flash) vs {ld:.6f} (dense); gradients within "
+        f"{worst:.2e} of each leaf's max (tol {TRAIN_GRAD_TOL}); 3 AdamW "
+        f"steps {sf} vs {sd}")
+    return {"loss": [lf, ld], "grad_worst_rel": worst, "step_losses":
+            {"flash": sf, "dense": sd}}
+
+
+def _leaf_names(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaf_names(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k
+
+
 def main() -> None:
     if not (ROOT / "ray_tpu_torch" / "ops" / "csrc").is_dir():
         fail(f"ray_tpu_torch/ not found beside {Path(__file__).name}: run "
@@ -501,15 +890,16 @@ def main() -> None:
 
     card, kind, count = phase_device(torch)
     logs = phase_build()
-    from ray_tpu_torch.ops import paged_attention
-
-    kernel_mods = {"paged_attention": paged_attention}
-    missing = set(logs) - set(kernel_mods)
+    missing = set(logs) - {mod for mod, _ in COUNTERS.values()}
     if missing:
         fail(f"kernel sources without a check here: {sorted(missing)}")
+    counts = Counts()
     cases = phase_kernels(torch, np, card)
-    engine = phase_engine(torch, np, card, kernel_mods)
+    flash_cases = phase_flash_kernels(torch, np, card)
+    engine = phase_engine(torch, np, card, counts)
     e2e = phase_end_to_end(torch, np)
+    train = phase_train(torch, np, card, counts)
+    train_e2e = phase_train_end_to_end(torch, np)
 
     main_case = next(c for c in cases
                      if c["case"] == "decode" and c["dtype"] == "bfloat16")
@@ -525,12 +915,26 @@ def main() -> None:
         "library_ms": main_case["library_ms"],
         "timed_case": "decode S=4 T=1 lengths [0,15,16,1000] bf16",
     }]
+    for name, (replaces, _) in FLASH.items():
+        mine = [c for c in flash_cases if c["kernel"] == name]
+        timed = next(c for c in mine if c["case"] == "train")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": replaces, "launches": train["launches"][name],
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+            "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+            "library_ms": timed["library_ms"],
+            "timed_case": "B=16 L=1024 H=12 D=64 causal bf16",
+        })
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kind": kind, "count": count, "kernels": kernels,
-         "cases": cases,
-         "engine": engine, "end_to_end": e2e}, indent=1))
+         "cases": cases, "flash_cases": flash_cases,
+         "engine": engine, "end_to_end": e2e, "train": train,
+         "train_end_to_end": train_e2e}, indent=1))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))

@@ -33,8 +33,9 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ray_tpu_torch.models.transformer import TransformerConfig
-from ray_tpu_torch.ops.layers import gelu, layer_norm, linear, rope
+from ray_tpu_torch.models.transformer import (TransformerConfig, _block_tail,
+                                              _heads, _logits)
+from ray_tpu_torch.ops.layers import layer_norm, rope
 from ray_tpu_torch.ops.paged_attention import paged_attention
 from ray_tpu_torch.util import blockhash
 
@@ -112,40 +113,6 @@ def _paged_attend(q, k_pool, v_pool, tables, lengths, *, scale, kernel):
     kc = k_pool[idx].reshape(S, nb_seq * bt, H, D)
     vc = v_pool[idx].reshape(S, nb_seq * bt, H, D)
     return _attend_cached(q, kc, vc, lengths.long() + T, scale=scale)
-
-
-def _heads(x, w, b, dtype):
-    """``einsum("btd,dhk->bthk", x, w)`` rounded to ``dtype``, then the bias
-    added in ``dtype`` — the JAX q/k/v order (the bias is NOT added in f32,
-    unlike :func:`linear`)."""
-    B, T, D = x.shape
-    _, H, Dh = w.shape
-    y = torch.matmul(x, w.reshape(D, H * Dh)).to(dtype)
-    return y.reshape(B, T, H, Dh) + b
-
-
-def _out_proj(o, w, b, dtype):
-    """``einsum("bthk,hkd->btd", o, w)`` rounded to ``dtype`` plus the bias
-    in ``dtype``."""
-    B, T, H, Dh = o.shape
-    return torch.matmul(o.reshape(B, T, H * Dh),
-                        w.reshape(H * Dh, -1)).to(dtype) + b
-
-
-def _block_tail(h, bp, o, dtype):
-    """Attention output projection, residual and MLP of one block."""
-    h = h + _out_proj(o, bp["wo"], bp["bo"], dtype)
-    x = layer_norm(h, bp["ln2_g"], bp["ln2_b"])
-    u = gelu(linear(x, bp["w_up"], bp["b_up"]))
-    return h + linear(u, bp["w_down"], bp["b_down"])
-
-
-def _logits(params, h, c: TransformerConfig):
-    cast = lambda p: p.to(c.dtype)
-    h = layer_norm(h, cast(params["lnf_g"]), cast(params["lnf_b"]))
-    w_out = (params["tok_embed"].T if c.tie_embeddings
-             else params["lm_head"])
-    return torch.matmul(h.float(), cast(w_out).float())
 
 
 def _forward_prefill_paged(params, tokens, k_pool, v_pool, table, start_pos,

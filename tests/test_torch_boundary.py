@@ -2,8 +2,8 @@
 nothing of JAX and nothing of the JAX package ``ray_tpu``.
 
 Every ``.py`` file is walked with ``ast`` (imports inside functions count
-too), and the serving entry module is imported in a fresh interpreter with
-``jax`` blocked from import.
+too), and the serving and training entry modules are imported in a fresh
+interpreter with ``jax`` blocked from import.
 """
 
 import ast
@@ -80,6 +80,8 @@ def test_serving_imports_with_jax_blocked():
         "sys.meta_path.insert(0, Block())\n"
         "import ray_tpu_torch.serve.llm, ray_tpu_torch.models.convert\n"
         "import ray_tpu_torch.ops.paged_attention\n"
+        "import ray_tpu_torch.ops.flash_attention\n"
+        "import ray_tpu_torch.models.transformer, ray_tpu_torch.models.training\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ray_tpu')]\n"
         "assert not bad, bad\n"

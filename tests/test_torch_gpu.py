@@ -7,16 +7,23 @@ and runs there with:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
-Tolerances: 1e-4 in f32 (the kernel sums over up to ~1300 keys in another
-order than the plain version), 1e-2 in bf16 (both round an f32 result to
-bf16; one bf16 step is 2^-8 relative).
+Tolerances: 1e-4 in f32 (the kernels sum over up to ~1300 keys in another
+order than the plain versions), 1e-2 in bf16 (both round an f32 result to
+bf16; one bf16 step is 2^-8 relative); the flash lse, f32 in both dtypes,
+1e-4. The tiny train step through the flash kernels and through dense
+attention (f32): each gradient leaf 1e-4 relative to its largest entry,
+floored at 1e-3 of the model's largest (bk's gradient is 0 in exact
+arithmetic: both paths give rounding noise there), the losses of 3 AdamW
+steps 1e-4 relative.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from ray_tpu_torch.models import transformer
+from ray_tpu_torch.models import training, transformer
+from ray_tpu_torch.ops import flash_attention as fa
+from ray_tpu_torch.ops import layers
 from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.serve.llm import PagedLLMEngine
 
@@ -118,3 +125,151 @@ def test_engine_kernel_path_matches_gather_path(cuda):
             prompt, max_new_tokens=10)
     assert pa.launches > before
     assert kern.kv.active_blocks() == plain.kv.active_blocks() == 0
+
+
+def _flash_operands(seed, dt, B, Lq, Lk, H, D):
+    rng = np.random.default_rng(seed)
+
+    def rnd(L):
+        return torch.tensor(rng.standard_normal((B, L, H, D)),
+                            dtype=torch.float32, device="cuda").to(dt)
+
+    return rnd(Lq), rnd(Lk), rnd(Lk), rnd(Lq)
+
+
+def _flash_counts():
+    return fa.forward_launches, fa.dq_launches, fa.dkv_launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("lq,lk", [(64, 64), (192, 192), (1024, 1024),
+                                   (96, 160), (160, 96)])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_kernels_match_plain_versions(cuda, dtype, causal, lq, lk, d):
+    dt = getattr(torch, dtype)
+    B, H = (2, 3) if lq < 1024 else (1, 2)
+    q, k, v, g = _flash_operands(lq * 7 + d, dt, B, lq, lk, H, d)
+    s = 1.0 / d ** 0.5
+    before = _flash_counts()
+    o, lse = fa.flash_forward(q, k, v, scale=s, causal=causal)
+    torch.cuda.synchronize()
+    assert _flash_counts() == (before[0] + 1, before[1], before[2])
+    want_o, want_lse = fa.flash_forward_reference(q, k, v, scale=s,
+                                                  causal=causal)
+    assert o.dtype == dt and o.shape == q.shape and lse.shape == (B, H, lq)
+    torch.testing.assert_close(o.float(), want_o.float(), atol=TOL[dt],
+                               rtol=TOL[dt])
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+    grads = fa.flash_backward(q, k, v, g, o, lse, scale=s, causal=causal)
+    torch.cuda.synchronize()
+    assert _flash_counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    want = fa.flash_backward_reference(q, k, v, g, o, lse, scale=s,
+                                       causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, want):
+        assert a.dtype == dt and a.shape == b.shape, name
+        torch.testing.assert_close(a.float(), b.float(), atol=TOL[dt],
+                                   rtol=TOL[dt], msg=name)
+    # No atomics: a second run gives the same bits.
+    again = fa.flash_backward(q, k, v, g, o, lse, scale=s, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.gpu
+def test_flash_autograd_on_strided_operands(cuda):
+    """q, k, v as strided views of one [B, L, 3, H, D] tensor and an
+    expanded output gradient go through the kernels like contiguous ones."""
+    rng = np.random.default_rng(11)
+    qkv = torch.tensor(rng.standard_normal((2, 128, 3, 4, 64)),
+                       dtype=torch.float32, device="cuda")
+    leaf = qkv.clone().requires_grad_(True)
+    q, k, v = leaf.unbind(2)
+    before = _flash_counts()
+    fa.flash_attention(q, k, v, True).sum().backward()
+    assert _flash_counts() == tuple(c + 1 for c in before)
+    ref = qkv.clone().requires_grad_(True)
+    fa._dense_reference(*ref.unbind(2), scale=0.125, causal=True).sum(
+    ).backward()
+    torch.testing.assert_close(leaf.grad, ref.grad, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_flash_refuses_what_it_cannot_take(cuda):
+    q, k, v, g = _flash_operands(0, torch.float32, 1, 64, 64, 2, 16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_forward(q, k, v, scale=0.25, causal=True)
+    q, k, v, g = _flash_operands(0, torch.float32, 1, 64, 64, 2, 64)
+    with pytest.raises(TypeError, match="dtype"):
+        fa.flash_forward(q, k.half(), v, scale=0.125, causal=True)
+    with pytest.raises(ValueError, match="on"):
+        fa.flash_forward(q, k.cpu(), v, scale=0.125, causal=True)
+    o, lse = fa.flash_forward(q, k, v, scale=0.125, causal=True)
+    delta = fa._delta(g, o)
+    with pytest.raises(ValueError, match="lse and delta"):
+        fa.flash_dq(q, k, v, g, lse[:, :1], delta, scale=0.125, causal=True)
+    with pytest.raises(ValueError, match="lse and delta"):
+        fa.flash_dkv(q, k, v, g, lse, delta.double(), scale=0.125,
+                     causal=True)
+
+
+@pytest.mark.gpu
+def test_tiny_train_step_through_flash_kernels_matches_dense(cuda):
+    base = transformer.tiny(n_heads=2, max_seq_len=128)     # head_dim 32
+    tokens = torch.tensor(np.random.default_rng(12).integers(
+        0, base.vocab_size, (2, 128)), device="cuda")
+    results = {}
+    for attn in ("flash", "dense"):
+        cfg = base.replace(attn_impl=attn, remat=True)
+        bundle = training.make_train_step(
+            loss_fn=lambda p, b, cfg=cfg: transformer.lm_loss(p, b, cfg),
+            init_params_fn=lambda seed: transformer.init_params(base, seed),
+            optimizer=training.adamw(1e-3, weight_decay=0.1), device="cuda")
+        params, opt = bundle.init(0)
+        before = _flash_counts()
+        transformer.lm_loss(params, {"tokens": tokens}, cfg).backward()
+        grads = [p.grad.clone() for p in training._leaves(params)]
+        n = base.n_layers if attn == "flash" else 0
+        assert _flash_counts() == (before[0] + 2 * n, before[1] + n,
+                                   before[2] + n)
+        losses = []
+        for _ in range(3):
+            params, opt, m = bundle.step(params, opt, {"tokens": tokens})
+            losses.append(m["loss"].item())
+        results[attn] = grads, losses
+    (gf, lf), (gd, ld) = results["flash"], results["dense"]
+    floor = 1e-3 * max(b.abs().max() for b in gd)
+    for a, b in zip(gf, gd):
+        assert (a - b).abs().max() <= 1e-4 * max(b.abs().max(), floor)
+    np.testing.assert_allclose(lf, ld, rtol=1e-4)
+    assert lf[-1] < lf[0]
+
+
+@pytest.mark.gpu
+def test_matmul_f32_runs_bf16_with_f32_output(cuda):
+    """bf16 operands on the card: one tensor-core GEMM with an unrounded f32
+    output (only the sum order differs from the f32 upcast: 1e-4), bf16
+    gradients one rounding from the f32 ones (1e-2), and the same product
+    with or without a graph to record."""
+    rng = np.random.default_rng(13)
+    x = torch.tensor(rng.standard_normal((3, 5, 64)), dtype=torch.float32,
+                     device="cuda").bfloat16()
+    w = torch.tensor(rng.standard_normal((64, 48)), dtype=torch.float32,
+                     device="cuda").bfloat16()
+    want = torch.matmul(x.float(), w.float())
+    got = layers.matmul_f32(x, w)
+    assert got.dtype == torch.float32 and got.shape == (3, 5, 48)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = layers.matmul_f32(xg, wg)
+    assert torch.equal(y.detach(), got)
+    g = torch.tensor(rng.standard_normal((3, 5, 48)), dtype=torch.float32,
+                     device="cuda").bfloat16()
+    y.to(torch.bfloat16).backward(g)
+    xr, wr = x.float().requires_grad_(), w.float().requires_grad_()
+    torch.matmul(xr, wr).backward(g.float())
+    assert xg.grad.dtype == wg.grad.dtype == torch.bfloat16
+    torch.testing.assert_close(xg.grad.float(), xr.grad, atol=1e-2,
+                               rtol=1e-2)
+    torch.testing.assert_close(wg.grad.float(), wr.grad, atol=1e-2,
+                               rtol=1e-2)
