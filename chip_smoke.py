@@ -11,12 +11,17 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    device name and count; no CUDA device is a failure;
 2. build — every kernel under ``ray_tpu_torch/ops/csrc`` from the checkout's
    sources, one ``nvcc`` per source, all started together; prints the
-   ``-Xptxas -v`` lines (registers, shared memory, spills);
+   ``-Xptxas -v`` lines (registers, shared memory, spills); a spill in a
+   tensor-core kernel is a failure;
 3. kernels — each kernel's wrapper against its plain PyTorch version at the
    main paths' shapes, in bf16 and f32, with its time, the plain version's
    time, one library call's time (a yardstick only) and the bound: the
    paged-attention kernel at the engine's shapes, the three flash-attention
-   kernels at the train step's (B=16, L=1024, H=12, D=64, causal);
+   kernels at the train step's (B=16, L=1024, H=12, D=64, causal), each
+   with its route (bf16 K1 and K3 on the tensor cores, the rest on the
+   CUDA cores), TFLOP/s, and times over the bound and the library call;
+   there the bf16 tensor-core kernels' errors must stay within twice those
+   of torch's SDPA against the same plain versions;
 4. engine — ``PagedLLMEngine`` on ``gpt2_small()`` at full width (bf16,
    random weights from a seed) answers 8 requests from concurrent threads,
    with a shared-prefix hit and a copy-on-write tail fork; the kernels'
@@ -35,7 +40,10 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    torch.profiler;
 7. train end to end — gpt2_small widths with 2 layers, f32, B=2, L=1024:
    the flash kernels and ``attn_impl="dense"`` give the same loss and
-   gradients, then the same losses over 3 AdamW steps.
+   gradients, then the same losses over 3 AdamW steps; then both in bf16
+   compute (where K1 and K3 run on the tensor cores), each held to the f32
+   dense run: the flash errors in loss and gradients within twice dense
+   bf16's plus one bf16 step.
 
 It prints the kernels line ``{"kernels": [...]}`` and, last, the line
 ``{"ok": true, "device": {...}}``. Details go to
@@ -62,6 +70,7 @@ TOP2_TIE = 1e-3                      # end-to-end: a first divergence is a tie b
 LSE_TOL = 1e-4                       # flash lse: f32 in both versions
 TRAIN_GRAD_TOL = 1e-4                # train e2e: per leaf, relative to its scale
 TRAIN_LOSS_TOL = 1e-4                # train e2e: relative, losses of 3 steps
+BF16_E2E_FLOOR = 4e-3                # train e2e bf16: one bf16 step (2^-8) of slack
 DEVICE = "cuda"
 
 # Kernel name -> (module of ray_tpu_torch.ops, its launch counter).
@@ -110,14 +119,31 @@ def phase_build():
     t0 = time.perf_counter()
     logs = _build.build_all()
     dt = time.perf_counter() - t0
+    spilled = []
     for name, text in logs.items():
         log(f"[build] {name}.cu (sm_90a)")
+        entry = ""
         for line in text.splitlines():
+            if "Compiling entry" in line:
+                entry = line.split("'")[1] if "'" in line else line
             if any(w in line for w in ("registers", "spill", "smem",
                                        "Compiling entry", "stack frame")):
                 log(f"[build]   {line.strip()}")
+            # The tensor-core kernels hold their tiles in registers: a
+            # spill would put them in local memory on every step.
+            if "_mma_kernel" in entry and any(_spill_counts(line)):
+                spilled.append(entry)
     log(f"[build] {len(logs)} kernel(s) ready in {dt:.1f} s")
+    if spilled:
+        fail(f"tensor-core kernels spill registers: {spilled}")
     return logs
+
+
+def _spill_counts(line):
+    """The byte counts of a ``-Xptxas -v`` line's "N bytes spill ..." parts."""
+    words = line.replace(",", " ").split()
+    return [int(words[i - 2]) for i, w in enumerate(words)
+            if w == "spill" and i >= 2 and words[i - 2].isdigit()]
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -581,9 +607,18 @@ def _flash_bound(name, B, Lq, Lk, H, D, dtype, causal):
             nbytes, flops)
 
 
+def flash_route(name, dtype):
+    """Which design of ``csrc/flash_attention.cu`` runs: the dtype alone
+    picks it."""
+    if dtype == "bfloat16" and name in ("flash_forward", "flash_dkv"):
+        return "tensor cores (mma.sync)"
+    return "CUDA cores"
+
+
 def phase_flash_kernels(torch, np, card):
     """K1-K3 against their plain versions: the train step's shape in bf16
-    (timed), at B=4 in f32, and a ragged, non-causal and Lk != Lq case."""
+    (timed, with SDPA's errors against the same plain versions beside the
+    kernels'), at B=4 in f32, and ragged, non-causal and Lk != Lq cases."""
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import flash_attention as fa
@@ -613,27 +648,29 @@ def phase_flash_kernels(torch, np, card):
         want_dk, want_dv = fa.flash_dkv_reference(q, k, v, g, lse, delta,
                                                   scale=s, causal=causal)
         tol = TOL[dtype]
-        checks = {"flash_forward": [(o, want_o, tol), (lse, want_lse,
-                                                       LSE_TOL)],
-                  "flash_dq": [(grads[0], want_dq, tol)],
-                  "flash_dkv": [(grads[1], want_dk, tol),
-                                (grads[2], want_dv, tol)]}
-        for name, pairs in checks.items():
-            err = 0.0
-            for got, want, t in pairs:
+        checks = {"flash_forward": [("o", o, want_o, tol),
+                                    ("lse", lse, want_lse, LSE_TOL)],
+                  "flash_dq": [("dq", grads[0], want_dq, tol)],
+                  "flash_dkv": [("dk", grads[1], want_dk, tol),
+                                ("dv", grads[2], want_dv, tol)]}
+        for name, outs in checks.items():
+            errs = {}
+            for out, got, want, t in outs:
                 if not torch.isfinite(got).all():
-                    fail(f"{name} {label} {dtype}: non-finite output")
+                    fail(f"{name} {label} {dtype}: non-finite {out}")
                 e = (got.float() - want.float()).abs().max().item()
                 if not torch.allclose(got.float(), want.float(), atol=t,
                                       rtol=t):
-                    fail(f"{name} {label} {dtype}: max abs err {e} over "
-                         f"tolerance {t}")
-                err = max(err, e)
+                    fail(f"{name} {label} {dtype}: {out} max abs err {e} "
+                         f"over tolerance {t}")
+                errs[out] = e
             rec = {"kernel": name, "case": label, "dtype": dtype, "B": B,
                    "Lq": Lq, "Lk": Lk, "H": H, "D": D, "causal": causal,
-                   "max_abs_err": err, "tol": tol,
+                   "route": flash_route(name, dtype),
+                   "max_abs_err": max(errs.values()), "errs": errs,
+                   "tol": tol,
                    "plain_max_abs": max(w.abs().max().item()
-                                        for _, w, _ in pairs)}
+                                        for _, _, w, _ in outs)}
             if label == "train":
                 bound_ms, bound_by, nbytes, flops = _flash_bound(
                     name, B, Lq, Lk, H, D, dtype, causal)
@@ -646,15 +683,21 @@ def phase_flash_kernels(torch, np, card):
             log(f"[kernel] flash {label:12s} {dtype:8s} B={B} Lq={Lq} "
                 f"Lk={Lk} causal={causal}: within tolerance ({errs})")
             continue
-        # Times at the train step's shape. The library yardstick is torch's
-        # scaled_dot_product_attention on the same [B, H, L, D] views; the
-        # port never calls it.
+        # At the train step's shape: torch's scaled_dot_product_attention on
+        # the same [B, H, L, D] views, as a yardstick of time and of error
+        # against the same plain versions. The port never calls it.
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                       for x in (q, k, v))
         gt = g.transpose(1, 2)
         lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-        lib_err = (lib_out.transpose(1, 2).float() - want_o.float()).abs(
-        ).max().item()
+        lib_grads = torch.autograd.grad(lib_out, (qt, kt, vt), gt,
+                                        retain_graph=True)
+        lib_errs = {
+            out: (got.transpose(1, 2).float() - want.float()).abs().max(
+            ).item()
+            for out, got, want in zip(
+                ("o", "dq", "dk", "dv"), (lib_out,) + lib_grads,
+                (want_o, want_dq, want_dk, want_dv))}
 
         def lib_bwd():
             torch.autograd.grad(lib_out, (qt, kt, vt), gt, retain_graph=True)
@@ -688,23 +731,40 @@ def phase_flash_kernels(torch, np, card):
         lib_bwd_ms = timer(lib_bwd)
         lib_fwd_bwd_ms = timer(lib_fwd_bwd)
         for rec in cases[-3:]:
-            ms, plain_ms = times[rec["kernel"]]
-            rec.update(ms=ms, plain_ms=plain_ms,
-                       library_ms=(lib_fwd_ms if rec["kernel"] ==
-                                   "flash_forward" else lib_bwd_ms),
+            name = rec["kernel"]
+            ms, plain_ms = times[name]
+            lib_ms = lib_fwd_ms if name == "flash_forward" else lib_bwd_ms
+            rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        library_fwd_ms=lib_fwd_ms, library_bwd_ms=lib_bwd_ms,
                        library_fwd_bwd_ms=lib_fwd_bwd_ms,
-                       library_max_abs_err=lib_err)
-            log(f"[kernel] {rec['kernel']:13s} train {dtype} B={B} L={Lq} "
-                f"H={H} D={D} causal: err {rec['max_abs_err']:.2e} (tol "
-                f"{tol:g}, outputs up to {rec['plain_max_abs']:.3g})  "
-                f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-                f"library {rec['library_ms']:.4f} ms  bound "
-                f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})  [{card}]")
+                       library_errs={o: lib_errs[o] for o in rec["errs"]
+                                     if o in lib_errs},
+                       tflops=rec["flops"] / ms / 1e9,
+                       x_bound=ms / rec["bound_ms"], x_library=ms / lib_ms)
+            # The tensor-core kernels round P (and dS) to bf16 before their
+            # products, as SDPA does: their errors stay within twice SDPA's.
+            if rec["route"].startswith("tensor cores"):
+                for out, e in rec["library_errs"].items():
+                    if e and rec["errs"][out] > 2 * e:
+                        fail(f"{name} train: {out} max abs err "
+                             f"{rec['errs'][out]:.3e} over twice SDPA's "
+                             f"{e:.3e}")
+            errs = ", ".join(
+                f"{o} {e:.2e}" + (f" (SDPA {rec['library_errs'][o]:.2e})"
+                                  if o in rec["library_errs"] else "")
+                for o, e in rec["errs"].items())
+            log(f"[kernel] {name:13s} train {dtype} B={B} L={Lq} H={H} "
+                f"D={D} causal, {rec['route']}: err {errs} (tol {tol:g}, "
+                f"outputs up to {rec['plain_max_abs']:.3g})  kernel "
+                f"{ms:.4f} ms = {rec['tflops']:.1f} TFLOP/s, "
+                f"{rec['x_bound']:.1f}x bound, {rec['x_library']:.2f}x "
+                f"library  plain {plain_ms:.4f} ms  library {lib_ms:.4f} ms"
+                f"  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})  "
+                f"[{card}]")
         log(f"[kernel] library yardstick (SDPA, is_causal): forward "
             f"{lib_fwd_ms:.4f} ms, backward {lib_bwd_ms:.4f} ms, forward + "
             f"backward {lib_fwd_bwd_ms:.4f} ms  [{card}]")
-        del qt, kt, vt, lib_out
+        del qt, kt, vt, lib_out, lib_grads
     return cases
 
 
@@ -819,7 +879,7 @@ def phase_train(torch, np, card, counts):
 
 
 # -- phase 7 -----------------------------------------------------------------
-def phase_train_end_to_end(torch, np):
+def phase_train_end_to_end(torch, np, counts):
     from ray_tpu_torch.models import training, transformer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -868,8 +928,44 @@ def phase_train_end_to_end(torch, np):
         f"{lf:.6f} (flash) vs {ld:.6f} (dense); gradients within "
         f"{worst:.2e} of each leaf's max (tol {TRAIN_GRAD_TOL}); 3 AdamW "
         f"steps {sf} vs {sd}")
+
+    # bf16 compute, where the tensor-core K1 and K3 run: the flash kernels
+    # and dense attention (f32 softmax, bf16 in and out), each held to the
+    # f32 dense run above on the same parameters and tokens.
+    def rel_errs(grads):
+        return max(((grads[n] - gd[n]).abs().max().item()
+                    / max(gd[n].abs().max().item(), floor)) for n in gd)
+
+    bf16 = {}
+    for attn in ("flash", "dense"):
+        cfg = base.replace(attn_impl=attn, remat=True, dtype=torch.bfloat16)
+        params = training._tree_map(
+            lambda t: t.detach().requires_grad_(True),
+            transformer.init_params(base, 5, device=DEVICE))
+        before = counts.read()
+        loss = transformer.lm_loss(params, {"tokens": tokens}, cfg)
+        loss.backward()
+        ran = {k: v - before[k] for k, v in counts.read().items()}
+        if attn == "flash" and not (ran["flash_forward"] and
+                                    ran["flash_dkv"]):
+            fail(f"train e2e bf16: the flash kernels did not run ({ran})")
+        grads = {name: p.grad for name, p in zip(
+            _leaf_names(params), training._leaves(params))}
+        bf16[attn] = (abs(loss.item() - ld) / abs(ld), rel_errs(grads))
+        del params, grads, loss
+    (fl, fg), (dl, dg) = bf16["flash"], bf16["dense"]
+    if fl > 2 * dl + BF16_E2E_FLOOR or fg > 2 * dg + BF16_E2E_FLOOR:
+        fail(f"train e2e bf16: flash loss/gradient errors {fl:.2e}/{fg:.2e} "
+             f"against f32 over twice dense bf16's {dl:.2e}/{dg:.2e} plus "
+             f"{BF16_E2E_FLOOR}")
+    log(f"[train e2e] bf16 compute against the f32 dense run: loss rel. err "
+        f"{fl:.2e} (flash) vs {dl:.2e} (dense), worst gradient leaf "
+        f"{fg:.2e} vs {dg:.2e} of its max (flash within 2x dense + "
+        f"{BF16_E2E_FLOOR})")
     return {"loss": [lf, ld], "grad_worst_rel": worst, "step_losses":
-            {"flash": sf, "dense": sd}}
+            {"flash": sf, "dense": sd},
+            "bf16_vs_f32_dense": {"flash": {"loss_rel": fl, "grad_rel": fg},
+                                  "dense": {"loss_rel": dl, "grad_rel": dg}}}
 
 
 def _leaf_names(tree, prefix=""):
@@ -899,7 +995,7 @@ def main() -> None:
     engine = phase_engine(torch, np, card, counts)
     e2e = phase_end_to_end(torch, np)
     train = phase_train(torch, np, card, counts)
-    train_e2e = phase_train_end_to_end(torch, np)
+    train_e2e = phase_train_end_to_end(torch, np, counts)
 
     main_case = next(c for c in cases
                      if c["case"] == "decode" and c["dtype"] == "bfloat16")
@@ -919,7 +1015,7 @@ def main() -> None:
         mine = [c for c in flash_cases if c["kernel"] == name]
         timed = next(c for c in mine if c["case"] == "train")
         kernels.append({
-            "name": name, "route": "cuda",
+            "name": name, "route": "cuda", "design": timed["route"],
             "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": replaces, "launches": train["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),

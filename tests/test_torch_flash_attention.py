@@ -8,7 +8,8 @@ same (o, lse, g) — the same f32 arithmetic summed in another order; 2e-3 for
 gradients through the whole function and 1e-3 on the dense route (the JAX
 tests' own bounds: the softmax's recomputation differs between the paths);
 3e-2 for bf16 outputs (one bf16 rounding of an O(1) value, 2^-8, plus f32
-sums in another order).
+sums in another order). The bf16 tensor-core kernels' extra rounding of
+P and dS, emulated here, is held to 1e-2, the tolerance the card uses.
 """
 
 import jax
@@ -172,6 +173,60 @@ def test_plain_versions_agree_with_dense_autograd():
                                            causal=causal)
         for a, b in zip(got, (tq.grad, tk.grad, tv.grad)):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _tensor_core_rounding(q, k, v, g, o, lse, *, scale, causal):
+    """What the bf16 tensor-core K1 and K3 compute: scores, softmax
+    statistics and every sum in f32, with P (and dS) rounded to bf16 before
+    the products that take them as operands, and outputs rounded to bf16.
+    Returns (o, lse) of the forward and (dk, dv) of the backward on the
+    given (o, lse)."""
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    s = tfa._scores(qf, kf, scale, causal)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l_ = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    fwd_o = (torch.einsum("bhlk,bkhd->blhd", _bf16(p), vf)
+             / l_.permute(0, 2, 1, 3)).to(torch.bfloat16)
+    fwd_lse = (m + torch.log(l_))[..., 0]
+    delta = tfa._delta(gf, o)
+    p, ds = tfa._probs_and_ds(qf, kf, vf, gf, lse, delta, scale=scale,
+                              causal=causal)
+    dk = torch.einsum("bhlk,blhd->bkhd", _bf16(ds), qf).to(torch.bfloat16)
+    dv = torch.einsum("bhlk,blhd->bkhd", _bf16(p), gf).to(torch.bfloat16)
+    return (fwd_o, fwd_lse), (dk, dv)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_rounding_within_bf16_tolerance_of_jax(causal):
+    """The bf16 rounding of P and dS that the tensor-core kernels add keeps
+    o, dk and dv within the card's bf16 tolerance (1e-2) of the Pallas
+    kernels (f32 inside, bf16 outputs) at the train step's head_dim, and
+    lse within 1e-4."""
+    q, k, v = _qkv(b=2, l=128, h=2, d=64, seed=10)
+    g = np.random.default_rng(11).standard_normal(q.shape).astype(np.float32)
+    s = 0.125
+    jf = [jnp.asarray(_fold(x), jnp.bfloat16) for x in (q, k, v, g)]
+    jo, jlse = jfa._flash_forward(*jf[:3], scale=s, causal=causal,
+                                  block_q=64, block_k=64, interpret=True)
+    _, jdk, jdv = jfa._flash_backward(*jf, jo, jlse, scale=s, causal=causal,
+                                      block_q=64, block_k=64, interpret=True)
+    o = torch.tensor(np.asarray(jo, np.float32).reshape(2, 2, 128, 64)
+                     ).transpose(1, 2).to(torch.bfloat16)
+    lse = torch.tensor(np.asarray(jlse)[..., 0].reshape(2, 2, 128))
+    (got_o, got_lse), (dk, dv) = _tensor_core_rounding(
+        *_t(q, k, v, g, dtype=torch.bfloat16), o, lse, scale=s,
+        causal=causal)
+    np.testing.assert_allclose(got_lse.numpy().reshape(4, 128),
+                               np.asarray(jlse)[..., 0], rtol=1e-4, atol=1e-4)
+    for got, want in ((got_o, jo), (dk, jdk), (dv, jdv)):
+        np.testing.assert_allclose(_fold(got.float().numpy()),
+                                   np.asarray(want, np.float32), rtol=1e-2,
+                                   atol=1e-2)
 
 
 def test_kernel_wrappers_validate_on_the_host():
