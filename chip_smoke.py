@@ -12,16 +12,19 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
 2. build — every kernel under ``ray_tpu_torch/ops/csrc`` from the checkout's
    sources, one ``nvcc`` per source, all started together; prints the
    ``-Xptxas -v`` lines (registers, shared memory, spills); a spill in a
-   tensor-core kernel is a failure;
+   tensor-core kernel (``*_mma_kernel``, ``*_wgmma_kernel``) is a failure;
 3. kernels — each kernel's wrapper against its plain PyTorch version at the
    main paths' shapes, in bf16 and f32, with its time, the plain version's
    time, one library call's time (a yardstick only) and the bound: the
    paged-attention kernel at the engine's shapes, the three flash-attention
    kernels at the train step's (B=16, L=1024, H=12, D=64, causal), each
-   with its route (bf16 K1 and K3 on the tensor cores, the rest on the
-   CUDA cores), TFLOP/s, and times over the bound and the library call;
-   there the bf16 tensor-core kernels' errors must stay within twice those
-   of torch's SDPA against the same plain versions;
+   with its route (bf16 K1 and K2 on wgmma, bf16 K3 on mma.sync, f32 on
+   the CUDA cores), TFLOP/s, and times over the bound and the library
+   call, and K2 + K3 against SDPA's whole backward; there the bf16
+   tensor-core kernels' errors (o, dq, dk, dv) must stay within twice
+   those of torch's SDPA against the same plain versions. Times are
+   device times: the card sleeps before each timed call until the host
+   has queued it (see ``Timer``);
 4. engine — ``PagedLLMEngine`` on ``gpt2_small()`` at full width (bf16,
    random weights from a seed) answers 8 requests from concurrent threads,
    with a shared-prefix hit and a copy-on-write tail fork; the kernels'
@@ -43,7 +46,7 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    gradients, then the same losses over 3 AdamW steps; then both in bf16
    compute (where K1 and K3 run on the tensor cores), each held to the f32
    dense run: the flash errors in loss and gradients within twice dense
-   bf16's plus one bf16 step.
+   bf16's plus one bf16 step (K1-K3 all run on the tensor cores there).
 
 It prints the kernels line ``{"kernels": [...]}`` and, last, the line
 ``{"ok": true, "device": {...}}``. Details go to
@@ -131,7 +134,8 @@ def phase_build():
                 log(f"[build]   {line.strip()}")
             # The tensor-core kernels hold their tiles in registers: a
             # spill would put them in local memory on every step.
-            if "_mma_kernel" in entry and any(_spill_counts(line)):
+            if (("_mma_kernel" in entry or "_wgmma_kernel" in entry)
+                    and any(_spill_counts(line))):
                 spilled.append(entry)
     log(f"[build] {len(logs)} kernel(s) ready in {dt:.1f} s")
     if spilled:
@@ -150,26 +154,47 @@ def _spill_counts(line):
 class Timer:
     """Mean device time of a call over ``iters`` launches, each started with
     a cold L2 (a 256 MB buffer is written between launches: in the engine,
-    a layer's weights pass through the cache between two attention calls)."""
+    a layer's weights pass through the cache between two attention calls).
+
+    Before each start event the card runs ``torch.cuda._sleep`` long enough
+    for the host to queue the whole call behind it, so the events time the
+    call's kernels back to back, not the card waiting on the host that
+    feeds them (a call of many launches, such as an autograd backward, is
+    otherwise timed at the host's pace). If the card reached a start event
+    before the host had queued the call, the run is repeated with a sleep
+    four times as long."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(64 * 2**20, dtype=torch.float32,
                                  device=DEVICE)
+        self.cycles = 2_000_000      # ~1 ms at the H100's clock
 
     def __call__(self, fn, iters=20, warmup=3):
         torch = self.torch
         for _ in range(warmup):
             fn()
-        starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-        ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-        for i in range(iters):
-            self.flush.zero_()
-            starts[i].record()
-            fn()
-            ends[i].record()
-        torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+        for _ in range(4):
+            starts = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(iters)]
+            ends = [torch.cuda.Event(enable_timing=True)
+                    for _ in range(iters)]
+            late = False
+            for i in range(iters):
+                self.flush.zero_()
+                torch.cuda._sleep(self.cycles)
+                starts[i].record()
+                fn()
+                ends[i].record()
+                late = late or starts[i].query()
+            torch.cuda.synchronize()
+            if not late:
+                return sum(s.elapsed_time(e)
+                           for s, e in zip(starts, ends)) / iters
+            self.cycles *= 4
+        fail(f"timer: the card reached a start event before the host had "
+             f"queued the call, even after a sleep of {self.cycles // 4} "
+             f"cycles")
 
 
 def _paged_case(torch, rng, dtype, lengths, T, *, H=12, D=64, bt=16, NB=64,
@@ -610,9 +635,11 @@ def _flash_bound(name, B, Lq, Lk, H, D, dtype, causal):
 def flash_route(name, dtype):
     """Which design of ``csrc/flash_attention.cu`` runs: the dtype alone
     picks it."""
-    if dtype == "bfloat16" and name in ("flash_forward", "flash_dkv"):
+    if dtype != "bfloat16":
+        return "CUDA cores"
+    if name == "flash_dkv":
         return "tensor cores (mma.sync)"
-    return "CUDA cores"
+    return "tensor cores (wgmma)"
 
 
 def phase_flash_kernels(torch, np, card):
@@ -764,6 +791,12 @@ def phase_flash_kernels(torch, np, card):
         log(f"[kernel] library yardstick (SDPA, is_causal): forward "
             f"{lib_fwd_ms:.4f} ms, backward {lib_bwd_ms:.4f} ms, forward + "
             f"backward {lib_fwd_bwd_ms:.4f} ms  [{card}]")
+        bwd_ms = times["flash_dq"][0] + times["flash_dkv"][0]
+        for rec in cases[-3:]:
+            rec["k2_k3_ms"] = bwd_ms
+        log(f"[kernel] backward: K2 + K3 {bwd_ms:.4f} ms against the whole "
+            f"SDPA backward {lib_bwd_ms:.4f} ms = "
+            f"{bwd_ms / lib_bwd_ms:.2f}x  [{card}]")
         del qt, kt, vt, lib_out, lib_grads
     return cases
 
@@ -929,7 +962,7 @@ def phase_train_end_to_end(torch, np, counts):
         f"{worst:.2e} of each leaf's max (tol {TRAIN_GRAD_TOL}); 3 AdamW "
         f"steps {sf} vs {sd}")
 
-    # bf16 compute, where the tensor-core K1 and K3 run: the flash kernels
+    # bf16 compute, where the tensor-core K1-K3 run: the flash kernels
     # and dense attention (f32 softmax, bf16 in and out), each held to the
     # f32 dense run above on the same parameters and tokens.
     def rel_errs(grads):
@@ -946,8 +979,8 @@ def phase_train_end_to_end(torch, np, counts):
         loss = transformer.lm_loss(params, {"tokens": tokens}, cfg)
         loss.backward()
         ran = {k: v - before[k] for k, v in counts.read().items()}
-        if attn == "flash" and not (ran["flash_forward"] and
-                                    ran["flash_dkv"]):
+        if attn == "flash" and not all(
+                ran[n] for n in ("flash_forward", "flash_dq", "flash_dkv")):
             fail(f"train e2e bf16: the flash kernels did not run ({ran})")
         grads = {name: p.grad for name, p in zip(
             _leaf_names(params), training._leaves(params))}

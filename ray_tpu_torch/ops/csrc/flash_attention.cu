@@ -21,15 +21,19 @@
 // ~26 GFLOP — on ~100 MB of operands, ~260 flops a byte: on the tensor cores
 // (989 TFLOP/s bf16) it would be ~0.03 ms, near the ridge; K2 (6·D a pair)
 // and K3 (8·D a pair) are further on the compute side. So all three are
-// compute-bound, and what matters is the arithmetic rate.
+// compute-bound, and what matters is the arithmetic rate — and, for the
+// softmax and the recomputed P, the exp2 unit (16 a clock an SM), which
+// the tensor-core products have to overlap.
 //
 // Which kernel runs is chosen by the operand dtype alone, in `launch`:
-//   * bf16 K1 and K3 run on the tensor cores (flash_fwd_mma_kernel,
-//     flash_dkv_mma_kernel, below the CUDA-core kernels);
-//   * f32 K1-K3, and bf16 K2, run on the CUDA cores (flash_fwd_kernel,
-//     flash_dq_kernel, flash_dkv_kernel). The tensor cores take f32 only as
-//     TF32 (about three decimal digits), which would break the 1e-4 that
-//     holds the f32 kernels to the plain versions.
+//   * bf16 K1 and K2 run on Hopper's warpgroup MMA, wgmma
+//     (flash_fwd_wgmma_kernel, flash_dq_wgmma_kernel, the last section);
+//   * bf16 K3 runs on the tensor cores through the warp-level mma.sync
+//     (flash_dkv_mma_kernel);
+//   * f32 K1-K3 run on the CUDA cores (flash_fwd_kernel, flash_dq_kernel,
+//     flash_dkv_kernel). The tensor cores take f32 only as TF32 (about
+//     three decimal digits), which would break the 1e-4 that holds the f32
+//     kernels to the plain versions.
 //
 // The CUDA-core kernels keep every intermediate out of device memory (no L×L
 // matrix; each operand tile is read from device memory once per block) and
@@ -83,25 +87,8 @@ struct Vec<float> {
     out[3] = __uint_as_float(u.w);
   }
 };
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void unpack(const uint4& u, float* out) {
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
-      float2 f = __bfloat1622float2(b);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // Output columns of thread tx: groups of CW consecutive columns,
 // col(g, e) = g * 16 * CW + tx * CW + e, so the 16 threads of a row read one
@@ -482,7 +469,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
   store_rows<T, D>(dv, b, h, H, Lk, k0, ty, tx, dv_acc);
 }
 
-// ---- bf16 on the tensor cores (K1, K3) ---------------------------------------
+// ---- bf16 on the tensor cores through mma.sync (K3) ---------------------------
 //
 // The products run as mma.sync.m16n8k16 (bf16 operands, f32 accumulators):
 // Hopper's tensor cores through the warp-level instruction, at roughly two
@@ -494,11 +481,11 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
 // a stage is refilled only after the barrier that ends the tile that read
 // it. Scores never leave registers: the f32 accumulator fragment of
 // m16n8k16, cast pairwise to bf16, is the A fragment of the next product,
-// so P (K1) and Pᵀ, dSᵀ (K3) are the A operands of P·V, Pᵀ·dO and dSᵀ·Q
-// straight from the registers that computed them. Rounding P and dS to bf16
-// before those products is the one numerical difference from the f32 plain
-// versions (SDPA does the same); the scores, the softmax statistics and all
-// sums are f32.
+// so Pᵀ and dSᵀ are the A operands of Pᵀ·dO and dSᵀ·Q straight from the
+// registers that computed them. Rounding P and dS to bf16 before those
+// products is the one numerical difference from the f32 plain versions
+// (SDPA does the same); the scores, the softmax statistics and all sums are
+// f32.
 //
 // Fragment layout (lane = 4·g + c): the C fragment of m16n8 holds rows g and
 // g + 8, columns 2c and 2c + 1, so the four lanes of a quad share a row and
@@ -507,7 +494,6 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-constexpr int kFwdThreads = 256;               // K1: 8 warps, 16 q rows each
 constexpr int kDkvThreads = 128;               // K3: 4 warps, 16 keys each
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -659,164 +645,6 @@ __device__ __forceinline__ void store_rows_tc(bf16* stage,
                                 cc) =
           *reinterpret_cast<const uint4*>(stage + r * S + cc);
   }
-}
-
-// ---- K1, bf16 ----------------------------------------------------------------
-// Replaces _flash_kernel (ray_tpu/ops/flash_attention.py:39) for bf16. A
-// block of 8 warps owns 128 query rows of one (batch, head), 16 rows a warp;
-// Q is loaded once into shared memory and read as A fragments by ldmatrix
-// each tile (held in registers instead, its 16-32 registers a thread push
-// the kernel past 128 and into spills at D = 64, halving the blocks an SM
-// holds); 64-key tiles of K and V stream through the two-stage ring. Per
-// tile and warp: S = Q·Kᵀ (16 × 64, f32), the online softmax on the fragments in
-// log2 units (scale·log2e folded in), then O += P·V with P cast to bf16 in
-// registers and V read by ldmatrix.trans. Causal: the sweep stops at the
-// diagonal, a warp skips a tile wholly after its rows, and only tiles that
-// cross the diagonal or the end of K are masked — to kNegInf, so a masked p
-// is exactly 0 and a row with nothing visible yields no NaN. lse goes out in
-// natural-log units, as K2 and K3 read it.
-template <int D>
-__global__ void __launch_bounds__(kFwdThreads, D == 128 ? 1 : 2)
-    flash_fwd_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-    Strides sq, Strides sk, Strides sv, int H, int Lq, int Lk, float scale,
-    int causal) {
-  constexpr int S = D + 8, BM = 128, BN = 64, NT = kFwdThreads;
-  static_assert(BM == NT / 32 * 16, "one 16-row m tile a warp");
-  extern __shared__ float4 smem4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem4);   // [BM][S]
-  bf16* ks = qs + BM * S;                      // [2][BN][S]
-  bf16* vs = ks + 2 * BN * S;                  // [2][BN][S]
-
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  // The heaviest (last) causal tiles first: they start while light ones fill.
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c = lane & 3;
-  const int wrow = q0 + warp * 16;             // this warp's first row
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
-  const int end = causal ? min(Lk, min(q0 + BM, Lq)) : Lk;
-  const int tiles = (end + BN - 1) / BN;
-
-  load_async<BM, D, NT>(qs, q + b * sq.b + h * sq.h, sq.l, q0, Lq);
-  load_async<BN, D, NT>(ks, kb, sk.l, 0, Lk);
-  load_async<BN, D, NT>(vs, vb, sv.l, 0, Lk);
-  cp_async_commit();
-
-  const float sl2 = scale * kLog2e;
-  float acc[D / 8][4];
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // l: this lane's part
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int t = 0; t < tiles; ++t) {
-    if (t + 1 < tiles) {
-      const int st = (t + 1) & 1;
-      load_async<BN, D, NT>(ks + st * BN * S, kb, sk.l, (t + 1) * BN, Lk);
-      load_async<BN, D, NT>(vs + st * BN * S, vb, sv.l, (t + 1) * BN, Lk);
-      cp_async_commit();
-      cp_async_wait<1>();                      // tile t (and Q) have landed
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int k0 = t * BN;
-    const bf16* kt = ks + (t & 1) * BN * S;
-    const bf16* vt = vs + (t & 1) * BN * S;
-    const bool skip = (causal && k0 > wrow + 15) || wrow >= Lq;
-    if (!skip) {
-      float s[BN / 8][4];
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t qa[4];
-        ldsm_x4(qa, a_addr<S>(qs, warp * 16, kk * 16, lane));
-#pragma unroll
-        for (int j = 0; j < BN / 8; j += 2) {
-          uint32_t bf[4];
-          ldsm_x4(bf, b_addr<S>(kt, j * 8, kk * 16, lane));
-          mma(s[j], qa, bf[0], bf[1]);
-          mma(s[j + 1], qa, bf[2], bf[3]);
-        }
-      }
-      const bool masked = (causal && k0 + BN - 1 > wrow) || k0 + BN > Lk;
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[j][e] * sl2;
-          if (masked) {
-            const int col = k0 + j * 8 + 2 * c + (e & 1);
-            const int row = wrow + g + (e >> 1) * 8;
-            if (col >= Lk || (causal && col > row)) x = kNegInf;
-          }
-          s[j][e] = x;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x);
-        }
-      float alpha[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
-        const float m_new = fmaxf(m[i], mx[i]);
-        alpha[i] = exp2f(m[i] - m_new);
-        m[i] = m_new;
-        l[i] *= alpha[i];
-      }
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = s[j][e];
-          const float p = x == kNegInf ? 0.f : exp2f(x - m[e >> 1]);
-          s[j][e] = p;
-          l[e >> 1] += p;
-        }
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        acc[n][0] *= alpha[0], acc[n][1] *= alpha[0];
-        acc[n][2] *= alpha[1], acc[n][3] *= alpha[1];
-      }
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        uint32_t pa[4];
-        a_frag(pa, s, kk);
-#pragma unroll
-        for (int n = 0; n < D / 8; n += 2) {
-          uint32_t bf[4];
-          ldsm_x4_t(bf, bt_addr<S>(vt, kk * 16, n * 8, lane));
-          mma(acc[n], pa, bf[0], bf[1]);
-          mma(acc[n + 1], pa, bf[2], bf[3]);
-        }
-      }
-    }
-    __syncthreads();                           // stage t & 1 may be refilled
-  }
-
-  const int bh_ = block_y();
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(kFull, l[i], 1);
-    l[i] += __shfl_xor_sync(kFull, l[i], 2);
-    const float denom = fmaxf(l[i], 1e-30f);
-    const int row = wrow + g + i * 8;
-    if (c == 0 && row < Lq)
-      lse[(long long)bh_ * Lq + row] = m[i] * kLn2 + logf(denom);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {            // divided, as in JAX
-      acc[n][2 * i] /= denom;
-      acc[n][2 * i + 1] /= denom;
-    }
-  }
-  // The warp's own Q rows are free: only it read them.
-  store_rows_tc<D>(qs + warp * 16 * S, acc, o, bh_ / H, bh_ % H, H, Lq, wrow,
-                   lane);
 }
 
 // ---- K3, bf16 ----------------------------------------------------------------
@@ -979,10 +807,6 @@ __global__ void __launch_bounds__(kDkvThreads) flash_dkv_mma_kernel(
 }
 
 template <int D>
-constexpr size_t fwd_smem() {
-  return (size_t)(128 + 4 * 64) * (D + 8) * sizeof(bf16);
-}
-template <int D>
 constexpr size_t dkv_smem() {
   constexpr int BQ = D == 128 ? 32 : 64;
   return (size_t)(2 * 64 + 4 * BQ) * (D + 8) * sizeof(bf16) +
@@ -990,6 +814,592 @@ constexpr size_t dkv_smem() {
 }
 
 }  // namespace tc
+
+// ---- bf16 on Hopper's warpgroup MMA (K1, K2) ----------------------------------
+//
+// wgmma.mma_async: the four warps of a warpgroup (128 threads) issue one
+// product of a 64-row tile together, m64nNk16, bf16 operands, f32
+// accumulators in registers. The B operand (and A, in the SS form) is read
+// by the tensor cores straight from shared memory through a 64-bit matrix
+// descriptor, once for all 64 rows: no ldmatrix and no operand registers,
+// which is what holds an mma.sync design back (there a warp's 16 rows
+// issue ~36 ldmatrix.x4 per 64 products, as many shared-memory cycles as
+// tensor-core cycles). Three forms serve both kernels:
+//   (a) SS, A and B K-major in shared memory: S = Q·Kᵀ and dP = dO·Vᵀ;
+//   (b) RS, A from registers — the f32 accumulator of (a) cast pairwise to
+//       bf16 in the accumulator's own layout, which is the A layout — and B
+//       MN-major (the transpose bit): P·V in K1 and dS·K in K2, with the V
+//       or K tile read as it is stored, [keys][D];
+//   (c) wgmma.fence before a product whose registers other instructions
+//       wrote, commit, and wait; a product is waited on before its
+//       accumulator is read.
+//
+// Tiles are bf16 in shared memory with the 128-byte swizzle: a tile of R
+// rows × D is max(1, D/64) panels of R rows × 128 bytes (64 columns), and
+// the 16-byte chunk j of row r sits at chunk (j % 8) ^ (r % 8) of its row
+// in panel j / 8. The same bytes are a K-major operand (rows = M or N,
+// columns = the k depth; a k step of 16 moves the start 32 bytes along the
+// row, the 8-row groups 1024 bytes apart) and an MN-major one (rows = the k
+// depth, 64 columns = N; a k step moves 16 rows), so one K tile in K2 is
+// read both ways through two descriptors. At D = 32 the panel is half
+// full: the SS products read only its first 64 bytes, and the RS product
+// computes 64 columns of which the upper 32 (from unwritten chunks) are
+// never stored. Loads are 16-byte cp.async, zero-filled past the end, and
+// each thread fences its copies into the async proxy (which wgmma reads
+// through) before the barrier that publishes them.
+//
+// Accumulator layout of m64nN (f32): warp w of the warpgroup holds rows
+// 16w..16w+15, and in it lane 4g + c holds rows g and g + 8, columns
+// 8j + 2c and 8j + 2c + 1 for every j — the mma.sync C layout, so a row's
+// max and sum take two quad shuffles, and the register A fragment of m64k16
+// is the C fragment of two neighbouring 8-column groups (tc::a_frag).
+
+namespace wg {
+
+using tc::bf16;
+
+template <int D>
+constexpr int panels() {
+  return D < 64 ? 1 : D / 64;
+}
+template <int R, int D>
+constexpr int tile_bytes() {
+  return panels<D>() * R * 128;
+}
+
+// The swizzle ties a tile's layout to address bits 4-9: tiles start on
+// 1024-byte boundaries (the block asks for 1 KB more than its tiles).
+__device__ __forceinline__ uint8_t* align1024(void* p) {
+  uint8_t* b = static_cast<uint8_t*>(p);
+  return b + ((1024 - (tc::smem_u32(b) & 1023)) & 1023);
+}
+
+// Rows [r0, r0 + R) of one head, D bf16 each, into a swizzled tile by the
+// NT threads of the block; rows at or past n are zero-filled.
+template <int R, int D, int NT>
+__device__ __forceinline__ void load_sw(uint8_t* dst, const bf16* src,
+                                        long long row_stride, int r0, int n) {
+  constexpr int CPR = D / 8;                   // 16-byte chunks a row
+  static_assert(R * CPR % NT == 0, "tile not a whole number of loads");
+#pragma unroll
+  for (int i = 0; i < R * CPR / NT; ++i) {
+    const int idx = threadIdx.x + i * NT;
+    const int r = idx / CPR, j = idx % CPR;
+    const bool ok = r0 + r < n;
+    tc::cp_async16(dst + (j >> 3) * R * 128 + r * 128 + (((j & 7) ^ (r & 7)) << 4),
+                   src + (ok ? (long long)(r0 + r) * row_stride : 0) + j * 8,
+                   ok);
+  }
+}
+
+// Matrix descriptor of a swizzled operand starting at shared address `a`:
+// start >> 4, leading offset, 1024 B between 8-row groups (the stride
+// offset), layout 1 = 128-byte swizzle. The leading offset is not read for
+// a K-major operand of this swizzle; for an MN-major one it is the step
+// between 64-column panels, and each MN-major product here reads one panel,
+// so it too is set to 1024 B.
+__device__ __forceinline__ uint64_t desc(uint32_t a) {
+  return (uint64_t)((a & 0x3FFFF) >> 4) | (64ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+// Byte offset of k step kk (16 columns) in a K-major tile of R rows.
+template <int R>
+__device__ __forceinline__ constexpr uint32_t kmajor_step(int kk) {
+  return (uint32_t)((kk >> 2) * R * 128 + (kk & 3) * 32);
+}
+// Byte offset of k step kk (16 rows) of panel p in an MN-major tile of R rows.
+template <int R>
+__device__ __forceinline__ constexpr uint32_t mnmajor_step(int kk, int p) {
+  return (uint32_t)(p * R * 128 + kk * 16 * 128);
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Until at most N of this warpgroup's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void wait_group() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// 2^x by the exp2 unit alone: a result below 2^-126 flushes to 0 (exp2f
+// adds instructions around the unit to keep it as a denormal, ~25 % more
+// issue slots on the softmax, and such a p is 0 to the f32 sums anyway).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+// This thread's cp.async writes, visible to the async proxy.
+__device__ __forceinline__ void proxy_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Registers a product in flight reads or writes: kept where they are until
+// after the wait (the compiler sees the asm as done when it is issued).
+template <int N>
+__device__ __forceinline__ void hold(float (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void hold(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
+}
+
+#define WG_D8(j)                                                           \
+  "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3]),              \
+      "+f"(d[j + 1][0]), "+f"(d[j + 1][1]), "+f"(d[j + 1][2]),             \
+      "+f"(d[j + 1][3])
+#define WG_D32 WG_D8(0), WG_D8(2), WG_D8(4), WG_D8(6)
+#define WG_R32                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
+// (a) d (+)= A·Bᵀ over one k step, A [64][16] and B [64][16] K-major in
+// shared memory; `acc` 0 overwrites d.
+__device__ __forceinline__ void mma_ss(float (&d)[8][4], uint64_t a,
+                                       uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D32
+      : "l"(a), "l"(b), "r"(acc));
+}
+// (b) d += A·B over one k step, A [64][16] in registers, B [16][64]
+// MN-major in shared memory.
+__device__ __forceinline__ void mma_rs(float (&d)[8][4],
+                                       const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef WG_D8
+#undef WG_D32
+#undef WG_R32
+
+// blockIdx.x read anew (see tc::block_y).
+__device__ __forceinline__ int block_x() {
+  int x;
+  asm volatile("mov.u32 %0, %%ctaid.x;\n" : "=r"(x));
+  return x;
+}
+
+// The grid is (batch·head, q tile) and a block's q tile counts down from
+// the last: the scheduler hands blocks out in x-fastest order, so every
+// head's heaviest causal tile starts before any lighter one, and the
+// light ones fill in at the end.
+__device__ __forceinline__ int q_tile_start(int bm) {
+  return (gridDim.y - 1 - blockIdx.y) * bm;
+}
+
+// Columns [64p, 64p + 64) of an accumulator of whole panels.
+template <int N>
+__device__ __forceinline__ float (&panel(float (&acc)[N][4], int p))[8][4] {
+  return *reinterpret_cast<float(*)[8][4]>(&acc[p * 8]);
+}
+
+// The first D columns of an accumulator of whole panels, for the store.
+template <int D, int N>
+__device__ __forceinline__ const float (&cols(const float (&acc)[N][4]))[D / 8][4] {
+  static_assert(D / 8 <= N, "accumulator narrower than D");
+  return *reinterpret_cast<const float(*)[D / 8][4]>(&acc[0]);
+}
+
+// ---- K1, bf16 ----------------------------------------------------------------
+// Replaces _flash_kernel (ray_tpu/ops/flash_attention.py:39) for bf16.
+// Bounded by the tensor cores and the exp2 unit together: at D = 64 a
+// 64×64 score tile costs 2·2·64·64·64 flops of products and 64·64 exp2,
+// the same number of clocks of an SM at their peak rates (4096 flops and
+// 16 exp2 a clock), so the kernel is as fast as it overlaps the two. A
+// block of two warpgroups owns 128 query rows of one (batch, head), 64 a
+// warpgroup, two blocks an SM at D ≤ 64; Q stays in shared memory for the
+// sweep, and 64-key tiles of K and of V stream through two-stage cp.async
+// rings of their own, each tile shared by both warpgroups. Each warpgroup
+// software-pipelines its sweep as FlashAttention-3 does: at tile j it
+// issues S_j = Q·K_jᵀ (form a) and, behind it, O += P_{j-1}·V_{j-1} (form
+// b, P from registers, V read as stored), waits for S_j alone, and runs
+// the online softmax of S_j (log2 units, scale·log2e folded into one
+// FFMA, exp2 on the unit alone) while the tensor cores still work on
+// P_{j-1}·V_{j-1}; only then does it wait for that product and rescale O.
+// The copy of K_{j+1} and V_j is in flight under tile j. Causal: the sweep
+// stops at the diagonal, each warpgroup at its own, and only tiles that
+// cross it or the end of K are masked — to kNegInf, so a masked p is
+// exactly 0 and a row with nothing visible yields no NaN. lse goes out in
+// natural-log units, as K2 and K3 read it; O is divided by l, as in JAX.
+template <int D>
+struct Fwd {
+  static constexpr int WG = 2, NT = 128 * WG, BM = 64 * WG, BN = 64;
+  static constexpr int MIN_BLOCKS = D == 128 ? 1 : 2;
+  static constexpr int NP = panels<D>();
+  static constexpr int QB = tile_bytes<BM, D>();
+  static constexpr int KB = tile_bytes<BN, D>();
+  static constexpr size_t smem = 1024 + QB + 4 * KB;
+};
+
+template <int D>
+__global__ void __launch_bounds__(Fwd<D>::NT, Fwd<D>::MIN_BLOCKS)
+    flash_fwd_wgmma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+    Strides sq, Strides sk, Strides sv, int H, int Lq, int Lk, float scale,
+    int causal) {
+  using C = Fwd<D>;
+  constexpr int BN = C::BN, NP = C::NP, BM = C::BM, NT = C::NT;
+  extern __shared__ float4 smem4[];
+  uint8_t* qs = align1024(smem4);              // [BM rows]
+  uint8_t* ks = qs + C::QB;                    // [2 stages][BN rows]
+  uint8_t* vs = ks + 2 * C::KB;                // [2 stages][BN rows]
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = q_tile_start(BM);
+  const int wgi = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int wg_row = q0 + wgi * 64;            // this warpgroup's first row
+  const int wrow = wg_row + warp * 16;         // this warp's first row
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  const int end = causal ? min(Lk, min(q0 + BM, Lq)) : Lk;
+  const int tiles = (end + BN - 1) / BN;
+  // The tiles this warpgroup's rows see: causal, an earlier warpgroup stops
+  // one tile before the next one; rows all past Lq see none.
+  const int mine =
+      wg_row >= Lq ? 0
+      : causal ? (min(Lk, min(wg_row + 64, Lq)) + BN - 1) / BN : tiles;
+
+  // cp.async group 0 holds Q and K_0; group j ≥ 1 holds K_j (if any) and
+  // V_{j-1}, in stages j & 1 and (j - 1) & 1.
+  auto load_group = [&](int j) {
+    if (j < tiles)
+      load_sw<BN, D, NT>(ks + (j & 1) * C::KB, kb, sk.l, j * BN, Lk);
+    load_sw<BN, D, NT>(vs + ((j - 1) & 1) * C::KB, vb, sv.l, (j - 1) * BN,
+                       Lk);
+    tc::cp_async_commit();
+  };
+  load_sw<BM, D, NT>(qs, q + b * sq.b + h * sq.h, sq.l, q0, Lq);
+  load_sw<BN, D, NT>(ks, kb, sk.l, 0, Lk);
+  tc::cp_async_commit();
+  load_group(1);
+
+  const uint32_t q_addr = tc::smem_u32(qs) + wgi * 64 * 128;
+  const float sl2 = scale * tc::kLog2e;
+  float acc[NP * 8][4];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // l: this lane's part
+  float alpha[2];
+#pragma unroll
+  for (int n = 0; n < NP * 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  // S_j = Q·K_jᵀ, issued as one commit group.
+  auto issue_s = [&](float (&s)[BN / 8][4], int j) {
+    const uint32_t kt = tc::smem_u32(ks + (j & 1) * C::KB);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss(s, desc(q_addr + kmajor_step<BM>(kk)),
+             desc(kt + kmajor_step<BN>(kk)), kk > 0);
+    commit();
+  };
+  // O += P·V_j, P in registers, issued as one commit group.
+  auto issue_pv = [&](const uint32_t (&pa)[BN / 16][4], int j) {
+    const uint32_t vt = tc::smem_u32(vs + (j & 1) * C::KB);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        mma_rs(panel(acc, p), pa[kk], desc(vt + mnmajor_step<BN>(kk, p)));
+    commit();
+  };
+  // The online softmax of S_j into (m, l): P_j packed to bf16 A fragments,
+  // and in alpha the factor O takes before P_j·V_j. The max is taken on
+  // the raw scores and m kept in log2 units, so a p costs one FFMA into
+  // exp2; a masked score is kNegInf and its p exactly 0, also in a row with
+  // nothing visible yet (where the FFMA alone would give exp2(0)).
+  auto softmax = [&](float (&s)[BN / 8][4], int j,
+                     uint32_t (&pa)[BN / 16][4]) {
+    const int k0 = j * BN;
+    const bool masked = (causal && k0 + BN - 1 > wrow) || k0 + BN > Lk;
+    if (masked) {
+#pragma unroll
+      for (int jj = 0; jj < BN / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + jj * 8 + 2 * c + (e & 1);
+          const int row = wrow + g + (e >> 1) * 8;
+          if (col >= Lk || (causal && col > row)) s[jj][e] = kNegInf;
+        }
+    }
+    float mx[2] = {kNegInf, kNegInf}, nm[2];
+#pragma unroll
+    for (int jj = 0; jj < BN / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[jj][e]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i] * sl2);
+      alpha[i] = exp2_ftz(m[i] - m_new);
+      m[i] = m_new;
+      nm[i] = -m_new;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int jj = 0; jj < BN / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2_ftz(fmaf(s[jj][e], sl2, nm[e >> 1]));
+        if (masked && s[jj][e] == kNegInf) p = 0.f;
+        s[jj][e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) tc::a_frag(pa[kk], s, kk);
+  };
+
+  // The barriers and copies are the block's; the products and the softmax
+  // are each warpgroup's, over its own `mine` tiles.
+  float s[BN / 8][4];
+  uint32_t pa[BN / 16][4];                     // P of the tile whose P·V is next
+  tc::cp_async_wait<1>();                      // group 0: Q and K_0
+  proxy_fence();
+  __syncthreads();
+  if (mine > 0) {
+    fence();
+    issue_s(s, 0);
+    wait_group<0>();
+    hold(s);
+    softmax(s, 0, pa);                         // O is 0: alpha needs no use
+  }
+  for (int j = 1; j < tiles; ++j) {
+    tc::cp_async_wait<0>();                    // group j: K_j and V_{j-1}
+    proxy_fence();
+    // Every product of tile j-1 is done in every warp: the stages of K_{j-1}
+    // and V_{j-2} may be refilled.
+    __syncthreads();
+    load_group(j + 1);
+    if (j < mine) {
+      fence();
+      issue_s(s, j);
+      issue_pv(pa, j - 1);
+      wait_group<1>();
+      hold(s);                                 // S_j is here; P·V runs on
+      uint32_t pn[BN / 16][4];
+      softmax(s, j, pn);
+      wait_group<0>();
+      hold(acc);
+      hold(pa);
+#pragma unroll
+      for (int n = 0; n < NP * 8; ++n) {
+        acc[n][0] *= alpha[0], acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1], acc[n][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pa[kk][e] = pn[kk][e];
+    } else if (j == mine) {                    // this warpgroup's last P·V
+      fence();
+      issue_pv(pa, j - 1);
+      wait_group<0>();
+      hold(acc);
+      hold(pa);
+    }
+  }
+  tc::cp_async_wait<0>();                      // the last group: V_{tiles-1}
+  proxy_fence();
+  __syncthreads();
+  if (mine == tiles) {
+    fence();
+    issue_pv(pa, tiles - 1);
+    wait_group<0>();
+    hold(acc);
+    hold(pa);
+  }
+  __syncthreads();                             // the rings are read no more
+
+  const int bh_ = block_x();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(kFull, l[i], 1);
+    l[i] += __shfl_xor_sync(kFull, l[i], 2);
+    const float denom = fmaxf(l[i], 1e-30f);
+    const int row = wrow + g + i * 8;
+    if (c == 0 && row < Lq)
+      lse[(long long)bh_ * Lq + row] = m[i] * tc::kLn2 + logf(denom);
+#pragma unroll
+    for (int n = 0; n < NP * 8; ++n) {           // divided, as in JAX
+      acc[n][2 * i] /= denom;
+      acc[n][2 * i + 1] /= denom;
+    }
+  }
+  // Each warp stages its 16 rows in its own part of the rings.
+  bf16* stage = reinterpret_cast<bf16*>(ks) + (threadIdx.x >> 5) * 16 * (D + 8);
+  tc::store_rows_tc<D>(stage, cols<D>(acc), o, bh_ / H, bh_ % H, H, Lq, wrow,
+                       lane);
+}
+
+// ---- K2, bf16 ----------------------------------------------------------------
+// Replaces _dq_kernel (ray_tpu/ops/flash_attention.py:146) for bf16.
+// Bounded by the tensor cores (three products of 2·64·64·D flops per 64×64
+// tile and warpgroup) and the exp2 unit (64·64 recomputed p). A block of two
+// warpgroups owns 128 query rows of one (batch, head), 64 a warpgroup; Q and
+// dO stay in shared memory for the sweep, each accumulator row's lse (in
+// log2 units) and delta in registers, and 64-key tiles of K and V stream
+// through a two-stage cp.async ring. Per tile and warpgroup:
+//   S = Q·Kᵀ and dP = dO·Vᵀ (form a, both 64 × 64 f32, one commit group),
+//   P = exp2(S·scale·log2e − lse·log2e), dS = P·(dP − delta)·scale on the
+//   accumulator fragments (masked only on tiles that cross the diagonal or
+//   the end of K),
+//   dQ += dS·K (form b), dS cast to bf16 in registers, the K tile read
+//   MN-major from the same bytes that S read K-major.
+// dQ is an f32 accumulator in registers for the whole sweep, written once
+// through the store staging: no atomics, the same bits every run. K2 stays
+// a kernel of its own: folding dQ into K3 would need f32 atomics from every
+// key block.
+template <int D>
+struct Dq {
+  static constexpr int WG = 2, NT = 128 * WG, BM = 64 * WG;
+  static constexpr int BN = 64;
+  static constexpr int MIN_BLOCKS = D == 128 ? 1 : 2;
+  static constexpr int NP = panels<D>();
+  static constexpr int QB = tile_bytes<BM, D>();
+  static constexpr int KB = tile_bytes<BN, D>();
+  static constexpr size_t smem = 1024 + 2 * QB + 4 * KB;
+};
+
+template <int D>
+__global__ void __launch_bounds__(Dq<D>::NT, Dq<D>::MIN_BLOCKS)
+    flash_dq_wgmma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sg,
+    int H, int Lq, int Lk, float scale, int causal) {
+  using C = Dq<D>;
+  constexpr int BN = C::BN, NP = C::NP, BM = C::BM, NT = C::NT;
+  extern __shared__ float4 smem4[];
+  uint8_t* qs = align1024(smem4);              // [BM rows]
+  uint8_t* gs = qs + C::QB;                    // dO, [BM rows]
+  uint8_t* ks = gs + C::QB;                    // [2 stages][BN rows]
+  uint8_t* vs = ks + 2 * C::KB;                // [2 stages][BN rows]
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = q_tile_start(BM);
+  const int wgi = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, c = lane & 3;
+  const int wg_row = q0 + wgi * 64;
+  const int wrow = wg_row + warp * 16;
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  const int end = causal ? min(Lk, min(q0 + BM, Lq)) : Lk;
+  const int tiles = (end + BN - 1) / BN;
+
+  load_sw<BM, D, NT>(qs, q + b * sq.b + h * sq.h, sq.l, q0, Lq);
+  load_sw<BM, D, NT>(gs, g + b * sg.b + h * sg.h, sg.l, q0, Lq);
+  load_sw<BN, D, NT>(ks, kb, sk.l, 0, Lk);
+  load_sw<BN, D, NT>(vs, vb, sv.l, 0, Lk);
+  tc::cp_async_commit();
+
+  // Rows gq and gq + 8: -lse in log2 units and -delta·scale, so that
+  // p = exp2(fma(s, scale·log2e, nl)) and dS = p · fma(dp, scale, nd).
+  float nl[2], nd[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = wrow + gq + i * 8;
+    nl[i] = row < Lq ? -lse[(long long)bh * Lq + row] * tc::kLog2e : 0.f;
+    nd[i] = row < Lq ? -delta[(long long)bh * Lq + row] * scale : 0.f;
+  }
+  const uint32_t q_addr = tc::smem_u32(qs) + wgi * 64 * 128;
+  const uint32_t g_addr = tc::smem_u32(gs) + wgi * 64 * 128;
+  const float sl2 = scale * tc::kLog2e;
+  float acc[NP * 8][4];
+#pragma unroll
+  for (int n = 0; n < NP * 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    if (t + 1 < tiles) {
+      const int st = (t + 1) & 1;
+      load_sw<BN, D, NT>(ks + st * C::KB, kb, sk.l, (t + 1) * BN, Lk);
+      load_sw<BN, D, NT>(vs + st * C::KB, vb, sv.l, (t + 1) * BN, Lk);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();                  // tile t (and Q, dO) have landed
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    proxy_fence();
+    __syncthreads();
+    const int k0 = t * BN;
+    const uint32_t kt = tc::smem_u32(ks + (t & 1) * C::KB);
+    const uint32_t vt = tc::smem_u32(vs + (t & 1) * C::KB);
+    const bool skip = (causal && k0 > wg_row + 63) || wg_row >= Lq;
+    if (!skip) {
+      float s[BN / 8][4], dp[BN / 8][4];
+      fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_ss(s, desc(q_addr + kmajor_step<BM>(kk)),
+               desc(kt + kmajor_step<BN>(kk)), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_ss(dp, desc(g_addr + kmajor_step<BM>(kk)),
+               desc(vt + kmajor_step<BN>(kk)), kk > 0);
+      commit();
+      wait_group<0>();
+      hold(s);
+      hold(dp);
+      const bool masked = (causal && k0 + BN - 1 > wrow) || k0 + BN > Lk;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          bool ok = true;
+          if (masked) {
+            const int col = k0 + j * 8 + 2 * c + (e & 1);
+            const int row = wrow + gq + (e >> 1) * 8;
+            ok = col < Lk && (!causal || col <= row);
+          }
+          const float p = ok ? exp2_ftz(fmaf(s[j][e], sl2, nl[e >> 1])) : 0.f;
+          s[j][e] = p * fmaf(dp[j][e], scale, nd[e >> 1]);
+        }
+      uint32_t da[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) tc::a_frag(da[kk], s, kk);
+      fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          mma_rs(panel(acc, p), da[kk], desc(kt + mnmajor_step<BN>(kk, p)));
+      commit();
+      wait_group<0>();
+      hold(acc);
+      hold(da);
+    }
+    __syncthreads();                           // stage t & 1 may be refilled
+  }
+
+  const int bh_ = block_x();
+  bf16* stage = reinterpret_cast<bf16*>(ks) + (threadIdx.x >> 5) * 16 * (D + 8);
+  tc::store_rows_tc<D>(stage, cols<D>(acc), dq, bh_ / H, bh_ % H, H, Lq, wrow,
+                       lane);
+}
+
+}  // namespace wg
 
 // ---- launch -----------------------------------------------------------------
 template <int D>
@@ -1014,19 +1424,32 @@ struct Args {
   cudaStream_t stream;
 };
 
-// bf16 K1 and K3 on the tensor cores.
+// bf16 K1 and K2 on wgmma, K3 on mma.sync.
 template <int D>
 int launch_tc(int which, const Args& a) {
   using tc::bf16;
   if (which == 0) {
-    const size_t smem = tc::fwd_smem<D>();
-    auto kern = tc::flash_fwd_mma_kernel<D>;
+    const size_t smem = wg::Fwd<D>::smem;
+    auto kern = wg::flash_fwd_wgmma_kernel<D>;
     if (int rc = prepare(kern, smem)) return rc;
-    kern<<<dim3((a.Lq + 127) / 128, a.B * a.H), tc::kFwdThreads, smem,
+    using C = wg::Fwd<D>;
+    kern<<<dim3(a.B * a.H, (a.Lq + C::BM - 1) / C::BM), C::NT, smem,
            a.stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
         static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o),
         static_cast<float*>(a.lse_out), a.sq, a.sk, a.sv, a.H, a.Lq, a.Lk,
+        a.scale, a.causal);
+  } else if (which == 1) {
+    const size_t smem = wg::Dq<D>::smem;
+    auto kern = wg::flash_dq_wgmma_kernel<D>;
+    if (int rc = prepare(kern, smem)) return rc;
+    using C = wg::Dq<D>;
+    kern<<<dim3(a.B * a.H, (a.Lq + C::BM - 1) / C::BM), C::NT, smem,
+           a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.g),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<bf16*>(a.dq), a.sq, a.sk, a.sv, a.sg, a.H, a.Lq, a.Lk,
         a.scale, a.causal);
   } else {
     const size_t smem = tc::dkv_smem<D>();
@@ -1082,12 +1505,11 @@ int launch_cuda_cores(const Args& a) {
   return 0;
 }
 
-// The dtype alone picks the kernel: bf16 K1 and K3 on the tensor cores,
-// everything else on the CUDA cores (whose bf16 K1 and K3 are never built).
+// The dtype alone picks the kernel: bf16 on the tensor cores, f32 on the
+// CUDA cores (whose bf16 instantiations are never built).
 template <typename T, int D>
 int launch(int which, const Args& a) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (which == 1) return launch_cuda_cores<T, D, 1>(a);
     return launch_tc<D>(which, a);
   } else {
     if (which == 0) return launch_cuda_cores<T, D, 0>(a);

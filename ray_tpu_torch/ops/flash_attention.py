@@ -10,10 +10,11 @@ at the public function, as in JAX. Three hand-written CUDA kernels in
 - ``dkv`` (K3, ``_dkv_kernel``): dK and dV, a kv tile sweeping its q tiles.
 
 ``delta = rowsum(dO * O)`` is a torch reduction outside the kernels, as the
-JAX package leaves it to XLA. The operand dtype picks the design: in bf16,
-``forward`` and ``dkv`` run on the tensor cores and round P (and dS) to
-bf16 before their products, as SDPA does; in f32, and ``dq`` in both
-dtypes, the kernels run on the CUDA cores in f32 throughout.
+JAX package leaves it to XLA. The operand dtype picks the design: in bf16
+all three run on the tensor cores — ``forward`` and ``dq`` on Hopper's
+warpgroup MMA (``wgmma``), ``dkv`` on the warp-level ``mma.sync`` — and
+round P and dS to bf16 before the products that take them, as SDPA does;
+in f32 they run on the CUDA cores in f32 throughout.
 
 :func:`flash_attention` keeps the JAX routing rule: ``bq = min(block_q, L)``
 and ``bk = min(block_k, Lk)``; if either length is not a multiple of its

@@ -180,11 +180,11 @@ def _bf16(x):
 
 
 def _tensor_core_rounding(q, k, v, g, o, lse, *, scale, causal):
-    """What the bf16 tensor-core K1 and K3 compute: scores, softmax
-    statistics and every sum in f32, with P (and dS) rounded to bf16 before
-    the products that take them as operands, and outputs rounded to bf16.
-    Returns (o, lse) of the forward and (dk, dv) of the backward on the
-    given (o, lse)."""
+    """What the bf16 tensor-core K1-K3 compute: scores, softmax statistics
+    and every sum in f32, with P and dS rounded to bf16 before the products
+    that take them as operands, and outputs rounded to bf16. Returns (o,
+    lse) of the forward and (dq, dk, dv) of the backward on the given (o,
+    lse)."""
     qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
     s = tfa._scores(qf, kf, scale, causal)
     m = s.amax(dim=-1, keepdim=True)
@@ -196,34 +196,37 @@ def _tensor_core_rounding(q, k, v, g, o, lse, *, scale, causal):
     delta = tfa._delta(gf, o)
     p, ds = tfa._probs_and_ds(qf, kf, vf, gf, lse, delta, scale=scale,
                               causal=causal)
+    dq = torch.einsum("bhlk,bkhd->blhd", _bf16(ds), kf).to(torch.bfloat16)
     dk = torch.einsum("bhlk,blhd->bkhd", _bf16(ds), qf).to(torch.bfloat16)
     dv = torch.einsum("bhlk,blhd->bkhd", _bf16(p), gf).to(torch.bfloat16)
-    return (fwd_o, fwd_lse), (dk, dv)
+    return (fwd_o, fwd_lse), (dq, dk, dv)
 
 
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
-def test_tensor_core_rounding_within_bf16_tolerance_of_jax(causal):
+def test_tensor_core_rounding_within_bf16_tolerance_of_jax(causal, d):
     """The bf16 rounding of P and dS that the tensor-core kernels add keeps
-    o, dk and dv within the card's bf16 tolerance (1e-2) of the Pallas
-    kernels (f32 inside, bf16 outputs) at the train step's head_dim, and
-    lse within 1e-4."""
-    q, k, v = _qkv(b=2, l=128, h=2, d=64, seed=10)
+    o, dq, dk and dv within the card's bf16 tolerance (1e-2) of the Pallas
+    kernels (f32 inside, bf16 outputs), at the train step's head_dim and at
+    128, where the kernels' tiles differ, and lse within 1e-4."""
+    q, k, v = _qkv(b=2, l=128, h=2, d=d, seed=10)
     g = np.random.default_rng(11).standard_normal(q.shape).astype(np.float32)
-    s = 0.125
+    s = 1.0 / np.sqrt(d)
     jf = [jnp.asarray(_fold(x), jnp.bfloat16) for x in (q, k, v, g)]
     jo, jlse = jfa._flash_forward(*jf[:3], scale=s, causal=causal,
                                   block_q=64, block_k=64, interpret=True)
-    _, jdk, jdv = jfa._flash_backward(*jf, jo, jlse, scale=s, causal=causal,
-                                      block_q=64, block_k=64, interpret=True)
-    o = torch.tensor(np.asarray(jo, np.float32).reshape(2, 2, 128, 64)
+    jdq, jdk, jdv = jfa._flash_backward(*jf, jo, jlse, scale=s,
+                                        causal=causal, block_q=64,
+                                        block_k=64, interpret=True)
+    o = torch.tensor(np.asarray(jo, np.float32).reshape(2, 2, 128, d)
                      ).transpose(1, 2).to(torch.bfloat16)
     lse = torch.tensor(np.asarray(jlse)[..., 0].reshape(2, 2, 128))
-    (got_o, got_lse), (dk, dv) = _tensor_core_rounding(
+    (got_o, got_lse), (dq, dk, dv) = _tensor_core_rounding(
         *_t(q, k, v, g, dtype=torch.bfloat16), o, lse, scale=s,
         causal=causal)
     np.testing.assert_allclose(got_lse.numpy().reshape(4, 128),
                                np.asarray(jlse)[..., 0], rtol=1e-4, atol=1e-4)
-    for got, want in ((got_o, jo), (dk, jdk), (dv, jdv)):
+    for got, want in ((got_o, jo), (dq, jdq), (dk, jdk), (dv, jdv)):
         np.testing.assert_allclose(_fold(got.float().numpy()),
                                    np.asarray(want, np.float32), rtol=1e-2,
                                    atol=1e-2)

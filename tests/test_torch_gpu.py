@@ -9,12 +9,11 @@ and runs there with:
 
 Tolerances: 1e-4 in f32 (the kernels sum over up to ~1300 keys in another
 order than the plain versions), 1e-2 in bf16 (both round an f32 result to
-bf16; one bf16 step is 2^-8 relative; the bf16 flash forward and dK/dV
-kernels also round P and dS to bf16 before their tensor-core products,
-while dQ keeps an f32 dS, so dq and dk come from slightly different
-roundings of dS); the flash lse, f32 in both dtypes, 1e-4. The bf16
-tensor-core kernels' errors in o, dk and dv also stay within twice those
-of torch's SDPA against the same plain versions. The tiny train step
+bf16; one bf16 step is 2^-8 relative; the bf16 flash kernels also round P
+and dS to bf16 before their tensor-core products); the flash lse, f32 in
+both dtypes, 1e-4. The bf16 tensor-core kernels' errors in o, dq, dk and
+dv also stay within twice those of torch's SDPA against the same plain
+versions. The tiny train step
 through the flash kernels and through dense attention (f32): each gradient leaf 1e-4 relative to its largest entry,
 floored at 1e-3 of the model's largest (bk's gradient is 0 in exact
 arithmetic: both paths give rounding noise there), the losses of 3 AdamW
@@ -183,30 +182,34 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, causal, lq, lk, d):
 
 @pytest.mark.gpu
 def test_flash_bf16_errors_within_twice_sdpa(cuda):
-    """The bf16 tensor-core K1 and K3 round P (and dS) to bf16 before their
+    """The bf16 tensor-core K1-K3 round P and dS to bf16 before their
     products, as torch's scaled_dot_product_attention does: against the
-    same plain versions their max errors in o, dk and dv stay within twice
-    SDPA's."""
+    same plain versions their max errors in o, dq, dk and dv stay within
+    twice SDPA's."""
     import torch.nn.functional as F
 
     q, k, v, g = _flash_operands(21, torch.bfloat16, 2, 1024, 1024, 4, 64)
     s = 0.125
     o, lse = fa.flash_forward(q, k, v, scale=s, causal=True)
-    dk, dv = fa.flash_dkv(q, k, v, g, lse, fa._delta(g, o), scale=s,
-                          causal=True)
+    delta = fa._delta(g, o)
+    dq = fa.flash_dq(q, k, v, g, lse, delta, scale=s, causal=True)
+    dk, dv = fa.flash_dkv(q, k, v, g, lse, delta, scale=s, causal=True)
     want_o, _ = fa.flash_forward_reference(q, k, v, scale=s, causal=True)
-    want_dk, want_dv = fa.flash_dkv_reference(q, k, v, g, lse,
-                                              fa._delta(g, o), scale=s,
-                                              causal=True)
+    want_dq = fa.flash_dq_reference(q, k, v, g, lse, delta, scale=s,
+                                    causal=True)
+    want_dk, want_dv = fa.flash_dkv_reference(q, k, v, g, lse, delta,
+                                              scale=s, causal=True)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
     lib_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    lib_dk, lib_dv = torch.autograd.grad(lib_o, (kt, vt), g.transpose(1, 2))
+    lib_dq, lib_dk, lib_dv = torch.autograd.grad(lib_o, (qt, kt, vt),
+                                                 g.transpose(1, 2))
 
     def err(a, b):
         return (a.float() - b.float()).abs().max().item()
 
     for name, got, lib, want in (("o", o, lib_o, want_o),
+                                 ("dq", dq, lib_dq, want_dq),
                                  ("dk", dk, lib_dk, want_dk),
                                  ("dv", dv, lib_dv, want_dv)):
         lib_err = err(lib.transpose(1, 2), want)
