@@ -15,25 +15,32 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    tensor-core kernel (``*_mma_kernel``, ``*_wgmma_kernel``) is a failure;
 3. kernels — each kernel's wrapper against its plain PyTorch version at the
    main paths' shapes, in bf16 and f32, with its time, the plain version's
-   time, one library call's time (a yardstick only) and the bound: the
-   paged-attention kernel at the engine's shapes, the three flash-attention
-   kernels at the train step's (B=16, L=1024, H=12, D=64, causal), each
-   with its route (bf16 K1 and K2 on wgmma, bf16 K3 on mma.sync, f32 on
-   the CUDA cores), TFLOP/s, and times over the bound and the library
-   call, and K2 + K3 against SDPA's whole backward; there the bf16
-   tensor-core kernels' errors (o, dq, dk, dv) must stay within twice
-   those of torch's SDPA against the same plain versions. Times are
+   time, one library call's time (a yardstick only) and the bound, each
+   with its route, TFLOP/s, and times over the bound and the library call:
+   the paged-attention kernels at the engine's shapes (bf16 prefill on
+   wgmma; decode, and every f32 call, split over the context on the CUDA
+   cores; NaN in the trash block must leave every output bit for bit;
+   both routes timed at T in {2, 4, 5, 8, 9, 16}, the threshold's
+   measurement), the three flash-attention kernels at the train step's
+   (B=16, L=1024, H=12, D=64, causal; bf16 K1 and K2 on wgmma, bf16 K3 on
+   mma.sync, f32 on the CUDA cores), and K2 + K3 against SDPA's whole
+   backward; there the bf16 tensor-core kernels' errors (o, dq, dk, dv)
+   must stay within twice those of torch's SDPA against the same plain
+   versions. Times are
    device times: the card sleeps before each timed call until the host
    has queued it (see ``Timer``);
 4. engine — ``PagedLLMEngine`` on ``gpt2_small()`` at full width (bf16,
    random weights from a seed) answers 8 requests from concurrent threads,
    with a shared-prefix hit and a copy-on-write tail fork; the kernels'
-   launch counts are set to 0 just before and read just after; then a
-   short decode window runs under torch.profiler (device busy and idle
-   share, time by kernel);
+   launch counts (K4's also by route) are set to 0 just before and read
+   just after; then a short decode window runs under torch.profiler
+   (device busy and idle share, time by kernel);
 5. end to end — the same greedy requests through the kernel path and
    through the plain (gather) path, at gpt2_small widths with 2 layers in
-   f32, must give the same tokens;
+   f32, must give the same tokens; then the bf16 prefill forward (prompts
+   of 150 and 900 tokens) through the wgmma K4 and through gather, each
+   held to an f32 gather run: the kernel within twice gather-bf16's error
+   plus one bf16 step;
 6. train — ``bench.py``'s configuration: ``gpt2_small(max_seq_len=1024,
    remat=True)``, 16 × 1024 tokens a step, AdamW(3e-4, weight_decay=0.1),
    3 warm-up and 10 timed steps with the launch counts set to 0 just
@@ -73,12 +80,14 @@ TOP2_TIE = 1e-3                      # end-to-end: a first divergence is a tie b
 LSE_TOL = 1e-4                       # flash lse: f32 in both versions
 TRAIN_GRAD_TOL = 1e-4                # train e2e: per leaf, relative to its scale
 TRAIN_LOSS_TOL = 1e-4                # train e2e: relative, losses of 3 steps
-BF16_E2E_FLOOR = 4e-3                # train e2e bf16: one bf16 step (2^-8) of slack
+BF16_E2E_FLOOR = 4e-3                # bf16 e2e checks: one bf16 step (2^-8) of slack
 DEVICE = "cuda"
 
 # Kernel name -> (module of ray_tpu_torch.ops, its launch counter).
 COUNTERS = {
     "paged_attention": ("paged_attention", "launches"),
+    "paged_attention/wgmma": ("paged_attention", "prefill_launches"),
+    "paged_attention/split": ("paged_attention", "decode_launches"),
     "flash_forward": ("flash_attention", "forward_launches"),
     "flash_dq": ("flash_attention", "dq_launches"),
     "flash_dkv": ("flash_attention", "dkv_launches"),
@@ -260,6 +269,12 @@ def _library_attention(torch, q, kp, vp, tables, lens):
     return out.transpose(1, 2)
 
 
+def paged_route_name(route):
+    """The design behind a route of ``ops/paged_attention.paged_route``."""
+    return {"wgmma": "tensor cores (wgmma)",
+            "split": "CUDA cores, split over the context"}[route]
+
+
 def phase_kernels(torch, np, card):
     from ray_tpu_torch.ops import paged_attention as pa
 
@@ -273,6 +288,7 @@ def phase_kernels(torch, np, card):
     for dtype in ("bfloat16", "float32"):
         for label, lengths, T in shapes:
             case = _paged_case(torch, rng, dtype, lengths, T)
+            route = pa.paged_route(T, getattr(torch, dtype))
             got = pa.paged_attention(*case)
             torch.cuda.synchronize()
             want = pa.paged_attention_reference(*case)
@@ -282,18 +298,18 @@ def phase_kernels(torch, np, card):
                 fail(f"paged_attention {label} {dtype}: non-finite output")
             if not torch.allclose(got.float(), want.float(), atol=tol,
                                   rtol=tol):
-                fail(f"paged_attention {label} {dtype}: max abs err {err} "
-                     f"over tolerance {tol}")
-            if label == "decode":
-                # NaN in the trash block: the kernel never reads a dead page,
-                # so the live outputs stay bit for bit what they were.
-                nan_case = (case[0], case[1].clone(), case[2].clone()) + \
-                    case[3:]
-                nan_case[1][0] = float("nan")
-                nan_case[2][0] = float("nan")
-                if not torch.equal(pa.paged_attention(*nan_case), got):
-                    fail(f"paged_attention decode {dtype}: NaN in the trash "
-                         f"block reached a live output")
+                fail(f"paged_attention {label} {dtype} ({route}): max abs "
+                     f"err {err} over tolerance {tol}")
+            # NaN in the trash block: neither kernel lets a dead page reach
+            # a live output (the split kernel never reads one; the wgmma
+            # kernel zero-fills them), so the outputs stay bit for bit.
+            nan_case = (case[0], case[1].clone(), case[2].clone()) + case[3:]
+            nan_case[1][0] = float("nan")
+            nan_case[2][0] = float("nan")
+            if not torch.equal(pa.paged_attention(*nan_case), got):
+                fail(f"paged_attention {label} {dtype} ({route}): NaN in the "
+                     f"trash block reached a live output")
+            del nan_case
             lib = _library_attention(torch, *case)
             lib_err = (lib.float() - want.float()).abs().max().item()
             ms = timer(lambda: pa.paged_attention(*case))
@@ -301,16 +317,52 @@ def phase_kernels(torch, np, card):
             lib_ms = timer(lambda: _library_attention(torch, *case))
             bound_ms, bound_by, nbytes, flops = _paged_bound(case, dtype)
             rec = {"case": label, "dtype": dtype, "S": len(lengths), "T": T,
-                   "lengths": lengths, "max_abs_err": err, "tol": tol,
-                   "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "library_max_abs_err": lib_err, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+                   "lengths": lengths, "route": route,
+                   "design": paged_route_name(route), "max_abs_err": err,
+                   "tol": tol, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": lib_ms, "library_max_abs_err": lib_err,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bytes": nbytes, "flops": flops,
+                   "tflops": flops / ms / 1e9, "x_bound": ms / bound_ms,
+                   "x_library": ms / lib_ms}
             cases.append(rec)
-            log(f"[kernel] paged_attention {label:24s} {dtype:8s} "
-                f"err {err:.2e} (tol {tol:g})  kernel {ms:.4f} ms  "
-                f"plain {plain_ms:.4f} ms  library {lib_ms:.4f} ms  "
-                f"bound {bound_ms:.4f} ms ({bound_by})  [{card}]")
-    return cases
+            log(f"[kernel] paged_attention {label:24s} {dtype:8s} {route:5s} "
+                f"err {err:.2e} (tol {tol:g})  kernel {ms:.4f} ms = "
+                f"{rec['tflops']:.2f} TFLOP/s, {rec['x_bound']:.1f}x bound, "
+                f"{rec['x_library']:.2f}x library  plain {plain_ms:.4f} ms  "
+                f"library {lib_ms:.4f} ms  bound {bound_ms:.4f} ms "
+                f"({bound_by})  [{card}]")
+    return cases, _paged_threshold(torch, np, pa, timer, card)
+
+
+def _paged_threshold(torch, np, pa, timer, card):
+    """Both K4 routes at the T where one takes over from the other (bf16):
+    the decode slots and a one-slot prefill from a 256-token prefix, so the
+    threshold ``pa.WGMMA_MIN_T`` rests on a measurement."""
+    rng = np.random.default_rng(5)
+    rows = []
+    for lengths in ([0, 15, 16, 1000], [256]):
+        for T in (2, 4, 5, 8, 9, 16):
+            case = _paged_case(torch, rng, "bfloat16", lengths, T)
+            s = 1.0 / case[0].shape[-1] ** 0.5
+            want = pa.paged_attention_reference(*case).float()
+            row = {"lengths": lengths, "T": T,
+                   "route": pa.paged_route(T, torch.bfloat16)}
+            for route in ("split", "wgmma"):
+                got = pa._paged_attention_cuda(*case, s, route=route)
+                if not torch.allclose(got.float(), want, atol=TOL["bfloat16"],
+                                      rtol=TOL["bfloat16"]):
+                    fail(f"paged_attention {route} route at T={T} "
+                         f"{lengths}: over tolerance")
+                row[f"{route}_ms"] = timer(
+                    lambda: pa._paged_attention_cuda(*case, s, route=route),
+                    iters=10)
+            rows.append(row)
+            log(f"[kernel] paged_attention route threshold bf16 S="
+                f"{len(lengths)} T={T:2d}: split {row['split_ms']:.4f} ms, "
+                f"wgmma {row['wgmma_ms']:.4f} ms -> takes {row['route']}  "
+                f"[{card}]")
+    return rows
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -441,6 +493,11 @@ def phase_engine(torch, np, card, counts):
         fail(f"paged_attention launches {launches['paged_attention']} != "
              f"n_layers x (prefill {d_pref} + decode steps {d_dec}) = "
              f"{expected}")
+    by_route = {r: launches[f"paged_attention/{r}"]
+                for r in ("wgmma", "split")}
+    if sum(by_route.values()) != expected or not all(by_route.values()):
+        fail(f"paged_attention launches by route {by_route}: both routes "
+             f"must run and add up to {expected}")
     hits = st1["kv_hit_tokens"] - st0["kv_hit_tokens"]
     cows = st1["kv_cow_copies"] - st0["kv_cow_copies"]
     if hits < 256 or cows < 1:
@@ -469,7 +526,8 @@ def phase_engine(torch, np, card, counts):
         f"{summary['ttft_ms_max']:.1f} ms  [{card}]")
     log(f"[engine] prefill dispatches {d_pref}, decode steps {d_dec}, "
         f"paged_attention launches {launches['paged_attention']} = "
-        f"{cfg.n_layers} x {d_pref + d_dec}; prefix hit tokens {hits:.0f}, "
+        f"{cfg.n_layers} x {d_pref + d_dec} (wgmma {by_route['wgmma']}, "
+        f"split {by_route['split']}); prefix hit tokens {hits:.0f}, "
         f"COW forks {cows:.0f}; blocks pinned after: 0")
     summary["profile"] = _profile_decode(torch, np, eng, card)
     return summary
@@ -593,7 +651,59 @@ def phase_end_to_end(torch, np):
     log(f"[e2e] {len(prompts)} greedy requests, gpt2_small widths x 2 "
         f"layers, f32: kernel path == plain path"
         + (f" up to {len(ties)} near tie(s)" if ties else ""))
-    return {"prompts": [len(p) for p in prompts], "ties": ties}
+    return {"prompts": [len(p) for p in prompts], "ties": ties,
+            "prefill_bf16": _prefill_bf16(torch, np)}
+
+
+def _prefill_bf16(torch, np):
+    """bf16 on the engine's own prefill forward, where the wgmma K4 runs:
+    ``_forward_prefill_paged`` at gpt2_small widths x 2 layers, prompts of
+    150 and 900 tokens padded to their buckets, through the kernel and
+    through the gather path in bf16 compute, each held to an f32 gather run
+    on the same parameters: the kernel's error in the last position's
+    logits (relative to their largest) within twice gather-bf16's plus one
+    bf16 step."""
+    from ray_tpu_torch.models import generate, transformer
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    f32 = transformer.gpt2_small(n_layers=2, dtype=torch.float32)
+    bf16 = f32.replace(dtype=torch.bfloat16)
+    params = transformer.init_params(f32, torch.Generator().manual_seed(6),
+                                     device=DEVICE)
+    rng = np.random.default_rng(6)
+    table = torch.arange(1, 65, dtype=torch.int32, device=DEVICE)
+    out = []
+    for n in (150, 900):
+        bucket = 256 if n <= 256 else 1024
+        padded = torch.zeros((1, bucket), dtype=torch.long, device=DEVICE)
+        padded[0, :n] = torch.tensor(rng.integers(0, f32.vocab_size, n))
+        logits = {}
+        for name, cfg, kernel in (("f32 gather", f32, "gather"),
+                                  ("bf16 gather", bf16, "gather"),
+                                  ("bf16 kernel", bf16, "cuda")):
+            kp, vp = generate.init_block_pool(cfg, 65, 16, DEVICE)
+            before = pa.prefill_launches
+            lg, _, _ = generate._forward_prefill_paged(
+                params, padded, kp, vp, table, 0, n, cfg, 16, kernel=kernel)
+            if kernel == "cuda" and pa.prefill_launches - before != 2:
+                fail(f"e2e bf16 prefill of {n} tokens: the wgmma kernel ran "
+                     f"{pa.prefill_launches - before} times, not 2")
+            logits[name] = lg[0, n - 1, :f32.vocab_size].float()
+        ref = logits["f32 gather"]
+        top = ref.abs().max().item()
+        errs = {k: (logits[k] - ref).abs().max().item() / top
+                for k in ("bf16 gather", "bf16 kernel")}
+        if errs["bf16 kernel"] > 2 * errs["bf16 gather"] + BF16_E2E_FLOOR:
+            fail(f"e2e bf16 prefill of {n} tokens: kernel logits err "
+                 f"{errs['bf16 kernel']:.2e} over twice gather-bf16's "
+                 f"{errs['bf16 gather']:.2e} plus {BF16_E2E_FLOOR}")
+        out.append({"prompt_len": n, "bucket": bucket, "rel_err": errs})
+        log(f"[e2e] bf16 prefill of {n} tokens (bucket {bucket}), gpt2_small "
+            f"widths x 2 layers, last-position logits against f32 gather: "
+            f"wgmma kernel {errs['bf16 kernel']:.2e}, gather bf16 "
+            f"{errs['bf16 gather']:.2e} (kernel within 2x gather + "
+            f"{BF16_E2E_FLOOR})")
+    return out
 
 
 # -- phase 3, flash attention --------------------------------------------------
@@ -877,7 +987,8 @@ def phase_train(torch, np, card, counts):
     norms = [x.item() for x in norms]
     n = cfg.n_layers
     want = {"flash_forward": 2 * n, "flash_dq": n, "flash_dkv": n,
-            "paged_attention": 0}
+            "paged_attention": 0, "paged_attention/wgmma": 0,
+            "paged_attention/split": 0}
     for i, got in enumerate(per_step):
         if got != want:
             fail(f"train step {i}: launches {got}, wanted {want} (forward "
@@ -1023,26 +1134,38 @@ def main() -> None:
     if missing:
         fail(f"kernel sources without a check here: {sorted(missing)}")
     counts = Counts()
-    cases = phase_kernels(torch, np, card)
+    cases, threshold = phase_kernels(torch, np, card)
     flash_cases = phase_flash_kernels(torch, np, card)
     engine = phase_engine(torch, np, card, counts)
     e2e = phase_end_to_end(torch, np)
     train = phase_train(torch, np, card, counts)
     train_e2e = phase_train_end_to_end(torch, np, counts)
 
-    main_case = next(c for c in cases
-                     if c["case"] == "decode" and c["dtype"] == "bfloat16")
+    def bf16_case(label):
+        return next(c for c in cases
+                    if c["case"] == label and c["dtype"] == "bfloat16")
+
+    main_case = bf16_case("decode")
+    prefill = bf16_case("prefill T=1024 start=0")
+    launches = engine["launches"]
     kernels = [{
         "name": "paged_attention", "route": "cuda",
+        "design": {"decode": main_case["design"],
+                   "prefill": prefill["design"]},
         "source": "ray_tpu_torch/ops/csrc/paged_attention.cu",
         "replaces": "ray_tpu/ops/paged_attention.py:49",
-        "launches": engine["launches"]["paged_attention"],
+        "launches": launches["paged_attention"],
+        "launches_by_route": {"wgmma": launches["paged_attention/wgmma"],
+                              "split": launches["paged_attention/split"]},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "max_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
         "timed_case": "decode S=4 T=1 lengths [0,15,16,1000] bf16",
+        "prefill_ms": prefill["ms"], "prefill_plain_ms": prefill["plain_ms"],
+        "prefill_bound_ms": prefill["bound_ms"],
+        "prefill_library_ms": prefill["library_ms"],
+        "prefill_timed_case": "prefill S=1 T=1024 start 0 bf16",
     }]
     for name, (replaces, _) in FLASH.items():
         mine = [c for c in flash_cases if c["kernel"] == name]
@@ -1061,7 +1184,8 @@ def main() -> None:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kind": kind, "count": count, "kernels": kernels,
-         "cases": cases, "flash_cases": flash_cases,
+         "cases": cases, "paged_threshold": threshold,
+         "flash_cases": flash_cases,
          "engine": engine, "end_to_end": e2e, "train": train,
          "train_end_to_end": train_e2e}, indent=1))
     log(json.dumps({"kernels": kernels}))

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library, loaded with ``ctypes`` — no
 PyTorch headers, so a build takes seconds. Libraries go to ``build/kernels/``
-at the root of the checkout, named by a hash of the source and the flags, so
-an edited source rebuilds and an unchanged one loads the existing file. The
+at the root of the checkout, named by a hash of the source, the shared
+headers ``csrc/*.cuh`` and the flags, so an edited source or header rebuilds
+and an unchanged one loads the existing file. The
 build runs at a kernel's first use (or ahead of it through
 :func:`build_all`), never at import: the CPU test host has no ``nvcc``.
 """
@@ -52,10 +53,14 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Tuple[Path, Path]:
+    """The source of kernel ``name`` and its library, named by a hash of the
+    source, every shared header of ``csrc/`` (``*.cuh``) and the flags."""
     src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}-{key}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:

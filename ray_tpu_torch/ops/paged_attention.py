@@ -7,21 +7,30 @@ tables. Query t of slot s sits at absolute position ``lengths[s] + t`` and
 attends positions ``<= lengths[s] + t`` through ``tables[s]``; the T new
 tokens' K/V must already be in the pool (the caller writes, then attends).
 
-- :func:`paged_attention` dispatches on the device: CUDA tensors launch the
-  hand-written kernel ``csrc/paged_attention.cu`` (the port of the Pallas
-  ``_paged_kernel``), CPU tensors run the plain version. There is no other
-  route: a CUDA tensor never reaches the plain version through this call.
+- :func:`paged_attention` dispatches on the device: CUDA tensors launch one
+  of the two hand-written kernels of ``csrc/paged_attention.cu`` (the port
+  of the Pallas ``_paged_kernel``), CPU tensors run the plain version. There
+  is no other route: a CUDA tensor never reaches the plain version through
+  this call.
+- :func:`paged_route` says which kernel a call takes, from its T and dtype
+  alone (the lengths stay on the card): ``"wgmma"``, the tensor-core prefill
+  kernel, for bf16 at T >= ``WGMMA_MIN_T``; ``"split"``, the CUDA-core
+  kernel split over the context, for everything else (every f32 call, the
+  engine's decode).
+- :func:`split_plan` is the split kernel's host-side plan: how many pages a
+  split covers and how many splits there are, from static shapes only.
 - :func:`paged_attention_reference` is the plain PyTorch version, line for
   line the JAX ``paged_attention_reference``: it gathers the whole table and
   runs masked dense attention.
-- ``launches`` counts kernel launches, so a run can show that its path went
-  through the kernel.
+- ``launches`` counts kernel launches (one per call), ``prefill_launches``
+  those of the wgmma kernel and ``decode_launches`` those of the split
+  kernel, so a run can show which kernels its path went through.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -29,23 +38,69 @@ from ray_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTE_CODES = {"split": 0, "wgmma": 1}
 _HEAD_DIMS = (32, 64, 128)
 
-# Kernel launches since import (or since a caller reset it to 0).
+# bf16 calls with at least this many query tokens take the wgmma kernel (from
+# T = 5 it beat the split kernel on the H100 for 1 and 4 slots; at T = 2 it
+# lost: chip_smoke.py's threshold rows).
+WGMMA_MIN_T = 5
+# The split kernel: query rows a block (csrc ``split::kRows``), the blocks a
+# plan aims for (two an SM of the H100's 132) and the least keys a split.
+_ROWS = 8
+_SPLIT_BLOCKS = 2 * 132
+_SPLIT_MIN_KEYS = 64
+
+# Kernel launches since import (or since a caller reset them to 0): all, and
+# by route.
 launches = 0
+prefill_launches = 0     # paged_prefill_wgmma_kernel
+decode_launches = 0      # paged_decode_split_kernel
 
 _fn = None
+# Per device: the split kernel's arrival counters, zeroed once; every call
+# leaves them 0. Calls on one device share them, so they run in stream order
+# (the engine's calls all go to one stream).
+_counters: Dict[torch.device, torch.Tensor] = {}
+
+
+def paged_route(T: int, dtype: torch.dtype) -> str:
+    """The kernel a call with T query tokens of ``dtype`` launches:
+    ``"wgmma"`` (bf16, T >= ``WGMMA_MIN_T``) or ``"split"``."""
+    return "wgmma" if dtype == torch.bfloat16 and T >= WGMMA_MIN_T \
+        else "split"
+
+
+def split_plan(NB: int, bt: int, S: int, H: int, T: int) -> Tuple[int, int]:
+    """``(pages_per_split, n_split)`` for the split kernel: split j covers
+    table pages ``[j * pages_per_split, (j + 1) * pages_per_split)`` (the
+    last one cut at NB), so every page 0..NB-1 lies in exactly one split.
+    Enough splits that S·H·ceil(T/8)·n_split reaches ~2 blocks an SM, each
+    of at least 64 keys; one split when the rows alone fill the card."""
+    base = S * H * -(-T // _ROWS)
+    want = -(-_SPLIT_BLOCKS // base)
+    pages = min(NB, max(-(-NB // want), -(-_SPLIT_MIN_KEYS // bt)))
+    return pages, -(-NB // pages)
 
 
 def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("paged_attention").ray_tpu_torch_paged_attention
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                       + [ctypes.c_float] + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _counter_buffer(device: torch.device, n: int) -> torch.Tensor:
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _counters[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                              device=device)
+    return buf
 
 
 def _check(q, k_pool, v_pool, tables, lengths):
@@ -92,23 +147,44 @@ def _check(q, k_pool, v_pool, tables, lengths):
         raise ValueError("empty pool or table")
 
 
-def _paged_attention_cuda(q, k_pool, v_pool, tables, lengths, s_val):
-    global launches
+def _paged_attention_cuda(q, k_pool, v_pool, tables, lengths, s_val,
+                          route: Optional[str] = None):
+    """One launch of the kernel :func:`paged_route` picks (``route`` names
+    another, to time one route against the other)."""
+    global launches, prefill_launches, decode_launches
     _check(q, k_pool, v_pool, tables, lengths)
     S, T, H, D = q.shape
     nb, bt = k_pool.shape[:2]
+    NB = tables.shape[1]
+    route = route or paged_route(T, q.dtype)
+    if route == "wgmma" and q.dtype != torch.bfloat16:
+        raise TypeError(f"the wgmma route takes bfloat16, not {q.dtype}")
+    pages, n_split = split_plan(NB, bt, S, H, T) if route == "split" \
+        else (NB, 1)
     out = torch.empty_like(q)
+    scratch = counters = None
+    if n_split > 1:        # partials (acc, then m and l) and arrival counts
+        scratch = torch.empty(S * H * T * n_split * (D + 2),
+                              dtype=torch.float32, device=q.device)
+        counters = _counter_buffer(q.device, S * H * -(-T // _ROWS))
     fn = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                S, T, H, D, bt, tables.shape[1], nb, float(s_val),
-                _DTYPE_CODES[q.dtype], stream)
+                None if scratch is None else scratch.data_ptr(),
+                None if counters is None else counters.data_ptr(),
+                S, T, H, D, bt, NB, nb, float(s_val),
+                _DTYPE_CODES[q.dtype], _ROUTE_CODES[route], pages, n_split,
+                stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {rc}")
     launches += 1
+    if route == "wgmma":
+        prefill_launches += 1
+    else:
+        decode_launches += 1
     return out
 
 
@@ -123,8 +199,8 @@ def paged_attention(
 ) -> torch.Tensor:
     """Attention over the block pool; returns [S, T, H, D] in q's dtype.
 
-    CUDA tensors launch the kernel (which raises if it cannot launch); CPU
-    tensors run :func:`paged_attention_reference`."""
+    CUDA tensors launch the kernel :func:`paged_route` picks (and raise if
+    it cannot launch); CPU tensors run :func:`paged_attention_reference`."""
     s_val = scale if scale is not None else 1.0 / q.shape[-1] ** 0.5
     if q.device.type == "cuda":
         return _paged_attention_cuda(q, k_pool, v_pool, tables, lengths,

@@ -65,16 +65,34 @@ def _operands(rng, dt, lengths, T, *, H=12, D=64, bt=16, nb_seq=64,
             torch.tensor(lengths, dtype=torch.int32, device="cuda"))
 
 
+def _paged_cases():
+    """(lengths, T, geometry) rows that reach every route and edge of K4:
+    the prefill rows (S = 1) at T on both sides of the wgmma threshold, of a
+    64-row tile and of a split-kernel block of 8 rows, from contexts 0, 13
+    and 256 (256 + 1024 runs past the table's 1024 positions); every block
+    size and head_dim; S = 4 slots that mix one live split and many, with
+    contexts at a split's boundary (176 keys: 11 pages of 16) and a page's,
+    each ±1, and at the capacity − 1."""
+    cases = [([start], T, {}) for T in (1, 2, 8, 9, 16, 17, 64, 65, 200, 1024)
+             for start in (0, 13, 256)]
+    for bt in (8, 16, 32):
+        for D in (32, 64, 128):
+            geom = dict(bt=bt, D=D, H=4 if D == 128 else 12)
+            cap = 64 * bt
+            cases += [([0, bt - 1, 5 * bt + 1, cap - 1], 1, geom),
+                      ([13], 200, geom)]
+    cases += [([0, 15, 16, 1000], 1, {}),                 # engine decode
+              ([175, 176, 177, 1023], 1, {}),             # split edge ±1
+              ([15, 16, 17, 1022], 2, {}),                # page edge ±1
+              ([0, 17, 300], 5, {}),                      # multi-token
+              ([5, 63, 64], 3, dict(bt=8, nb_seq=16, D=32)),
+              ([100, 7], 2, dict(D=128, H=4))]
+    return cases
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("lengths,T,geom", [
-    ([0, 15, 16, 1000], 1, {}),                       # engine decode
-    ([0, 17, 300], 5, {}),                            # multi-token
-    ([256], 64, {}),                                  # prefill, prefix hit
-    ([0], 1024, {}),                                  # full bucket
-    ([5, 63, 64], 3, dict(bt=8, nb_seq=16, D=32)),    # other geometry
-    ([100, 7], 2, dict(D=128, H=4)),
-])
+@pytest.mark.parametrize("lengths,T,geom", _paged_cases())
 def test_kernel_matches_plain_version(cuda, dtype, lengths, T, geom):
     dt = getattr(torch, dtype)
     ops = _operands(np.random.default_rng(len(lengths) * 100 + T), dt,
@@ -90,14 +108,55 @@ def test_kernel_matches_plain_version(cuda, dtype, lengths, T, geom):
 
 
 @pytest.mark.gpu
-def test_nan_in_dead_pages_never_read(cuda):
-    ops = _operands(np.random.default_rng(5), torch.bfloat16,
-                    [0, 15, 16, 1000], 1)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lengths,T", [([0, 15, 16, 1000], 1), ([0], 16),
+                                       ([13], 16), ([0], 1024)])
+def test_nan_in_dead_pages_never_read(cuda, dtype, lengths, T):
+    """NaN in the trash block (the table's dead entries point there): the
+    decode and the prefill outputs stay bit for bit what they were."""
+    ops = _operands(np.random.default_rng(5), getattr(torch, dtype),
+                    lengths, T)
     clean = pa.paged_attention(*ops)
     kp, vp = ops[1].clone(), ops[2].clone()
     kp[0] = float("nan")
     vp[0] = float("nan")
     assert torch.equal(pa.paged_attention(ops[0], kp, vp, *ops[3:]), clean)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lengths,T", [([0, 15, 16, 1000], 1),
+                                       ([175, 1023, 3, 500], 2), ([0], 1024)])
+def test_repeat_calls_give_the_same_bits(cuda, dtype, lengths, T):
+    """Two calls in a row give the same bits: the split kernel's merge
+    counters are back at 0 after each call, and no sum depends on which
+    block arrived last."""
+    ops = _operands(np.random.default_rng(9), getattr(torch, dtype), lengths,
+                    T)
+    first = pa.paged_attention(*ops)
+    assert torch.equal(pa.paged_attention(*ops), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [1, 2, 4, 5, 8, 9, 16, 1024])
+def test_route_and_its_counter(cuda, dtype, T):
+    """bf16 at T >= WGMMA_MIN_T takes the wgmma kernel, everything else the
+    split kernel, and only that route's counter moves."""
+    dt = getattr(torch, dtype)
+    want = "wgmma" if dt == torch.bfloat16 and T >= pa.WGMMA_MIN_T \
+        else "split"
+    assert pa.paged_route(T, dt) == want
+    if dt == torch.float32 or T == 1:
+        assert want == "split"
+    if dt == torch.bfloat16 and T >= 16:
+        assert want == "wgmma"
+    ops = _operands(np.random.default_rng(T), dt, [7], T)
+    before = (pa.launches, pa.prefill_launches, pa.decode_launches)
+    pa.paged_attention(*ops)
+    wg = want == "wgmma"
+    assert (pa.launches, pa.prefill_launches, pa.decode_launches) == (
+        before[0] + 1, before[1] + wg, before[2] + (not wg))
 
 
 @pytest.mark.gpu
@@ -111,6 +170,8 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
         pa.paged_attention(ops[0], ops[1], ops[2], ops[3].long(), ops[4])
     with pytest.raises(ValueError, match="is on"):
         pa.paged_attention(ops[0], ops[1], ops[2], ops[3].cpu(), ops[4])
+    with pytest.raises(TypeError, match="wgmma"):
+        pa._paged_attention_cuda(*ops, 0.125, route="wgmma")
 
 
 @pytest.mark.gpu

@@ -7,8 +7,11 @@ the JAX Pallas kernel in interpret mode and the JAX
 interpret-mode kernel costs seconds a case, so only the block-boundary
 cases run it; every case runs against the JAX reference.
 
-The CUDA kernel itself is held against the plain version on the card by
-``test_torch_gpu.py``.
+The split kernel's host-side plan and its split-then-merge arithmetic
+are held here too: the plan covers every table page exactly once, and
+partials per split merged by the kernel's formula match the JAX kernel and
+reference at 2e-5. The CUDA kernels themselves are held against the plain
+version on the card by ``test_torch_gpu.py``.
 """
 
 import jax.numpy as jnp
@@ -95,11 +98,12 @@ def test_scale_override():
 def test_port_reference_is_the_dispatch_on_cpu():
     ops = _setup(RAGGED, 2, seed=4)
     t_ops = [torch.from_numpy(a) for a in ops]
-    before = pa.launches
+    before = (pa.launches, pa.prefill_launches, pa.decode_launches)
     a = pa.paged_attention(*t_ops)
     b = pa.paged_attention_reference(*t_ops)
     assert torch.equal(a, b)
-    assert pa.launches == before    # the CPU path launches no kernel
+    # The CPU path launches no kernel.
+    assert (pa.launches, pa.prefill_launches, pa.decode_launches) == before
 
 
 def test_trash_block_cannot_leak():
@@ -163,3 +167,86 @@ def test_cpu_kernel_checks_are_strict():
         strided = torch.cat([q, q], dim=-1)[..., ::2]
         pa._check(strided, k_pool, v_pool, tables, lens)
     pa._check(q, k_pool, v_pool, tables, lens)
+
+
+@pytest.mark.parametrize("nb", [1, 6, 64, 100])
+@pytest.mark.parametrize("bt", [1, 8, 16, 32])
+def test_split_plan_covers_every_page_once(nb, bt):
+    """Split j covers pages [j·pages, (j+1)·pages) ∩ [0, nb): together every
+    page of the table exactly once, no split empty, each at least 64 keys
+    unless one split takes the whole table, and more than one split only
+    while the rows alone leave the card short of ~2 blocks an SM."""
+    for S in (1, 4):
+        for H in (4, 12):
+            for T in (1, 8, 9, 1024):
+                pages, n_split = pa.split_plan(nb, bt, S, H, T)
+                covered = [p for j in range(n_split)
+                           for p in range(j * pages,
+                                          min((j + 1) * pages, nb))]
+                assert covered == list(range(nb)), (S, H, T)
+                assert (n_split - 1) * pages < nb
+                assert pages == nb or pages * bt >= 64
+                rows = S * H * -(-T // 8)
+                assert n_split == 1 or rows < 264
+
+
+def _split_merge(ops, pages, *, scale=None):
+    """The split kernel's arithmetic, written plainly: per slot, head and
+    query row, one partial (m, l, acc) per split of ``pages`` table pages —
+    a split with no key that the row attends gives m = -1e30, l = 0,
+    acc = 0 — then out = Σ e^{m_i−m} acc_i / Σ e^{m_i−m} l_i."""
+    q, k_pool, v_pool, tables, lengths = (torch.from_numpy(np.asarray(a))
+                                          for a in ops)
+    S, T, H, D = q.shape
+    bt, nb_seq = k_pool.shape[1], tables.shape[1]
+    s_val = scale if scale is not None else 1.0 / D ** 0.5
+    idx = tables.long().clamp(0, k_pool.shape[0] - 1)
+    kc = k_pool[idx].reshape(S, nb_seq * bt, H, D)
+    vc = v_pool[idx].reshape(S, nb_seq * bt, H, D)
+    scores = torch.einsum("bthd,bshd->bhts", q, kc) * s_val
+    kv_pos = torch.arange(nb_seq * bt)
+    q_pos = lengths.long()[:, None] + torch.arange(T)[None, :]     # [S, T]
+    ok = (kv_pos[None, None, :] <= q_pos[:, :, None])[:, None]     # [S,1,T,K]
+    parts = []
+    for k0 in range(0, nb_seq * bt, pages * bt):
+        sl = slice(k0, min(k0 + pages * bt, nb_seq * bt))
+        s_j = torch.where(ok[..., sl], scores[..., sl],
+                          torch.full_like(scores[..., sl], -1e30))
+        m_j = s_j.max(dim=-1).values                              # [S,H,T]
+        p_j = torch.where(ok[..., sl], torch.exp(s_j - m_j[..., None]),
+                          torch.zeros_like(s_j))
+        acc_j = torch.einsum("bhts,bshd->bhtd", p_j, vc[:, sl])
+        parts.append((m_j, p_j.sum(-1), acc_j))
+    m = torch.stack([m_j for m_j, _, _ in parts]).max(dim=0).values
+    num = sum(torch.exp(m_j - m)[..., None] * acc_j for m_j, _, acc_j in parts)
+    den = sum(torch.exp(m_j - m) * l_j for m_j, l_j, _ in parts)
+    out = num / den.clamp(min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).numpy()                        # [S,T,H,D]
+
+
+@pytest.mark.parametrize("pages", [None, 1, 4])
+@pytest.mark.parametrize("lengths", BOUNDARY_LENGTHS + [RAGGED])
+def test_split_then_merge_matches_jax(lengths, pages):
+    """Partials per split (the planner's, or 1 and 4 pages a split, so that
+    short contexts leave splits empty) merged by the kernel's formula give
+    the JAX reference's output, at decode (T = 1) and T = 3."""
+    for T in (1, 3):
+        ops = _setup(lengths, T, seed=11)
+        plan = pages or pa.split_plan(NB, BT, len(lengths), H, T)[0]
+        _assert_close(_split_merge(ops, plan), jax_reference(*ops))
+
+
+@pytest.mark.parametrize("lengths", [[BT - 1], [NB * BT - 1], RAGGED])
+def test_split_then_merge_matches_interpret_kernel(lengths):
+    ops = _setup(lengths, 1, seed=12)
+    _assert_close(_split_merge(ops, 2), jax_paged(*ops, interpret=True))
+
+
+@pytest.mark.parametrize("T", [1, 2, 4, 5, 8, 9, 16, 1024])
+def test_paged_route_on_cpu_dtypes(T):
+    """The route depends on T and the dtype alone: f32 always takes the
+    split kernel; bf16 takes the wgmma kernel from WGMMA_MIN_T (5) up."""
+    assert pa.WGMMA_MIN_T == 5
+    assert pa.paged_route(T, torch.float32) == "split"
+    assert pa.paged_route(T, torch.bfloat16) == (
+        "wgmma" if T >= 5 else "split")
