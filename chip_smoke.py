@@ -53,7 +53,26 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    gradients, then the same losses over 3 AdamW steps; then both in bf16
    compute (where K1 and K3 run on the tensor cores), each held to the f32
    dense run: the flash errors in loss and gradients within twice dense
-   bf16's plus one bf16 step (K1-K3 all run on the tensor cores there).
+   bf16's plus one bf16 step (K1-K3 all run on the tensor cores there);
+8. slotted engine — ``LLMEngine`` (the slotted cache, attended without the
+   paged kernel) on ``gpt2_small()`` at full width, bf16, answers phase 4's
+   8 requests: decode tokens/s and TTFT beside phase 4's paged figures;
+   ``device_metrics()`` of both engines; then at gpt2_small widths with 2
+   layers in f32 the slotted engine, the paged engine on the kernel and
+   ``Generator`` (the single-sequence oracle) give the same greedy tokens;
+9. speculative decoding — ``PagedLLMEngine`` on ``gpt2_small()`` at full
+   width, bf16, with three drafts (the target itself; the target + 0.05 x
+   an independent init; an independent 6-layer init) at k = 3 (the T = 4
+   verify on the split K4) and k = 4 (T = 5, on the wgmma K4): the counts
+   set to 0 just before each run and read just after must equal what the
+   engine's prefill, decode, verify and draft forwards imply, per layer
+   and by route; blocks drain; the aligned draft accepts >= 90 %; decode
+   tokens/s and the accept ratio beside the plain engine's on the same
+   requests (8 for aligned, 4 for the others); then at 2 layers in f32
+   every draft at k = 3 and 4 gives the plain engine's greedy tokens.
+
+In phases 5, 8 and 9 a greedy stream that departs from its reference must
+do so at a near tie: the plain path's top-2 logit gap there under 1e-3.
 
 It prints the kernels line ``{"kernels": [...]}`` and, last, the line
 ``{"ok": true, "device": {...}}``. Details go to
@@ -392,6 +411,83 @@ def _requests(np):
     ]
 
 
+def _serve(torch, eng, reqs, label):
+    """Answer ``reqs`` (``_requests``) on ``eng`` from one thread each: a
+    request with ``after`` waits for another's first token or end, one that
+    ``extends`` another prompts with that one's prompt, output and its own
+    ``extra``. Returns (results by name, wall seconds), the card
+    synchronised at the end; a failed or unfinished request is fatal."""
+    by_name = {r["name"]: r for r in reqs}
+    events = {f"{r['name']}:{k}": threading.Event() for r in reqs
+              for k in ("first", "done")}
+    results, errors = {}, []
+
+    def client(r):
+        try:
+            if "after" in r:
+                if not events[r["after"]].wait(timeout=600):
+                    raise TimeoutError(f"{r['name']} waited for {r['after']}")
+            if r.get("extends"):
+                base = by_name[r["extends"]]
+                r["prompt"] = (base["prompt"] + results[base["name"]]["tokens"]
+                               + r["extra"])
+            out = {}
+            toks = []
+            for tok in eng.stream(r["prompt"], max_new_tokens=r["max_new"],
+                                  temperature=r.get("temperature", 0.0),
+                                  seed=r.get("seed", 0), result=out):
+                toks.append(tok)
+                events[f"{r['name']}:first"].set()
+            results[r["name"]] = dict(tokens=toks, **out)
+        except BaseException as e:  # noqa: BLE001 — reported, then fatal
+            errors.append(f"{r['name']}: {e!r}")
+        finally:
+            events[f"{r['name']}:first"].set()
+            events[f"{r['name']}:done"].set()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(r,)) for r in reqs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        fail(f"{label} requests did not finish within 900 s")
+    if errors:
+        fail(f"{label} requests failed: {errors}")
+    return results, wall
+
+
+def _check_streams(reqs, results, vocab):
+    for r in reqs:
+        res = results[r["name"]]
+        toks = res["tokens"]
+        if len(toks) != r["max_new"]:
+            fail(f"request {r['name']}: {len(toks)} tokens, wanted "
+                 f"{r['max_new']} (finish {res.get('finish_reason')})")
+        if not all(0 <= t < vocab for t in toks):
+            fail(f"request {r['name']}: token out of [0, {vocab})")
+
+
+def _serve_summary(eng, reqs, results, wall, rate=None):
+    """Tokens, wall rate, decode tokens/s (``rate``, else the engine's
+    lifetime rate) and TTFT of one ``_serve`` run."""
+    n_tok = sum(len(results[r["name"]]["tokens"]) for r in reqs)
+    ttfts = sorted(results[r["name"]]["ttft_s"] * 1e3 for r in reqs)
+    return {
+        "requests": len(reqs), "tokens": n_tok, "wall_s": wall,
+        "tokens_per_s_wall": n_tok / wall,
+        "decode_tokens_per_s": (rate if rate is not None
+                                else eng.decode_tokens_per_sec()),
+        "ttft_ms": {r["name"]: results[r["name"]]["ttft_s"] * 1e3
+                    for r in reqs},
+        "ttft_ms_median": ttfts[len(ttfts) // 2], "ttft_ms_max": ttfts[-1],
+        "prompt_lens": {r["name"]: len(r["prompt"]) for r in reqs},
+    }
+
+
 class Counts:
     """The kernels' launch counters, set to 0 and read together."""
 
@@ -431,60 +527,13 @@ def phase_engine(torch, np, card, counts):
         fail(f"engine resolved attention to {eng._pg.attention_kernel!r}")
 
     reqs = _requests(np)
-    by_name = {r["name"]: r for r in reqs}
-    events = {f"{r['name']}:{k}": threading.Event() for r in reqs
-              for k in ("first", "done")}
-    results, errors = {}, []
-
-    def client(r):
-        try:
-            if "after" in r:
-                if not events[r["after"]].wait(timeout=600):
-                    raise TimeoutError(f"{r['name']} waited for {r['after']}")
-            if r.get("extends"):
-                base = by_name[r["extends"]]
-                r["prompt"] = (base["prompt"] + results[base["name"]]["tokens"]
-                               + r["extra"])
-            out = {}
-            toks = []
-            for tok in eng.stream(r["prompt"], max_new_tokens=r["max_new"],
-                                  temperature=r.get("temperature", 0.0),
-                                  seed=r.get("seed", 0), result=out):
-                toks.append(tok)
-                events[f"{r['name']}:first"].set()
-            results[r["name"]] = dict(tokens=toks, **out)
-        except BaseException as e:  # noqa: BLE001 — reported, then fatal
-            errors.append(f"{r['name']}: {e!r}")
-        finally:
-            events[f"{r['name']}:first"].set()
-            events[f"{r['name']}:done"].set()
-
     # Counts to 0 just before the run, read just after.
     counts.reset()
     st0 = eng.stats()
-    t0 = time.perf_counter()
-    threads = [threading.Thread(target=client, args=(r,)) for r in reqs]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=900)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    results, wall = _serve(torch, eng, reqs, "engine")
     launches = counts.read()
     st1 = eng.stats()
-    if any(t.is_alive() for t in threads):
-        fail("engine requests did not finish within 900 s")
-    if errors:
-        fail(f"engine requests failed: {errors}")
-
-    for r in reqs:
-        res = results[r["name"]]
-        toks = res["tokens"]
-        if len(toks) != r["max_new"]:
-            fail(f"request {r['name']}: {len(toks)} tokens, wanted "
-                 f"{r['max_new']} (finish {res.get('finish_reason')})")
-        if not all(0 <= t < cfg.vocab_size for t in toks):
-            fail(f"request {r['name']}: token out of [0, {cfg.vocab_size})")
+    _check_streams(reqs, results, cfg.vocab_size)
     d_pref = int(st1["prefill_forwards"] - st0["prefill_forwards"])
     d_dec = int(st1["decode_forwards"] - st0["decode_forwards"])
     expected = cfg.n_layers * (d_pref + d_dec)
@@ -506,19 +555,12 @@ def phase_engine(torch, np, card, counts):
     if eng.kv.active_blocks() != 0:
         fail(f"{eng.kv.active_blocks()} blocks still pinned after the run")
 
-    n_tok = sum(len(results[r["name"]]["tokens"]) for r in reqs)
-    ttfts = sorted(results[r["name"]]["ttft_s"] * 1e3 for r in reqs)
-    summary = {
-        "requests": len(reqs), "tokens": n_tok, "wall_s": wall,
-        "tokens_per_s_wall": n_tok / wall,
-        "decode_tokens_per_s": eng.decode_tokens_per_sec(),
-        "ttft_ms": {r["name"]: results[r["name"]]["ttft_s"] * 1e3
-                    for r in reqs},
-        "ttft_ms_median": ttfts[len(ttfts) // 2], "ttft_ms_max": ttfts[-1],
+    summary = _serve_summary(eng, reqs, results, wall)
+    summary.update({
         "prefill_forwards": d_pref, "decode_forwards": d_dec,
         "launches": launches, "kv_hit_tokens": hits, "kv_cow_copies": cows,
-        "prompt_lens": {r["name"]: len(r["prompt"]) for r in reqs},
-    }
+    })
+    n_tok = summary["tokens"]
     log(f"[engine] {len(reqs)} requests, {n_tok} tokens in {wall:.2f} s: "
         f"{n_tok / wall:.1f} tokens/s wall, decode "
         f"{eng.decode_tokens_per_sec():.1f} tokens/s  [{card}]")
@@ -604,7 +646,7 @@ def _profile_decode(torch, np, eng, card):
 
 # -- phase 5 -----------------------------------------------------------------
 def phase_end_to_end(torch, np):
-    from ray_tpu_torch.models import generate, transformer
+    from ray_tpu_torch.models import transformer
     from ray_tpu_torch.serve.llm import PagedLLMEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -620,34 +662,12 @@ def phase_end_to_end(torch, np):
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                for n in (20, 150, 400, 700)]
 
-    def plain_gap(tokens):
-        """Top-2 logit gap of the plain path at the next position."""
-        P = 1024
-        kp, vp = generate.init_block_pool(cfg, 65, 16, DEVICE)
-        table = torch.arange(1, 65, dtype=torch.int32, device=DEVICE)
-        padded = torch.zeros((1, P), dtype=torch.long, device=DEVICE)
-        padded[0, :len(tokens)] = torch.tensor(tokens)
-        logits, _, _ = generate._forward_prefill_paged(
-            plain.params, padded, kp, vp, table, 0, len(tokens), cfg, 16,
-            kernel="gather")
-        top = logits[0, len(tokens) - 1, :cfg.vocab_size].topk(2).values
-        return (top[0] - top[1]).item()
-
     ties = []
     for p in prompts:
         a = kern.generate(p, max_new_tokens=24)
         b = plain.generate(p, max_new_tokens=24)
-        if a == b:
-            continue
-        i = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-        gap = plain_gap(p + b[:i])
-        if gap >= TOP2_TIE:
-            fail(f"end to end: prompt of {len(p)} tokens diverges at token "
-                 f"{i} (kernel {a[i]}, plain {b[i]}) with a top-2 gap of "
-                 f"{gap:.2e} >= {TOP2_TIE}")
-        ties.append({"prompt_len": len(p), "position": i, "gap": gap})
-        log(f"[e2e] prompt of {len(p)} tokens: first divergence at token {i} "
-            f"is a near tie (plain top-2 gap {gap:.2e} < {TOP2_TIE})")
+        ties += _same_greedy(torch, plain.params, cfg, p, b, {"kernel": a},
+                             "e2e")
     log(f"[e2e] {len(prompts)} greedy requests, gpt2_small widths x 2 "
         f"layers, f32: kernel path == plain path"
         + (f" up to {len(ties)} near tie(s)" if ties else ""))
@@ -704,6 +724,47 @@ def _prefill_bf16(torch, np):
             f"{errs['bf16 gather']:.2e} (kernel within 2x gather + "
             f"{BF16_E2E_FLOOR})")
     return out
+
+
+def _top2_gap(torch, params, cfg, tokens):
+    """Top-2 logit gap of the plain (gather) path at the next position."""
+    from ray_tpu_torch.models import generate
+
+    P = 1024
+    kp, vp = generate.init_block_pool(cfg, 65, 16, DEVICE)
+    table = torch.arange(1, 65, dtype=torch.int32, device=DEVICE)
+    padded = torch.zeros((1, P), dtype=torch.long, device=DEVICE)
+    padded[0, :len(tokens)] = torch.tensor(tokens)
+    logits, _, _ = generate._forward_prefill_paged(
+        params, padded, kp, vp, table, 0, len(tokens), cfg, 16,
+        kernel="gather")
+    top = logits[0, len(tokens) - 1, :cfg.vocab_size].topk(2).values
+    return (top[0] - top[1]).item()
+
+
+def _same_greedy(torch, params, cfg, prompt, want, got, tag):
+    """Each greedy stream of ``got`` (name -> tokens) equals ``want``, or
+    first diverges at a near tie: the plain path's top-2 gap there below
+    ``TOP2_TIE``. Returns the ties."""
+    ties = []
+    for name, toks in got.items():
+        if toks == want:
+            continue
+        i = next((i for i, (x, y) in enumerate(zip(toks, want)) if x != y),
+                 min(len(toks), len(want)))
+        if i >= min(len(toks), len(want)):
+            fail(f"{tag}: {name} gave {len(toks)} tokens, wanted {len(want)}")
+        gap = _top2_gap(torch, params, cfg, prompt + want[:i])
+        if gap >= TOP2_TIE:
+            fail(f"{tag}: prompt of {len(prompt)} tokens, {name} diverges at "
+                 f"token {i} ({toks[i]} vs {want[i]}) with a top-2 gap of "
+                 f"{gap:.2e} >= {TOP2_TIE}")
+        ties.append({"stream": name, "prompt_len": len(prompt),
+                     "position": i, "gap": gap})
+        log(f"[{tag}] prompt of {len(prompt)} tokens: {name}'s first "
+            f"divergence at token {i} is a near tie (plain top-2 gap "
+            f"{gap:.2e} < {TOP2_TIE})")
+    return ties
 
 
 # -- phase 3, flash attention --------------------------------------------------
@@ -1112,6 +1173,226 @@ def phase_train_end_to_end(torch, np, counts):
                                   "dense": {"loss_rel": dl, "grad_rel": dg}}}
 
 
+# -- phase 8 -----------------------------------------------------------------
+def _decode_rate(eng, before):
+    """Decode tokens/s of an engine since ``before`` = (tokens, seconds)."""
+    return ((eng.decode_tokens - before[0])
+            / max(eng.decode_seconds - before[1], 1e-9))
+
+
+def phase_slotted(torch, np, card, paged_summary):
+    """The slotted engine at full width on phase 4's requests, with the
+    paged engine's figures beside it; ``device_metrics`` of both engines;
+    then greedy identity of the slotted engine, the paged engine on the
+    kernel and ``Generator`` at 2 layers in f32. Returns (summary, the warm
+    paged engine, its f32 parameters) for phase 9."""
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.serve.llm import LLMEngine, PagedLLMEngine
+
+    cfg = transformer.gpt2_small()
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     device=DEVICE)
+    slotted = LLMEngine(params, cfg, device=DEVICE, name="slotted")
+    slotted.warmup()
+    reqs = _requests(np)
+    results, wall = _serve(torch, slotted, reqs, "slotted")
+    _check_streams(reqs, results, cfg.vocab_size)
+    if slotted.stats()["slots_busy"] != 0:
+        fail("slotted: a slot is still busy after every request finished")
+    summary = _serve_summary(slotted, reqs, results, wall)
+    summary["decode_forwards"] = slotted._sg.decode_forwards
+    log(f"[slotted] gpt2_small ({cfg.dtype}) slots {slotted.slots} chunk "
+        f"{slotted.chunk}: {len(reqs)} requests, {summary['tokens']} tokens "
+        f"in {wall:.2f} s: decode {summary['decode_tokens_per_s']:.1f} "
+        f"tokens/s (paged, phase 4: "
+        f"{paged_summary['decode_tokens_per_s']:.1f}), TTFT median "
+        f"{summary['ttft_ms_median']:.1f} ms (paged "
+        f"{paged_summary['ttft_ms_median']:.1f}), max "
+        f"{summary['ttft_ms_max']:.1f} ms (paged "
+        f"{paged_summary['ttft_ms_max']:.1f})  [{card}]")
+    paged = PagedLLMEngine(params, cfg, device=DEVICE, name="paged")
+    paged.warmup()
+    summary["device_metrics"] = {"slotted": slotted.device_metrics(),
+                                 "paged": paged.device_metrics()}
+    del slotted
+    for name, m in summary["device_metrics"].items():
+        log(f"[slotted] device_metrics {name:7s}: TTFT "
+            f"{m['device_ttft_ms']} ms, decode "
+            f"{m['device_decode_tokens_per_sec']} tokens/s (one slot, "
+            f"prompt 16, chained chunks)  [{card}]")
+    summary["f32_ties"] = _slotted_identity(torch, np)
+    return summary, paged, params
+
+
+def _slotted_identity(torch, np):
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.models.generate import Generator
+    from ray_tpu_torch.serve.llm import LLMEngine, PagedLLMEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = transformer.gpt2_small(n_layers=2, dtype=torch.float32)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(9),
+                                     device=DEVICE)
+    slotted = LLMEngine(params, cfg, device=DEVICE, name="f32-slotted")
+    paged = PagedLLMEngine(params, cfg, device=DEVICE,
+                           attention_kernel="cuda", name="f32-paged")
+    oracle = Generator(params, cfg, device=DEVICE)
+    rng = np.random.default_rng(9)
+    ties = []
+    for n in (20, 150, 400, 700):
+        p = rng.integers(0, cfg.vocab_size, n).tolist()
+        want = oracle.generate(p, max_new_tokens=24)
+        ties += _same_greedy(
+            torch, oracle.params, cfg, p, want,
+            {"slotted": slotted.generate(p, max_new_tokens=24),
+             "paged kernel": paged.generate(p, max_new_tokens=24)},
+            "slotted")
+    log(f"[slotted] 4 greedy requests, gpt2_small widths x 2 layers, f32: "
+        f"slotted engine == paged engine on the kernel == Generator"
+        + (f" up to {len(ties)} near tie(s)" if ties else ""))
+    return ties
+
+
+# -- phase 9 -----------------------------------------------------------------
+SPEC_KS = (3, 4)                      # verify T = 4 (split), 5 (wgmma)
+SPEC_FEW = ("prefix-a", "short", "sampled-b", "mid")  # near / miss requests
+FORWARDS = ("prefill_forwards", "decode_forwards", "spec_forwards",
+            "draft_prefill_forwards", "draft_forwards")
+
+
+def _spec_drafts(torch, cfg, params, seed):
+    """The three drafts, as ``test_spec_decode.py`` builds them: ``aligned``
+    the target itself, ``near`` the target + 0.05 × an independent init,
+    ``miss`` an independent init at distilgpt2's depth (6 layers; 1 under a
+    shallower target), so that its config differs from the target's."""
+    from ray_tpu_torch.models import transformer
+
+    def plus(a, b):
+        return {k: plus(v, b[k]) if isinstance(v, dict) else v + 0.05 * b[k]
+                for k, v in a.items()}
+
+    other = transformer.init_params(
+        cfg, torch.Generator().manual_seed(seed + 1), device=DEVICE)
+    miss_cfg = cfg.replace(n_layers=6 if cfg.n_layers > 6 else 1)
+    return {"aligned": (params, cfg), "near": (plus(params, other), cfg),
+            "miss": (transformer.init_params(
+                miss_cfg, torch.Generator().manual_seed(seed + 2),
+                device=DEVICE), miss_cfg)}
+
+
+def phase_spec(torch, np, card, counts, plain, params):
+    """Speculative decoding on ``gpt2_small`` at full width, bf16: each
+    draft at k = 3 (verify on the split K4) and k = 4 (verify on the wgmma
+    K4), K4's launches by route against the engine's forwards, blocks
+    drained, decode tokens/s beside the plain engine's on the same
+    requests; then greedy identity with the plain engine at 2 layers, f32."""
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.serve.llm import PagedLLMEngine
+
+    cfg = plain.config
+    if pa.paged_route(min(plain.buckets), cfg.dtype) != "wgmma":
+        fail("spec: the prefill buckets no longer all take the wgmma K4")
+    plain_rates = {}
+    for label in ("all", "few"):
+        reqs = [r for r in _requests(np)
+                if label == "all" or r["name"] in SPEC_FEW]
+        before = (plain.decode_tokens, plain.decode_seconds)
+        results, wall = _serve(torch, plain, reqs, "spec plain")
+        _check_streams(reqs, results, cfg.vocab_size)
+        plain_rates[label] = _decode_rate(plain, before)
+    runs = []
+    for draft, (dp, dc) in _spec_drafts(torch, cfg, params, 0).items():
+        label = "all" if draft == "aligned" else "few"
+        for k in SPEC_KS:
+            eng = PagedLLMEngine(params, cfg, device=DEVICE, draft_params=dp,
+                                 draft_config=dc, spec_tokens=k,
+                                 name=f"spec-{draft}-{k}")
+            eng.warmup()
+            reqs = [r for r in _requests(np)
+                    if label == "all" or r["name"] in SPEC_FEW]
+            # Counts to 0 just before the run, read just after.
+            counts.reset()
+            st0 = eng.stats()
+            results, wall = _serve(torch, eng, reqs, f"spec {draft} k={k}")
+            launches = counts.read()
+            st1 = eng.stats()
+            _check_streams(reqs, results, cfg.vocab_size)
+            if eng.kv.active_blocks() != 0:
+                fail(f"spec {draft} k={k}: {eng.kv.active_blocks()} blocks "
+                     f"still pinned")
+            d = {n: int(st1[n] - st0[n]) for n in FORWARDS}
+            verify = pa.paged_route(k + 1, cfg.dtype)
+            L, Ld = cfg.n_layers, dc.n_layers
+            want = {
+                "split": L * (d["decode_forwards"] + d["spec_forwards"]
+                              * (verify == "split"))
+                + Ld * d["draft_forwards"],
+                "wgmma": L * (d["prefill_forwards"] + d["spec_forwards"]
+                              * (verify == "wgmma"))
+                + Ld * d["draft_prefill_forwards"]}
+            got = {r: launches[f"paged_attention/{r}"] for r in want}
+            if d["spec_forwards"] <= 0 or got != want:
+                fail(f"spec {draft} k={k}: K4 launches {got}, wanted {want} "
+                     f"from the forwards {d} (target {L} layers, draft "
+                     f"{Ld}; verify on {verify})")
+            prop = st1["spec_proposed_total"] - st0["spec_proposed_total"]
+            ratio = ((st1["spec_accepted_total"] - st0["spec_accepted_total"])
+                     / prop if prop else 0.0)
+            if draft == "aligned" and ratio < 0.9:
+                fail(f"spec aligned k={k}: accept ratio {ratio:.3f} < 0.9")
+            rec = _serve_summary(eng, reqs, results, wall)
+            rec.update(draft=draft, k=k, draft_layers=Ld, verify_route=verify,
+                       accept_ratio=ratio, forwards=d, launches=got,
+                       plain_decode_tokens_per_s=plain_rates[label])
+            runs.append(rec)
+            log(f"[spec] {draft:7s} k={k} ({len(reqs)} requests, draft "
+                f"{Ld} layers): decode {rec['decode_tokens_per_s']:.1f} "
+                f"tokens/s (plain {plain_rates[label]:.1f}), accept ratio "
+                f"{ratio:.3f}; K4 split {got['split']}, wgmma "
+                f"{got['wgmma']} = target {L} x (prefill "
+                f"{d['prefill_forwards']}, decode {d['decode_forwards']}, "
+                f"verify {d['spec_forwards']} on {verify}) + draft {Ld} x "
+                f"(prefill {d['draft_prefill_forwards']}, chain "
+                f"{d['draft_forwards']})  [{card}]")
+            del eng
+    return {"runs": runs, "plain_decode_tokens_per_s": plain_rates,
+            "f32_ties": _spec_identity(torch, np)}
+
+
+def _spec_identity(torch, np):
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.serve.llm import PagedLLMEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = transformer.gpt2_small(n_layers=2, dtype=torch.float32)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(10),
+                                     device=DEVICE)
+    plain = PagedLLMEngine(params, cfg, device=DEVICE,
+                           attention_kernel="cuda", name="f32-plain")
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (20, 150, 400)]
+    want = [plain.generate(p, max_new_tokens=24) for p in prompts]
+    ties = []
+    for draft, (dp, dc) in _spec_drafts(torch, cfg, params, 10).items():
+        for k in SPEC_KS:
+            eng = PagedLLMEngine(params, cfg, device=DEVICE,
+                                 attention_kernel="cuda", draft_params=dp,
+                                 draft_config=dc, spec_tokens=k,
+                                 name=f"f32-spec-{draft}-{k}")
+            for p, w in zip(prompts, want):
+                ties += _same_greedy(
+                    torch, plain.params, cfg, p, w,
+                    {f"{draft} k={k}": eng.generate(p, max_new_tokens=24)},
+                    "spec")
+            if eng.kv.active_blocks() != 0:
+                fail(f"spec f32 {draft} k={k}: blocks still pinned")
+    log(f"[spec] 3 greedy requests, gpt2_small widths x 2 layers, f32: "
+        f"every draft at k = 3 and 4 == the plain engine on the kernel"
+        + (f" up to {len(ties)} near tie(s)" if ties else ""))
+    return ties
+
+
 def _leaf_names(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -1128,18 +1409,33 @@ def main() -> None:
     import numpy as np
     import torch
 
+    t_start = time.perf_counter()
+
+    def done(phase):
+        log(f"[time] phases to {phase} done in "
+            f"{time.perf_counter() - t_start:.1f} s")
+
     card, kind, count = phase_device(torch)
     logs = phase_build()
     missing = set(logs) - {mod for mod, _ in COUNTERS.values()}
     if missing:
         fail(f"kernel sources without a check here: {sorted(missing)}")
+    done(2)
     counts = Counts()
     cases, threshold = phase_kernels(torch, np, card)
     flash_cases = phase_flash_kernels(torch, np, card)
+    done(3)
     engine = phase_engine(torch, np, card, counts)
     e2e = phase_end_to_end(torch, np)
+    done(5)
     train = phase_train(torch, np, card, counts)
     train_e2e = phase_train_end_to_end(torch, np, counts)
+    done(7)
+    slotted, plain, params = phase_slotted(torch, np, card, engine)
+    done(8)
+    spec = phase_spec(torch, np, card, counts, plain, params)
+    del plain, params
+    done(9)
 
     def bf16_case(label):
         return next(c for c in cases
@@ -1166,6 +1462,9 @@ def main() -> None:
         "prefill_bound_ms": prefill["bound_ms"],
         "prefill_library_ms": prefill["library_ms"],
         "prefill_timed_case": "prefill S=1 T=1024 start 0 bf16",
+        "spec_launches_by_route": {
+            r: sum(run["launches"][r] for run in spec["runs"])
+            for r in ("split", "wgmma")},
     }]
     for name, (replaces, _) in FLASH.items():
         mine = [c for c in flash_cases if c["kernel"] == name]
@@ -1187,7 +1486,8 @@ def main() -> None:
          "cases": cases, "paged_threshold": threshold,
          "flash_cases": flash_cases,
          "engine": engine, "end_to_end": e2e, "train": train,
-         "train_end_to_end": train_e2e}, indent=1))
+         "train_end_to_end": train_e2e, "slotted": slotted, "spec": spec},
+        indent=1))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))

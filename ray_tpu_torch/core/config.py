@@ -1,4 +1,4 @@
-"""Env-overridable configuration: the serve knobs the paged engine reads.
+"""Env-overridable configuration: the serve knobs the engines read.
 
 Counterpart of ``ray_tpu/core/config.py`` cut to this slice. Each flag
 resolves from the ``RAY_TPU_<NAME>`` environment variable, else its default
@@ -66,6 +66,19 @@ class Config:
     # Per-queued-request service-time estimate (seconds) behind the
     # Saturated.retry_after_s hint.
     serve_retry_after_item_s = _Flag(0.05)
+    # Speculative decoding: draft tokens each slot proposes a step, verified
+    # in ONE batched target forward. 0 disables it; > 0 needs a draft model
+    # (PagedLLMEngine draft_params/draft_config). Greedy output stays
+    # token-identical; sampled output keeps the target's distribution.
+    serve_spec_tokens = _Flag(0)
+    # Per-slot acceptance floor: a slot whose acceptance EWMA sinks below it
+    # stops proposing for the rest of its request.
+    serve_spec_accept_floor = _Flag(0.35)
+    # EWMA factor of that acceptance rate (new = (1-a)*old + a*step_rate).
+    serve_spec_accept_alpha = _Flag(0.3)
+    # The cluster-wide KV tier. Not ported yet: the paged engine raises when
+    # it is on rather than serve without it.
+    kv_tier_enabled = _Flag(False)
 
     def __init__(self):
         for name, flag in list(vars(type(self)).items()):

@@ -1,27 +1,36 @@
-"""Paged generation: the serving engine's device half, and its block manager.
+"""Generation with a KV cache: the serving engines' device halves, the
+single-sequence oracle, and the paged engine's block manager.
 
-Counterpart of the paged part of ``ray_tpu/models/generate.py``. K/V lives
-in a SHARED pool of ``block_tokens``-sized blocks addressed through
-per-sequence block tables; the prefill and decode forwards write the new
-tokens' K/V into the pool first and then attend through the tables with
-``ops.paged_attention`` (the CUDA kernel on the card).
+Counterpart of ``ray_tpu/models/generate.py``:
+
+- :class:`Generator` — one sequence (or a fixed batch) over a private cache
+  [L, B, max_len, H, Dh]; the oracle the engines are held to;
+- :class:`SlottedGenerator` — the slotted engine's device half: S
+  independent sequences, one cache row each, every slot at its own length;
+- :class:`PagedGenerator` — the paged engine's device half: K/V in a SHARED
+  pool of ``block_tokens``-sized blocks addressed through per-sequence
+  block tables, attended with ``ops.paged_attention`` (the CUDA kernel on
+  the card); with a draft model it also runs speculative decoding, whose
+  verify step calls the kernel with T = k+1 query rows a slot.
 
 Where JAX clamps or drops an out-of-range index, torch raises or
 device-asserts, so every JAX clamp is written out here: the table lookup
 ``clip(pos // bt, 0, NB-1)``, the ``write_ok`` redirect of pad and overhang
-writes to trash block 0, and the ``pos_embed`` clamp at ``max_seq_len - 1``.
-Duplicate scatter targets (pads and inactive slots all hit block 0) are
-harmless: nothing live reads block 0.
+writes to trash block 0, the slotted write position at ``max_len - 1``,
+``dynamic_update_slice``'s start clamp and the ``pos_embed`` clamp at
+``max_seq_len - 1``. Duplicate scatter targets (pads and inactive slots all
+hit block 0) are harmless: nothing live reads block 0.
 
-JAX threads the pools through donated buffers; here the pools are updated
-IN PLACE and the functions return the same tensors. The JAX ``lax.scan``
-over a decode chunk is a Python loop issuing device work; argmax and
-sampling stay on the device and a chunk ends with one host copy of its
-tokens (done by the engine).
+JAX threads the caches through donated buffers; here they are updated IN
+PLACE and the functions return the same tensors. Each JAX ``lax.scan`` over
+a decode chunk is a Python loop issuing device work; argmax and sampling
+stay on the device and a chunk ends with one host copy of its tokens (done
+by the engine). Sampling draws from per-slot ``torch.Generator``s (JAX:
+threefry keys), so sampled streams repeat for a seed but are not JAX's;
+greedy streams match JAX token for token.
 
-Not in this slice: the slotted generator, the single-sequence ``Generator``,
-speculative decoding (``draft_prefill_fn``/``spec_decode_fn``) and the
-disaggregation/KV-tier block transfer (``extract_fn``/``insert_fn``).
+Not in this slice: the disaggregation/KV-tier block transfer
+(``extract_fn``/``insert_fn``).
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from ray_tpu_torch.models.transformer import (TransformerConfig, _block_tail,
 from ray_tpu_torch.ops.layers import layer_norm, rope
 from ray_tpu_torch.ops.paged_attention import paged_attention
 from ray_tpu_torch.util import blockhash
+from ray_tpu_torch.utils.device import resolve_device
 
 _MODES = ("cuda", "plain", "gather")
 
@@ -84,6 +94,250 @@ def _attend_cached(q, k_cache, v_cache, valid_len, *, scale: float):
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhts,bshd->bthd", probs, v_cache.float())
     return out.to(q.dtype)
+
+
+def _to_device(tree, device, dtype: Optional[torch.dtype] = None):
+    """A parameter tree moved to ``device`` (and cast to ``dtype``, if
+    given). The forwards cast at every use, as the JAX ones do, which is
+    then a no-op with the same rounding."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device, dtype) for k, v in tree.items()}
+    return tree.to(device=device, dtype=dtype)
+
+
+def _gumbel(like: torch.Tensor, rows: Sequence[int], gens) -> torch.Tensor:
+    """Gumbel noise for the listed rows of ``like`` [S, V], zeros elsewhere,
+    row s drawn from ``gens[s]``: ``argmax(x + noise)`` samples softmax(x)
+    in those rows. Only the listed rows draw, so a request's stream depends
+    on its own seed and logits, never on its neighbours."""
+    g = torch.zeros_like(like)
+    for s in rows:
+        u = torch.rand(like.shape[-1], generator=gens[s], device=like.device)
+        g[s] = -torch.log(-torch.log(u))
+    return g
+
+
+def _next_tokens(real, greedy_t, temp_safe, samplers, gens) -> torch.Tensor:
+    """Per-slot next tokens from logits ``real`` [S, V]: argmax for greedy
+    slots, a sample of softmax(real / temp) for the ``samplers``."""
+    nxt = real.argmax(dim=-1)
+    if samplers:
+        samp = (real / temp_safe
+                + _gumbel(real, samplers, gens)).argmax(dim=-1)
+        nxt = torch.where(greedy_t, nxt, samp)
+    return nxt
+
+
+class _SlotOperands:
+    """A decode chunk's per-slot operands on the device: the active mask
+    (``act``, ``act_col``, ``adv``), greedy mask, safe temperatures and the
+    active sampled slots, which alone draw random numbers."""
+
+    def __init__(self, active, greedy, temps, device):
+        active = np.asarray(active, bool)
+        greedy = np.asarray(greedy, bool)
+        self.act = torch.as_tensor(active, device=device)
+        self.act_col = self.act[:, None]
+        self.adv = self.act.to(torch.int32)
+        self.greedy = torch.as_tensor(greedy, device=device)
+        self.temp_safe = torch.as_tensor(
+            np.maximum(np.asarray(temps, np.float32), 1e-6),
+            device=device)[:, None]
+        self.samplers = [s for s in range(len(active))
+                         if active[s] and not greedy[s]]
+
+
+def init_cache(config: TransformerConfig, batch: int,
+               max_len: Optional[int] = None, device="cpu") -> Dict:
+    """Private KV cache [L, batch, max_len, H, Dh] for K and for V, and the
+    valid ``length`` every row shares."""
+    c = config
+    max_len = max_len or c.max_seq_len
+    shape = (c.n_layers, batch, max_len, c.n_heads, c.head_dim)
+    return {"k": torch.zeros(shape, dtype=c.dtype, device=device),
+            "v": torch.zeros(shape, dtype=c.dtype, device=device),
+            "length": 0}
+
+
+def _forward_cached(params, tokens, cache, config: TransformerConfig,
+                    start_pos: int):
+    """Forward ``tokens`` [B, T] at positions [start_pos, start_pos+T),
+    writing their K/V into ``cache`` in place. Returns (logits [B, T, V]
+    f32, cache)."""
+    c = config
+    cast = lambda p: p.to(c.dtype)
+    B, T = tokens.shape
+    M = cache["k"].shape[2]
+    dev = tokens.device
+    h = cast(params["tok_embed"])[tokens]
+    positions = start_pos + torch.arange(T, device=dev)
+    if c.pos == "learned":
+        h = h + cast(params["pos_embed"])[
+            positions.clamp(max=c.max_seq_len - 1)]
+    scale = 1.0 / c.head_dim**0.5
+    valid_len = start_pos + T
+    # JAX's dynamic_update_slice moves its start back until the update fits.
+    w0 = max(0, min(int(start_pos), M - T))
+
+    for layer in range(c.n_layers):
+        bp = {k: cast(v[layer]) for k, v in params["blocks"].items()}
+        x = layer_norm(h, bp["ln1_g"], bp["ln1_b"])
+        q = _heads(x, bp["wq"], bp["bq"], c.dtype)
+        k = _heads(x, bp["wk"], bp["bk"], c.dtype)
+        v = _heads(x, bp["wv"], bp["bv"], c.dtype)
+        if c.pos == "rope":
+            q = rope(q, positions)
+            k = rope(k, positions)
+        cache["k"][layer, :, w0:w0 + T] = k
+        cache["v"][layer, :, w0:w0 + T] = v
+        o = _attend_cached(q, cache["k"][layer], cache["v"][layer], valid_len,
+                           scale=scale)
+        h = _block_tail(h, bp, o, c.dtype)
+    cache["length"] = valid_len
+    return _logits(params, h, c), cache
+
+
+def init_slot_cache(config: TransformerConfig, slots: int,
+                    max_len: Optional[int] = None, device="cpu") -> Dict:
+    """KV cache for ``slots`` INDEPENDENT sequences: the batch dim is a slot
+    index and ``lengths[s]`` (int32 [S]) replaces the single ``length`` —
+    each slot decodes at its own position."""
+    c = config
+    max_len = max_len or c.max_seq_len
+    shape = (c.n_layers, slots, max_len, c.n_heads, c.head_dim)
+    return {"k": torch.zeros(shape, dtype=c.dtype, device=device),
+            "v": torch.zeros(shape, dtype=c.dtype, device=device),
+            "lengths": torch.zeros((slots,), dtype=torch.int32,
+                                   device=device)}
+
+
+def _forward_decode_slotted(params, tokens, k_cache, v_cache, lengths,
+                            config: TransformerConfig):
+    """One decode step for S independent slots: ``tokens`` [S, 1] at per-slot
+    positions ``lengths`` [S]. Writes each slot's new K/V at its own position
+    (in place) and attends with per-slot validity. Returns (logits [S, 1, V]
+    f32, k_cache, v_cache); rows are independent, so an inactive slot's
+    garbage never reaches its neighbours."""
+    c = config
+    cast = lambda p: p.to(c.dtype)
+    S, T = tokens.shape  # T == 1
+    M = k_cache.shape[2]
+    dev = tokens.device
+    h = cast(params["tok_embed"])[tokens]
+    # A slot parked at the context cap (retired, awaiting refill) writes at
+    # M - 1, as JAX clamps: its row is dead either way.
+    pos = lengths.long().clamp(max=M - 1)
+    positions = pos[:, None]                              # [S, 1]
+    if c.pos == "learned":
+        h = h + cast(params["pos_embed"])[
+            positions.clamp(max=c.max_seq_len - 1)]
+    scale = 1.0 / c.head_dim**0.5
+    rows = torch.arange(S, device=dev)
+    valid_len = pos + 1                                # new token attendable
+
+    for layer in range(c.n_layers):
+        bp = {k: cast(v[layer]) for k, v in params["blocks"].items()}
+        x = layer_norm(h, bp["ln1_g"], bp["ln1_b"])
+        q = _heads(x, bp["wq"], bp["bq"], c.dtype)
+        k = _heads(x, bp["wk"], bp["bk"], c.dtype)
+        v = _heads(x, bp["wv"], bp["bv"], c.dtype)
+        if c.pos == "rope":
+            q = rope(q, positions)
+            k = rope(k, positions)
+        k_cache[layer, rows, pos] = k[:, 0]
+        v_cache[layer, rows, pos] = v[:, 0]
+        o = _attend_cached(q, k_cache[layer], v_cache[layer], valid_len,
+                           scale=scale)
+        h = _block_tail(h, bp, o, c.dtype)
+    return _logits(params, h, c), k_cache, v_cache
+
+
+class SlottedGenerator:
+    """Slot-level prefill + batched decode for continuous batching: the
+    slotted engine's device half (``serve/llm.py`` :class:`LLMEngine`).
+
+    S cache slots hold S independent sequences. :meth:`prefill_fn` writes
+    ONE prompt's K/V into its slot and parks its next-token logits in the
+    ``last`` [S, V] rows; :meth:`decode_fn` advances every active slot by
+    ``chunk`` tokens (inactive slots keep their lengths and ``last`` rows;
+    greedy and sampled slots share the chunk through per-slot operands).
+
+    Device state is ``(cache, last, gens)``: the slot cache, ``last`` (f32)
+    and one ``torch.Generator`` per slot, seeded at prefill. The functions
+    update them in place and return them.
+    """
+
+    def __init__(self, params, config: TransformerConfig, *, slots: int,
+                 device, max_len: Optional[int] = None):
+        self.params = params
+        self.config = config
+        self.slots = slots
+        self.device = torch.device(device)
+        self.max_len = max_len or config.max_seq_len
+        self.logits_dim = (params["tok_embed"].shape[0]
+                           if config.tie_embeddings
+                           else params["lm_head"].shape[-1])
+        # Decode steps run (one forward each), for the engine's accounting.
+        self.decode_forwards = 0
+
+    def init_state(self):
+        cache = init_slot_cache(self.config, self.slots, self.max_len,
+                                self.device)
+        last = torch.zeros((self.slots, self.logits_dim), dtype=torch.float32,
+                           device=self.device)
+        gens = [torch.Generator(device=self.device) for _ in range(self.slots)]
+        return cache, last, gens
+
+    def prefill_fn(self, bucket: int):
+        """insert_prefill(params, cache, last, gens, padded [1,P], real_len,
+        slot, seed) -> (cache, last, gens): one prompt's K/V into one slot,
+        its last real token's logits into ``last[slot]``, the slot's
+        generator seeded."""
+        c = self.config
+
+        def insert_prefill(params, cache, last, gens, padded, real_len, slot,
+                           seed):
+            if np.shape(padded) != (1, bucket):
+                raise ValueError(f"prefill bucket {bucket} got tokens of "
+                                 f"shape {np.shape(padded)}")
+            tokens = torch.as_tensor(np.asarray(padded, np.int64),
+                                     device=self.device)
+            tmp = init_cache(c, 1, bucket, self.device)
+            logits, tmp = _forward_cached(params, tokens, tmp, c, 0)
+            slot = int(slot)
+            cache["k"][:, slot, :bucket] = tmp["k"][:, 0]
+            cache["v"][:, slot, :bucket] = tmp["v"][:, 0]
+            cache["lengths"][slot] = int(real_len)
+            last[slot] = logits[0, int(real_len) - 1]
+            gens[slot].manual_seed(int(seed))
+            return cache, last, gens
+
+        return insert_prefill
+
+    def decode_fn(self, chunk: int):
+        """decode_chunk(params, cache, last, gens, active, greedy, temps) ->
+        (toks [S, chunk] int32 on the device, cache, last, gens): ``chunk``
+        steps advancing every active slot."""
+        c = self.config
+        V = c.vocab_size
+
+        def decode_chunk(params, cache, last, gens, active, greedy, temps):
+            ops = _SlotOperands(active, greedy, temps, self.device)
+            lengths = cache["lengths"]
+            toks = []
+            for _ in range(chunk):
+                nxt = _next_tokens(last[:, :V], ops.greedy, ops.temp_safe,
+                                   ops.samplers, gens)
+                logits, _, _ = _forward_decode_slotted(
+                    params, nxt[:, None], cache["k"], cache["v"], lengths, c)
+                self.decode_forwards += 1
+                lengths = lengths + ops.adv
+                last = torch.where(ops.act_col, logits[:, -1], last)
+                toks.append(nxt)
+            cache["lengths"] = lengths
+            return torch.stack(toks, dim=1).to(torch.int32), cache, last, gens
+
+        return decode_chunk
 
 
 def init_block_pool(config: TransformerConfig, num_blocks: int,
@@ -219,6 +473,11 @@ class PagedGenerator:
     the state; block tables and lengths are host numpy arrays owned by the
     engine and :class:`KVBlockManager`, copied to the device per call.
 
+    With ``draft_params``/``draft_config`` it also runs speculative decoding
+    (:meth:`spec_decode_fn`): the draft's own pool (:meth:`init_draft_state`)
+    has the target pool's block geometry, so the SAME block tables index
+    both.
+
     Sampled streams are deterministic for a seed, but they are not the JAX
     engine's (torch's generators are not threefry); greedy streams match it
     token for token.
@@ -227,7 +486,9 @@ class PagedGenerator:
     def __init__(self, params, config: TransformerConfig, *, slots: int,
                  num_blocks: int, block_tokens: int, device,
                  max_len: Optional[int] = None,
-                 attention_kernel: str = "auto"):
+                 attention_kernel: str = "auto",
+                 draft_params=None,
+                 draft_config: Optional[TransformerConfig] = None):
         self.params = params
         self.config = config
         self.slots = slots
@@ -242,13 +503,27 @@ class PagedGenerator:
         self.num_blocks = int(num_blocks)
         self.attention_kernel = resolve_attention_kernel(attention_kernel,
                                                          self.device)
+        if (draft_params is None) != (draft_config is None):
+            raise ValueError("draft_params and draft_config go together")
+        if draft_config is not None and (
+                draft_config.vocab_size != config.vocab_size):
+            raise ValueError(
+                f"draft vocab {draft_config.vocab_size} != target vocab "
+                f"{config.vocab_size} — speculative verify needs one vocab")
+        self.draft_params = draft_params
+        self.draft_config = draft_config
         self.logits_dim = (params["tok_embed"].shape[0]
                            if config.tie_embeddings
                            else params["lm_head"].shape[-1])
         # Forward passes run, for the engine's launch accounting: one per
-        # prefill dispatch, one per decode step.
+        # prefill dispatch and one per decode step (the target's layers);
+        # one per speculative verify (target, T = k+1); and the draft's, one
+        # per draft prefill and one per draft-chain token (T = 1).
         self.prefill_forwards = 0
         self.decode_forwards = 0
+        self.spec_forwards = 0
+        self.draft_prefill_forwards = 0
+        self.draft_forwards = 0
 
     def _i32(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
@@ -302,44 +577,222 @@ class PagedGenerator:
 
         def paged_decode(params, k_pool, v_pool, last, gens, tables, lengths,
                          active, greedy, temps):
-            dev = self.device
-            active = np.asarray(active, bool)
-            greedy = np.asarray(greedy, bool)
+            ops = _SlotOperands(active, greedy, temps, self.device)
             tables_t = self._i32(tables)
             lens = self._i32(lengths)
-            adv = self._i32(active)
-            act_col = torch.as_tensor(active, device=dev)[:, None]
-            greedy_t = torch.as_tensor(greedy, device=dev)
-            temp_safe = torch.as_tensor(
-                np.maximum(np.asarray(temps, np.float32), 1e-6),
-                device=dev)[:, None]
-            # Only active sampled slots draw: a request's stream depends on
-            # its own seed and logits, never on its neighbours.
-            samplers = [s for s in range(self.slots)
-                        if active[s] and not greedy[s]]
             toks = []
             for _ in range(chunk):
-                real = last[:, :V]
-                nxt = real.argmax(dim=-1)
-                if samplers:
-                    # Gumbel-max sampling from softmax(real / temp).
-                    gumbel = torch.zeros_like(real)
-                    for s in samplers:
-                        u = torch.rand(V, generator=gens[s], device=dev)
-                        gumbel[s] = -torch.log(-torch.log(u))
-                    samp = (real / temp_safe + gumbel).argmax(dim=-1)
-                    nxt = torch.where(greedy_t, nxt, samp)
+                nxt = _next_tokens(last[:, :V], ops.greedy, ops.temp_safe,
+                                   ops.samplers, gens)
                 logits, k_pool, v_pool = _forward_decode_paged(
                     params, nxt[:, None], k_pool, v_pool, tables_t, lens, c,
                     bt, kernel=kernel)
                 self.decode_forwards += 1
-                lens = lens + adv
-                last = torch.where(act_col, logits[:, -1], last)
+                lens = lens + ops.adv
+                last = torch.where(ops.act_col, logits[:, -1], last)
                 toks.append(nxt)
             return (torch.stack(toks, dim=1).to(torch.int32), k_pool, v_pool,
                     last, gens)
 
         return paged_decode
+
+    def init_draft_state(self):
+        """The draft model's pool: the draft's own layers, the target pool's
+        block geometry, so the SAME block tables index both and speculation
+        adds no :class:`KVBlockManager` state."""
+        return init_block_pool(self.draft_config, self.num_blocks,
+                               self.block_tokens, self.device)
+
+    def draft_prefill_fn(self, bucket: int):
+        """draft_prefill(draft_params, kd_pool, vd_pool, table [NB],
+        padded [1,P], start_pos, suffix_len) -> (kd_pool, vd_pool): the
+        DRAFT model over the same suffix bucket through the same block
+        table, so its pool holds draft K/V for every position the target's
+        holds. Logits are dropped: the first proposal conditions on the
+        verified tail, not on prefill output."""
+        dc = self.draft_config
+        bt = self.block_tokens
+        kernel = self.attention_kernel
+
+        def draft_prefill(draft_params, kd_pool, vd_pool, table, padded,
+                          start_pos, suffix_len):
+            if np.shape(padded) != (1, bucket):
+                raise ValueError(f"prefill bucket {bucket} got tokens of "
+                                 f"shape {np.shape(padded)}")
+            tokens = torch.as_tensor(np.asarray(padded, np.int64),
+                                     device=self.device)
+            _, kd_pool, vd_pool = _forward_prefill_paged(
+                draft_params, tokens, kd_pool, vd_pool, self._i32(table),
+                int(start_pos), int(suffix_len), dc, bt, kernel=kernel)
+            self.draft_prefill_forwards += 1
+            return kd_pool, vd_pool
+
+        return draft_prefill
+
+    def spec_decode_fn(self, chunk: int, k: int):
+        """Speculative decode: ``chunk`` steps, each proposing ``k`` draft
+        tokens and verifying them in ONE batched target forward.
+
+        spec_decode(params, draft_params, k_pool, v_pool, kd_pool, vd_pool,
+        last, gens, tables, lengths, active, greedy, temps, spec_on, tail,
+        pending, use_pending) -> (toks [S, chunk, k+1], counts [S, chunk],
+        accepted [S, chunk], k_pool, v_pool, kd_pool, vd_pool, last, gens,
+        tail, pending, use_pending), the first three int32 and the last
+        three [S] tensors on the device.
+
+        Per step and slot: token n0 comes from ``last`` (or the carried
+        rejection replacement when ``use_pending``); the draft runs k+1
+        single-token forwards — forward 0 re-consumes ``tail`` (the last
+        accepted token) at position len-1, an idempotent K/V rewrite that
+        also fills the one draft-K/V hole a fully accepted step leaves, then
+        forwards 1..k consume n0, d_1, ..., d_{k-1} and propose d_1..d_k. The
+        target verifies [n0, d_1..d_k] in one [S, k+1] forward (the paged
+        kernel at T = k+1). Acceptance is rejection sampling, u·q(d) < p(d),
+        which keeps the target's distribution for ANY draft; greedy slots
+        take the exact argmax prefix match. The slot advances 1 + a tokens,
+        a the accepted run. On rejection at a < k the replacement is drawn
+        from the renormalised residual max(p - q, 0) (greedy: the target's
+        argmax) and carried as ``pending``, next step's n0; on full
+        acceptance ``last`` becomes the verify logits at position k. Writes
+        past the accepted run are overwritten before they are attendable.
+
+        ``toks[s, t, :counts[s, t]]`` are step t's emitted tokens. A slot
+        with ``spec_on`` False (acceptance EWMA under the floor, or no table
+        headroom for chunk*(k+1)) has its proposals force-rejected: a == 0
+        and it emits n0 alone, refreshing ``last`` from verify row 0 (its
+        n0's logits, the plain decode chain) with no pending carry.
+
+        Random draws (n0, the k proposals, k uniforms and one residual
+        draw a step) come from each active sampled slot's own generator;
+        greedy and inactive slots draw nothing."""
+        if self.draft_config is None:
+            raise ValueError("spec_decode_fn requires a draft model")
+        if k < 1:
+            raise ValueError("serve_spec_tokens must be >= 1 when "
+                             "speculative decoding is enabled")
+        c = self.config
+        dc = self.draft_config
+        bt = self.block_tokens
+        kernel = self.attention_kernel
+        V = c.vocab_size
+        dev = self.device
+
+        def spec_decode(params, draft_params, k_pool, v_pool, kd_pool,
+                        vd_pool, last, gens, tables, lengths, active, greedy,
+                        temps, spec_on, tail, pending, use_pending):
+            ops = _SlotOperands(active, greedy, temps, dev)
+            act, samplers = ops.act, ops.samplers
+            S = act.shape[0]
+            on = torch.as_tensor(np.asarray(spec_on, bool), device=dev)
+            tables_t = self._i32(tables)
+            lens = self._i32(lengths)
+            tail = self._i32(tail).long()
+            pending = self._i32(pending).long()
+            use_pending = torch.as_tensor(np.asarray(use_pending, bool),
+                                          device=dev)
+            toks, counts, accepted = [], [], []
+            for _ in range(chunk):
+                n0 = _next_tokens(last[:, :V], ops.greedy, ops.temp_safe,
+                                  samplers, gens)
+                n0 = torch.where(use_pending, pending, n0)
+
+                # Draft chain: k+1 single-token forwards through the SHARED
+                # block tables into the draft pool.
+                cur_tok, cur_pos = tail, (lens - 1).clamp(min=0)
+                proposals, dlogits = [], []
+                for i in range(k + 1):
+                    dl, kd_pool, vd_pool = _forward_decode_paged(
+                        draft_params, cur_tok[:, None], kd_pool, vd_pool,
+                        tables_t, cur_pos, dc, bt, kernel=kernel)
+                    self.draft_forwards += 1
+                    if i == 0:
+                        # Forward 0 only (re)writes tail's draft K/V at
+                        # lens-1; its logits are superseded by n0's chain.
+                        cur_tok, cur_pos = n0, lens
+                        continue
+                    dreal = dl[:, 0, :V]
+                    d_i = _next_tokens(dreal, ops.greedy, ops.temp_safe,
+                                       samplers, gens)
+                    proposals.append(d_i)
+                    dlogits.append(dreal)
+                    cur_tok, cur_pos = d_i, lens + i
+
+                # One batched target verify over [n0, d_1..d_k].
+                verify = torch.stack([n0] + proposals, dim=1)    # [S, k+1]
+                logits, k_pool, v_pool = _forward_decode_paged(
+                    params, verify, k_pool, v_pool, tables_t, lens, c, bt,
+                    kernel=kernel)
+                self.spec_forwards += 1
+                treal = logits[:, :, :V]                         # [S, k+1, V]
+                props = verify[:, 1:]                            # [S, k]
+                dreal_all = torch.stack(dlogits, dim=1)          # [S, k, V]
+
+                # Greedy acceptance: exact argmax prefix match. Sampled:
+                # u < p(d)/q(d), the target/draft probability of d.
+                ok = props == treal[:, :k].argmax(dim=-1)
+                if samplers:
+                    tcol = ops.temp_safe[:, :, None]
+                    p_d = torch.softmax(treal[:, :k] / tcol, dim=-1).gather(
+                        -1, props[..., None])[..., 0]
+                    q_d = torch.softmax(dreal_all / tcol, dim=-1).gather(
+                        -1, props[..., None])[..., 0]
+                    u = torch.zeros((S, k), device=dev)
+                    for s in samplers:
+                        u[s] = torch.rand(k, generator=gens[s], device=dev)
+                    samp_ok = u * q_d.clamp(min=1e-30) < p_d
+                    ok = torch.where(ops.greedy[:, None], ok, samp_ok)
+                ok = ok & on[:, None] & act[:, None]
+                a = torch.cumprod(ok.long(), dim=1).sum(dim=1)   # [S] in 0..k
+                full = a == k
+                adv = (1 + a) * ops.adv
+
+                # The replacement at the rejection point: a draw from the
+                # residual max(p - q, 0) keeps the emitted distribution the
+                # target's (greedy: the target's argmax).
+                t_at_a = treal.gather(
+                    1, a[:, None, None].expand(S, 1, V))[:, 0]   # [S, V]
+                repl = t_at_a.argmax(dim=-1)
+                if samplers:
+                    q_at_a = dreal_all.gather(1, a.clamp(max=k - 1)[
+                        :, None, None].expand(S, 1, V))[:, 0]
+                    p_a = torch.softmax(t_at_a / ops.temp_safe, dim=-1)
+                    q_a = torch.softmax(q_at_a / ops.temp_safe, dim=-1)
+                    resid = (p_a - q_a).clamp(min=0.0)
+                    rsum = resid.sum(dim=-1, keepdim=True)
+                    resid = torch.where(rsum > 0, resid / rsum, p_a)
+                    logp = torch.log(resid + 1e-30)
+                    r_samp = (logp + _gumbel(logp, samplers, gens)).argmax(
+                        dim=-1)
+                    repl = torch.where(ops.greedy, repl, r_samp)
+
+                tail = torch.where(act, verify.gather(1, a[:, None])[:, 0],
+                                   tail)
+                pending = torch.where(act, repl, pending)
+                # A spec-on slot that rejected carries the residual draw as
+                # next step's n0; a fully accepted slot refreshes `last` from
+                # verify row k. A spec-OFF slot never really rejected (the
+                # gate force-fails acceptance), so the residual draw would
+                # be the WRONG distribution: it refreshes `last` from verify
+                # row 0 (its n0's logits, the plain decode chain) and drops
+                # any pending carry.
+                use_pending = torch.where(act, ~full & on, use_pending)
+                refresh = act & (full | ~on)
+                row_idx = torch.where(on, k, 0)
+                row = logits.gather(1, row_idx[:, None, None].expand(
+                    S, 1, logits.shape[-1]))[:, 0]
+                last = torch.where(refresh[:, None], row, last)
+                lens = lens + adv.to(torch.int32)
+                toks.append(verify)
+                counts.append(adv)
+                accepted.append(a * ops.adv)
+            i32 = torch.int32
+            return (torch.stack(toks, dim=1).to(i32),
+                    torch.stack(counts, dim=1).to(i32),
+                    torch.stack(accepted, dim=1).to(i32),
+                    k_pool, v_pool, kd_pool, vd_pool, last, gens,
+                    tail.to(i32), pending.to(i32), use_pending)
+
+        return spec_decode
 
     def copy_fn(self):
         """copy_block(k_pool, v_pool, src, dst) -> (k_pool, v_pool): the
@@ -620,3 +1073,118 @@ class KVBlockManager:
         request retires (the leak-check invariant)."""
         with self._lock:
             return len(self._ref)
+
+
+class Generator:
+    """Prefill + decode over a private cache for one (config, batch,
+    max_len) shape: the single-sequence oracle the serving engines are held
+    to.
+
+    - :meth:`generate` runs one token a step and hands each to the host as
+      it is picked: one token per yield is the oracle's contract.
+    - :meth:`chunked_fns` fuses a prefill with ``chunk`` decode steps (JAX:
+      one ``lax.scan`` dispatch; here a Python loop of device work whose
+      tokens come back as one tensor).
+
+    ``device`` defaults to the card; ``device="cpu"`` runs on the CPU. The
+    parameters are moved there and cast to the compute dtype once.
+    """
+
+    def __init__(self, params, config: TransformerConfig, *, batch: int = 1,
+                 max_len: Optional[int] = None,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.device = resolve_device(device)
+        self.params = _to_device(params, self.device, config.dtype)
+        self.config = config
+        self.batch = batch
+        self.max_len = max_len or config.max_seq_len
+        self._chunked = {}  # (chunk, sampled) -> (prefill_decode, decode)
+
+    def _prefill(self, params, cache, tokens):
+        return _forward_cached(params, tokens, cache, self.config, 0)
+
+    def _decode(self, params, cache, token, pos):
+        logits, cache = _forward_cached(params, token, cache, self.config, pos)
+        return logits[:, -1], cache
+
+    def _pick(self, last, temp: float, gen: Optional[torch.Generator]):
+        """Next tokens [B] from ``last``: argmax, or with ``gen`` a sample
+        of softmax(last / temp) (the vocab padding masked off)."""
+        real = last[:, :self.config.vocab_size]
+        if gen is None:
+            return real.argmax(dim=-1)
+        rows = range(real.shape[0])
+        return (real / temp + _gumbel(real, rows, [gen] * len(rows))).argmax(
+            dim=-1)
+
+    def chunked_fns(self, chunk: int, sampled: bool):
+        """(prefill_decode, decode_chunk) for a chunk size:
+
+        prefill_decode(params, cache, padded [B,P], real_len, rng, temp) and
+        decode_chunk(params, cache, last, pos, rng, temp) each return (toks
+        [B, chunk] int32, last, cache, pos, rng); ``rng`` is a
+        ``torch.Generator`` (unused when not ``sampled``). Prefill reads the
+        first logits at the REAL last position and decoding starts at
+        ``real_len``, so pad K/V is overwritten before the causal mask could
+        expose it."""
+        key = (chunk, sampled)
+        if key in self._chunked:
+            return self._chunked[key]
+        c = self.config
+
+        def steps(params, cache, last, pos, rng, temp):
+            toks = []
+            for _ in range(chunk):
+                nxt = self._pick(last, temp, rng if sampled else None)
+                logits, cache = _forward_cached(params, nxt[:, None], cache,
+                                                c, pos)
+                last, pos = logits[:, -1], pos + 1
+                toks.append(nxt)
+            return (torch.stack(toks, dim=1).to(torch.int32), last, cache,
+                    pos, rng)
+
+        def prefill_decode(params, cache, padded, real_len, rng, temp):
+            tokens = torch.as_tensor(np.asarray(padded, np.int64),
+                                     device=self.device)
+            logits, cache = _forward_cached(params, tokens, cache, c, 0)
+            return steps(params, cache, logits[:, int(real_len) - 1],
+                         int(real_len), rng, temp)
+
+        def decode_chunk(params, cache, last, pos, rng, temp):
+            return steps(params, cache, last, int(pos), rng, temp)
+
+        self._chunked[key] = (prefill_decode, decode_chunk)
+        return self._chunked[key]
+
+    def generate(self, prompt_tokens, *, max_new_tokens: int = 32,
+                 temperature: float = 0.0, seed: int = 0,
+                 stream: bool = False):
+        """Greedy (temperature=0) or sampled generation of row 0. Returns
+        the token list (or, with ``stream``, a generator of tokens)."""
+
+        def run():
+            prompt = torch.as_tensor(
+                np.asarray(prompt_tokens, np.int64).reshape(self.batch, -1),
+                device=self.device)
+            P = prompt.shape[1]
+            cache = init_cache(self.config, self.batch, self.max_len,
+                               self.device)
+            logits, cache = self._prefill(self.params, cache, prompt)
+            gen = (torch.Generator(device=self.device).manual_seed(int(seed))
+                   if temperature > 0 else None)
+            last = logits[:, -1]
+            pos = P
+            for _ in range(max_new_tokens):
+                nxt = self._pick(last, temperature, gen)
+                # One host read a token: the oracle's contract (the engines
+                # read once a chunk).
+                yield int(nxt[0])
+                if pos >= self.max_len:
+                    return
+                last, cache = self._decode(self.params, cache, nxt[:, None],
+                                           pos)
+                pos += 1
+
+        if stream:
+            return run()
+        return list(run())

@@ -1,9 +1,10 @@
-"""LLM serving — the continuous-batching paged KV-cache engine.
+"""LLM serving — the continuous-batching engines on one device.
 
 Counterpart of ``ray_tpu/serve/llm.py`` for this slice: the iteration-level
-scheduler (:class:`LLMEngine`) and the paged engine with prefix reuse
-(:class:`PagedLLMEngine`), on PyTorch tensors with the paged-attention CUDA
-kernel on the card.
+scheduler with its slotted device half (:class:`LLMEngine`, the
+``serve_kv_paged_enabled=0`` engine) and the paged engine with prefix reuse
+and speculative decoding (:class:`PagedLLMEngine`), on PyTorch tensors with
+the paged-attention CUDA kernel on the card.
 
 Scheduling is iteration-level (the vLLM/Orca policy): each engine step
 
@@ -20,10 +21,10 @@ under ``_step_lock``; the admission path touches host state only.
 Admission control sheds with :class:`~ray_tpu_torch.serve.errors.Saturated`
 once ``max_queue`` requests are already waiting.
 
-Not in this slice (see ROADMAP.md): the slotted engine, speculative
-decoding, the cluster KV tier, prefill/decode disaggregation, the Serve
-deployment (``llm_deployment``), tracing spans, metrics export and the
-steady-state guard, each marked where it would sit.
+Not in this slice (see ROADMAP.md): the cluster KV tier (``kv_tier_enabled``
+raises), prefill/decode disaggregation, the Serve deployment
+(``llm_deployment``), tracing spans, metrics export and the steady-state
+guard, each marked where it would sit.
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ import torch
 
 from ray_tpu_torch.core.config import config as _get_config
 from ray_tpu_torch.models.generate import (KVBlockManager, NoFreeBlocks,
-                                           PagedGenerator)
+                                           PagedGenerator, SlottedGenerator,
+                                           _to_device)
 from ray_tpu_torch.models.transformer import TransformerConfig
 from ray_tpu_torch.serve.errors import Saturated
 from ray_tpu_torch.utils.device import resolve_device
@@ -129,13 +131,16 @@ class _Request:
 
 
 class LLMEngine:
-    """Continuous-batching scheduler: S cache slots, caller-driven stepping.
+    """Continuous-batching engine: S cache slots, caller-driven stepping.
 
     Concurrency comes from calling ``stream`` from many threads — their
     sequences SHARE the batched decode dispatches. The device half funnels
-    through the hooks below; :class:`PagedLLMEngine` implements them. (The
-    JAX package's slotted device half is not ported yet, so this class is
-    not used on its own.)
+    through the hooks below: here a slot cache of S private max_len rows
+    (:class:`~ray_tpu_torch.models.generate.SlottedGenerator`), attended
+    through ``_attend_cached`` (no paged kernel); :class:`PagedLLMEngine`
+    overrides them with the paged pool.
+
+    ``device`` defaults to the card; ``device="cpu"`` runs on the CPU.
     """
 
     def __init__(self, params, config: TransformerConfig, *,
@@ -183,13 +188,15 @@ class LLMEngine:
         self.decode_seconds = 0.0
         self.finish_reason = "stop"  # convenience; races under concurrency
 
-    # -- device-half hooks ----------------------------------------------------
+    # -- device-half hooks (the paged engine overrides these) -----------------
     def _init_device(self) -> None:
-        raise NotImplementedError(
-            "the slotted engine is not ported yet; use PagedLLMEngine")
+        self._sg = SlottedGenerator(self.params, self.config,
+                                    slots=self.slots, device=self.device,
+                                    max_len=self.max_len)
+        self._cache, self._last, self._gens = self._sg.init_state()
 
     def _reset_device_state(self) -> None:
-        raise NotImplementedError
+        self._cache, self._last, self._gens = self._sg.init_state()
 
     def _admission_cost(self, req: _Request) -> int:
         """Prefill tokens this admission charges against the step budget
@@ -200,7 +207,10 @@ class LLMEngine:
         """Run the prompt's prefill into ``slot``. May raise
         :class:`NoFreeBlocks` — the scheduler requeues the request at the
         head and stops admitting this step."""
-        raise NotImplementedError
+        pf = self._sg.prefill_fn(req.bucket)
+        self._cache, self._last, self._gens = pf(
+            self.params, self._cache, self._last, self._gens, req.padded,
+            req.real_len, slot, req.seed)
 
     def _decode_operands_locked(self):
         """Extra decode operands snapshotted under _state_lock (the paged
@@ -209,12 +219,20 @@ class LLMEngine:
 
     def _run_decode(self, active, greedy, temps, extra):
         """One decode chunk; returns the [S, chunk] tokens on the device."""
-        raise NotImplementedError
+        df = self._sg.decode_fn(self.chunk)
+        toks, self._cache, self._last, self._gens = df(
+            self.params, self._cache, self._last, self._gens, active, greedy,
+            temps)
+        return toks
 
     def _slot_result(self, host_toks, slot: int):
         """The step's emitted tokens for ``slot`` plus its device-length
-        advance. Called under _state_lock."""
+        advance: always ``chunk`` here; the speculative paged engine emits
+        a variable 1..chunk*(k+1). Called under _state_lock."""
         return [int(t) for t in host_toks[slot][:self.chunk]], self.chunk
+
+    # (_chunk_span_attrs, the extra attrs of a request's llm.decode_chunk
+    # span, comes with the tracing item.)
 
     def _release_slot_device(self, slot: int) -> None:
         """Per-slot device-side cleanup when a slot frees (paged: unpin the
@@ -230,7 +248,21 @@ class LLMEngine:
 
     # -- public single-request surface ---------------------------------------
     def warmup(self) -> None:
-        raise NotImplementedError
+        """Run prefill for every bucket and a decode chunk once, then reset:
+        the allocator and the matmul libraries are warm before the first
+        request's TTFT."""
+        with self._step_lock:
+            for b in self.buckets:
+                pf = self._sg.prefill_fn(b)
+                self._cache, self._last, self._gens = pf(
+                    self.params, self._cache, self._last, self._gens,
+                    np.zeros((1, b), np.int32), b, 0, 0)
+            df = self._sg.decode_fn(self.chunk)
+            toks, self._cache, self._last, self._gens = df(
+                self.params, self._cache, self._last, self._gens,
+                np.zeros(self.slots, bool), self._greedy, self._temps)
+            toks.cpu()
+            self._reset_device_state()
 
     def _bucket_for(self, n: int) -> int:
         # One full decode chunk must fit after the prompt: decode always
@@ -537,11 +569,71 @@ class LLMEngine:
                 return 0.0
             return self.decode_tokens / self.decode_seconds
 
+    def _throwaway_calls(self, prompt_len: int):
+        """``(prefill(seed), decode())`` on a throwaway device state with
+        slot 0 active: the calls :meth:`device_metrics` times."""
+        bucket = self._bucket_for(prompt_len)
+        pf = self._sg.prefill_fn(bucket)
+        df = self._sg.decode_fn(self.chunk)
+        padded = np.zeros((1, bucket), np.int32)
+        active = np.zeros(self.slots, bool)
+        active[0] = True
+        greedy = np.ones(self.slots, bool)
+        temps = np.zeros(self.slots, np.float32)
+        state = list(self._sg.init_state())
 
-def _to_device(tree, device: torch.device, dtype: torch.dtype):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device, dtype) for k, v in tree.items()}
-    return tree.to(device=device, dtype=dtype)
+        def prefill(seed):
+            state[:] = pf(self.params, *state, padded, prompt_len, 0, seed)
+
+        def decode():
+            state[:] = df(self.params, *state, active, greedy, temps)[1:]
+
+        return prefill, decode
+
+    def device_metrics(self, *, prompt_len: int = 16, reps: int = 10) -> Dict:
+        """TTFT and decode rate of the device work alone, excluding the
+        host's per-step reads.
+
+        Runs on a throwaway device state (serialized with serving by the
+        step lock): TTFT is prefill + the first decode chunk; the decode
+        rate chains chunks and synchronises once at the end, so the host's
+        queueing overlaps the device. One slot active: the per-sequence
+        rate of the batched chunk. Times are the host's clock around work
+        that ends in a device synchronisation."""
+        with self._step_lock:
+            prefill, decode = self._throwaway_calls(prompt_len)
+            prefill(0)                       # warm both before timing
+            decode()
+            _synchronize(self.device)
+            t0 = time.perf_counter()
+            for i in range(reps):
+                prefill(i)
+                decode()
+            _synchronize(self.device)
+            ttft_ms = (time.perf_counter() - t0) / reps * 1e3
+
+            n_chunks = (self.max_len - prompt_len) // self.chunk - 1
+            if n_chunks < 1:
+                return {"device_ttft_ms": round(ttft_ms, 2),
+                        "device_decode_tokens_per_sec": 0.0}
+            prefill(0)
+            _synchronize(self.device)
+            t0 = time.perf_counter()
+            for _ in range(n_chunks):
+                decode()
+            _synchronize(self.device)
+            dt = time.perf_counter() - t0
+        return {
+            "device_ttft_ms": round(ttft_ms, 2),
+            "device_decode_tokens_per_sec": round(n_chunks * self.chunk / dt,
+                                                  1),
+        }
+
+
+def _synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work (CPU work is already done)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 class PagedLLMEngine(LLMEngine):
@@ -562,11 +654,16 @@ class PagedLLMEngine(LLMEngine):
     - at retire the finished prompt+output chain is registered so the NEXT
       turn of the conversation hits it;
     - pool exhaustion (after LRU-evicting unpinned cached blocks) requeues
-      the request rather than failing it.
+      the request rather than failing it;
+    - with ``spec_tokens`` k > 0 (``serve_spec_tokens``) and a draft model,
+      each decode step proposes k draft tokens a slot and verifies them in
+      one target forward (the paged kernel at T = k+1); a slot whose
+      acceptance EWMA sinks below ``serve_spec_accept_floor``, or whose
+      table lacks room for a spec chunk, falls back to one token a step.
 
     ``device`` defaults to the card; ``device="cpu"`` runs the plain
-    attention version on the CPU. Speculative decoding (``spec_tokens``,
-    ``draft_params``) is not ported yet and raises.
+    attention version on the CPU. The cluster KV tier (``kv_tier_enabled``)
+    is not ported yet and raises.
     """
 
     def __init__(self, params, config: TransformerConfig, *,
@@ -577,10 +674,21 @@ class PagedLLMEngine(LLMEngine):
                  draft_config: Optional[TransformerConfig] = None,
                  spec_tokens: Optional[int] = None, **kw):
         knobs = _get_config()
-        if draft_params is not None or draft_config is not None or (
-                spec_tokens or 0) > 0:
+        if knobs.kv_tier_enabled:
             raise NotImplementedError(
-                "speculative decoding is not yet ported to ray_tpu_torch")
+                "the cluster KV tier (kv_tier_enabled) is not yet ported to "
+                "ray_tpu_torch")
+        self.spec_k = int(spec_tokens if spec_tokens is not None
+                          else knobs.serve_spec_tokens)
+        if self.spec_k > 0 and draft_params is None:
+            raise ValueError(
+                "serve_spec_tokens > 0 needs a draft model "
+                "(draft_params/draft_config)")
+        self._draft_params = draft_params
+        self._draft_config = draft_config
+        self._spec = self.spec_k > 0
+        self._spec_floor = float(knobs.serve_spec_accept_floor)
+        self._spec_alpha = float(knobs.serve_spec_accept_alpha)
         self.block_tokens = int(block_tokens if block_tokens is not None
                                 else knobs.serve_kv_block_tokens)
         self._pool_blocks_cfg = int(pool_blocks if pool_blocks is not None
@@ -597,18 +705,41 @@ class PagedLLMEngine(LLMEngine):
         # pool can idle as reusable prefix cache under full load.
         num_blocks = self._pool_blocks_cfg or (
             2 * self.slots * self.blocks_per_seq + 1)
+        if self._draft_params is not None and self._draft_config is not None:
+            self._draft_params = _to_device(self._draft_params, self.device,
+                                            self._draft_config.dtype)
         self._pg = PagedGenerator(self.params, self.config, slots=self.slots,
                                   num_blocks=num_blocks,
                                   block_tokens=self.block_tokens,
                                   device=self.device,
                                   max_len=self.max_len,
-                                  attention_kernel=self.attention_kernel)
+                                  attention_kernel=self.attention_kernel,
+                                  draft_params=self._draft_params,
+                                  draft_config=self._draft_config)
         self.kv = KVBlockManager(num_blocks, self.block_tokens)
         (self._k_pool, self._v_pool,
          self._last, self._gens) = self._pg.init_state()
         self._slot_table = np.zeros((self.slots, self.blocks_per_seq),
                                     np.int32)
         self._slot_blocks: List[List[int]] = [[] for _ in range(self.slots)]
+        self._init_spec_state()
+
+    def _init_spec_state(self) -> None:
+        # Speculative-decoding host state, all [S] and owned by the step
+        # thread, except the per-slot resets at admission and release (under
+        # _state_lock, which the step thread also holds there). The *_pending
+        # counters of the metrics exporter come with the metrics item.
+        if not self._spec:
+            return
+        self._kd_pool, self._vd_pool = self._pg.init_draft_state()
+        self._spec_tail = np.zeros(self.slots, np.int32)
+        self._spec_pending = np.zeros(self.slots, np.int32)
+        self._spec_use_pending = np.zeros(self.slots, bool)
+        self._spec_ewma = np.ones(self.slots, np.float32)
+        self._spec_on = np.zeros(self.slots, bool)
+        self._last_counts = None        # last spec step's [S, chunk] advances
+        self._spec_proposed_total = 0
+        self._spec_accepted_total = 0
 
     def _reset_device_state(self) -> None:
         (self._k_pool, self._v_pool,
@@ -617,10 +748,12 @@ class PagedLLMEngine(LLMEngine):
         self.kv = KVBlockManager(self.kv.num_blocks, self.block_tokens)
         self._slot_table[:] = 0
         self._slot_blocks = [[] for _ in range(self.slots)]
+        self._init_spec_state()
 
     def warmup(self) -> None:
         """Run prefill for every bucket, a decode chunk, the COW copy and
-        set_last once, then reset: the kernel is built and the allocator and
+        set_last once (with speculation also the draft prefills and a spec
+        chunk), then reset: the kernel is built and the allocator and
         cuBLAS are warm before the first request's TTFT."""
         with self._step_lock:
             zero_row = np.zeros(self.blocks_per_seq, np.int32)  # all trash
@@ -644,6 +777,27 @@ class PagedLLMEngine(LLMEngine):
             self._last, self._gens = sl(
                 self._last, self._gens,
                 np.zeros(self._last.shape[1], np.float32), 0, 0)
+            if self._spec:
+                for b in self.buckets:
+                    dpf = self._pg.draft_prefill_fn(b)
+                    self._kd_pool, self._vd_pool = dpf(
+                        self._draft_params, self._kd_pool, self._vd_pool,
+                        zero_row, np.zeros((1, b), np.int32), 0, b)
+                self._kd_pool, self._vd_pool = cf(self._kd_pool,
+                                                  self._vd_pool, 0, 0)
+                sf = self._pg.spec_decode_fn(self.chunk, self.spec_k)
+                out = sf(self.params, self._draft_params, self._k_pool,
+                         self._v_pool, self._kd_pool, self._vd_pool,
+                         self._last, self._gens,
+                         np.zeros((self.slots, self.blocks_per_seq),
+                                  np.int32),
+                         np.zeros(self.slots, np.int32),
+                         np.zeros(self.slots, bool), self._greedy,
+                         self._temps, np.zeros(self.slots, bool),
+                         np.zeros(self.slots, np.int32),
+                         np.zeros(self.slots, np.int32),
+                         np.zeros(self.slots, bool))
+                out[0].cpu()
             self._reset_device_state()
 
     def _suffix_bucket(self, n: int) -> int:
@@ -683,6 +837,11 @@ class PagedLLMEngine(LLMEngine):
             cf = self._pg.copy_fn()
             self._k_pool, self._v_pool = cf(self._k_pool, self._v_pool,
                                             int(tail), int(dst))
+            if self._spec:
+                # The draft pool mirrors the block tables, so a COW fork
+                # duplicates the tail's draft-side content too.
+                self._kd_pool, self._vd_pool = cf(
+                    self._kd_pool, self._vd_pool, int(tail), int(dst))
             self.kv.note_cow()
             self.kv.release([tail])  # pin the private copy, not the original
             ids.append(dst)
@@ -699,6 +858,13 @@ class PagedLLMEngine(LLMEngine):
         (self._k_pool, self._v_pool, self._last, self._gens) = pf(
             self.params, self._k_pool, self._v_pool, self._last, self._gens,
             row, padded, hit_len, suffix_len, slot, req.seed)
+        if self._spec:
+            # Warm the draft pool over the same suffix and table, so the
+            # draft chain starts from draft K/V at every committed position.
+            dpf = self._pg.draft_prefill_fn(req.bucket)
+            self._kd_pool, self._vd_pool = dpf(
+                self._draft_params, self._kd_pool, self._vd_pool, row,
+                padded, hit_len, suffix_len)
         # Commit ATOMICALLY with the cancel path: this runs outside
         # _state_lock, so a concurrent _cancel may have freed the slot
         # mid-dispatch. Publishing the prompt's FULL blocks here (decode
@@ -713,13 +879,35 @@ class PagedLLMEngine(LLMEngine):
             self._slot_blocks[slot] = ids
             if n_full_prompt:
                 self.kv.register_chain(tokens, ids, n_full_prompt)
+            if self._spec:
+                # Fresh speculation state: the draft chain's first forward
+                # re-consumes the last prompt token at real_len - 1, so the
+                # tail starts as that token. The EWMA starts optimistic; the
+                # headroom gate and acceptance feedback take it from there.
+                self._spec_tail[slot] = tokens[-1]
+                self._spec_pending[slot] = 0
+                self._spec_use_pending[slot] = False
+                self._spec_ewma[slot] = 1.0
+                self._spec_on[slot] = True
 
     def _decode_operands_locked(self):
-        return (self._slot_table.copy(),
+        base = (self._slot_table.copy(),
                 np.asarray(self._slot_len, np.int32))
+        if not self._spec:
+            return base
+        tables, lengths = base
+        # Headroom gate: a spec step can write chunk*(k+1) positions ahead,
+        # so a slot without that much table room degrades to one token a
+        # step INSIDE the same call — the base retire rule (slot_len + chunk
+        # > max_len: length_cap before dispatch) holds either way.
+        cap = self.blocks_per_seq * self.block_tokens
+        headroom = lengths + self.chunk * (self.spec_k + 1) <= cap
+        spec_on = self._spec_on & headroom & self._active
+        return base + (spec_on, self._spec_tail.copy(),
+                       self._spec_pending.copy(),
+                       self._spec_use_pending.copy())
 
-    def _run_decode(self, active, greedy, temps, extra):
-        tables, lengths = extra
+    def _run_plain_decode(self, active, greedy, temps, tables, lengths):
         df = self._pg.decode_fn(self.chunk)
         (toks, self._k_pool, self._v_pool,
          self._last, self._gens) = df(
@@ -727,12 +915,76 @@ class PagedLLMEngine(LLMEngine):
             self._gens, tables, lengths, active, greedy, temps)
         return toks
 
+    def _run_decode(self, active, greedy, temps, extra):
+        if not self._spec:
+            return self._run_plain_decode(active, greedy, temps, *extra)
+        tables, lengths, spec_on, tail, pending, use_pending = extra
+        if not spec_on.any() and not (use_pending & active).any():
+            # Every slot degraded (low acceptance, no headroom) and none
+            # still carries a rejection replacement: the plain one-token
+            # chunk is strictly cheaper than a spec step that would
+            # force-reject everything. (A just-demoted slot runs one more
+            # spec step, which consumes its pending token.)
+            self._last_counts = None
+            return self._run_plain_decode(active, greedy, temps, tables,
+                                          lengths)
+        sf = self._pg.spec_decode_fn(self.chunk, self.spec_k)
+        (toks, counts, accepted, self._k_pool, self._v_pool, self._kd_pool,
+         self._vd_pool, self._last, self._gens, tail_t, pending_t,
+         up_t) = sf(
+            self.params, self._draft_params, self._k_pool, self._v_pool,
+            self._kd_pool, self._vd_pool, self._last, self._gens, tables,
+            lengths, active, greedy, temps, spec_on, tail, pending,
+            use_pending)
+        # One host copy syncs the step's speculation state: the advances,
+        # the accepted runs and the chain state carried to the next step.
+        # Only the step thread writes that state between the operand
+        # snapshot and here; admission resets come before the NEXT snapshot.
+        c = self.chunk
+        host = torch.cat([counts, accepted, tail_t[:, None],
+                          pending_t[:, None],
+                          up_t[:, None].to(torch.int32)], dim=1).cpu().numpy()
+        self._last_counts = host[:, :c]
+        acc = host[:, c:2 * c].sum(axis=1)
+        self._spec_tail = host[:, 2 * c].copy()
+        self._spec_pending = host[:, 2 * c + 1].copy()
+        self._spec_use_pending = host[:, 2 * c + 2].astype(bool)
+        # The acceptance EWMA feeds the next step's gate: a slot whose EWMA
+        # sinks below the floor stops proposing for the rest of its request
+        # (its draft passes would cost more than its accepted tokens buy).
+        prop = np.where(spec_on, self.chunk * self.spec_k, 0)
+        live = prop > 0
+        if live.any():
+            a = self._spec_alpha
+            self._spec_ewma[live] = ((1.0 - a) * self._spec_ewma[live]
+                                     + a * acc[live] / prop[live])
+            self._spec_on[live] = self._spec_ewma[live] >= self._spec_floor
+        self._spec_proposed_total += int(prop.sum())
+        self._spec_accepted_total += int(acc.sum())
+        return toks
+
+    def _slot_result(self, host_toks, slot: int):
+        if not self._spec or self._last_counts is None:
+            return super()._slot_result(host_toks, slot)
+        counts = self._last_counts[slot]          # [chunk] advances
+        toks = host_toks[slot]                    # [chunk, k+1]
+        out: List[int] = []
+        for t in range(counts.shape[0]):
+            out.extend(int(x) for x in toks[t, :counts[t]])
+        return out, int(counts.sum())
+
+    # (_chunk_span_attrs, the spec proposed/accepted counts of a request's
+    # llm.decode_chunk span, comes with the tracing item.)
+
     def _release_slot_device(self, slot: int) -> None:
         ids = self._slot_blocks[slot]
         if ids:
             self._slot_blocks[slot] = []
             self._slot_table[slot, :] = 0
             self.kv.release(ids)
+        if self._spec:
+            self._spec_on[slot] = False
+            self._spec_use_pending[slot] = False
 
     def _on_retire_locked(self, req: _Request) -> None:
         ids = self._slot_blocks[req.slot] if req.slot is not None else []
@@ -748,11 +1000,55 @@ class PagedLLMEngine(LLMEngine):
 
     # -- introspection --------------------------------------------------------
     def stats(self) -> Dict[str, float]:
-        """Slot occupancy, queue depth, pool state and prefix-cache counters,
-        plus the forward passes run (``prefill_forwards``,
-        ``decode_forwards``: each runs the attention once per layer)."""
+        """Slot occupancy, queue depth, pool state and prefix-cache counters;
+        the forward passes run, each of which runs the attention once a
+        layer (the target's: ``prefill_forwards``, ``decode_forwards``,
+        ``spec_forwards`` — the verify at T = k+1; the draft's:
+        ``draft_prefill_forwards``, ``draft_forwards`` — one per draft-chain
+        token); with speculation, the proposed and accepted totals."""
         out = super().stats()
         out.update(self.kv.stats())
-        out["prefill_forwards"] = float(self._pg.prefill_forwards)
-        out["decode_forwards"] = float(self._pg.decode_forwards)
+        for name in ("prefill_forwards", "decode_forwards", "spec_forwards",
+                     "draft_prefill_forwards", "draft_forwards"):
+            out[name] = float(getattr(self._pg, name))
+        if self._spec:
+            prop = self._spec_proposed_total
+            acc = self._spec_accepted_total
+            out["spec_proposed_total"] = float(prop)
+            out["spec_accepted_total"] = float(acc)
+            out["spec_accept_ratio"] = float(acc) / prop if prop else 0.0
         return out
+
+    def close(self) -> None:
+        """Release what the engine holds outside itself: nothing without the
+        cluster KV tier (not ported), so a no-op. Idempotent; the engine
+        owns no threads to stop."""
+
+    def _throwaway_calls(self, prompt_len: int):
+        # A throwaway pool: slot 0 on a table of fresh blocks, the plain
+        # decode chunk.
+        bucket = self._suffix_bucket(prompt_len)
+        bps = self.blocks_per_seq
+        pf = self._pg.prefill_fn(bucket)
+        df = self._pg.decode_fn(self.chunk)
+        padded = np.zeros((1, bucket), np.int32)
+        row = np.arange(1, bps + 1, dtype=np.int32)
+        tables = np.zeros((self.slots, bps), np.int32)
+        tables[0] = row
+        lengths = np.zeros(self.slots, np.int32)
+        lengths[0] = prompt_len
+        active = np.zeros(self.slots, bool)
+        active[0] = True
+        greedy = np.ones(self.slots, bool)
+        temps = np.zeros(self.slots, np.float32)
+        state = list(self._pg.init_state())
+
+        def prefill(seed):
+            state[:] = pf(self.params, *state, row, padded, 0, prompt_len, 0,
+                          seed)
+
+        def decode():
+            state[:] = df(self.params, *state, tables, lengths, active,
+                          greedy, temps)[1:]
+
+        return prefill, decode

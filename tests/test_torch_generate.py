@@ -31,6 +31,17 @@ LOGIT_TOL = 1e-4
 POOL_TOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread for this module: its tiny-model ops gain nothing
+    from more, and the suite's workers share the cores, where extra threads
+    only contend (several times slower under a full test run)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=["learned", "rope"])
 def models(request):
     jcfg = jtf.tiny(max_seq_len=64, pos=request.param)
@@ -234,3 +245,126 @@ def test_block_hashes_byte_identical(n, bt, max_blocks):
             == jhash.block_hashes(toks, bt, max_blocks))
     head = jhash.prefix_head_hash(toks, bt, 4)     # the JAX router's key
     assert thash.block_hashes(toks, bt, 4)[-1:] == ([head] if head else [])
+
+
+PROMPTS = [[7, 3, 11], [2, 4, 6, 8, 10], list(range(100, 125))]
+
+
+def test_forward_cached_prefill_then_decode_matches_jax(models):
+    """``_forward_cached`` (the oracle's forward): a 9-token prefill, then a
+    1-token decode at 9 and a 2-token step at 10 — logits and every cache
+    row against JAX."""
+    jcfg, jparams, tcfg, tparams = models
+    toks = np.random.default_rng(1).integers(0, 256, (2, 12)).astype(np.int32)
+    jc = jgen.init_cache(jcfg, 2, 32)
+    tc = tgen.init_cache(tcfg, 2, 32)
+    for lo, hi in ((0, 9), (9, 10), (10, 12)):
+        jl, jc = jgen._forward_cached(jparams, jnp.asarray(toks[:, lo:hi]),
+                                      jc, jcfg, lo)
+        tl, tc2 = tgen._forward_cached(
+            tparams, torch.tensor(toks[:, lo:hi], dtype=torch.long), tc,
+            tcfg, lo)
+        assert tc2 is tc and tc["length"] == int(jc["length"]) == hi
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                                   atol=LOGIT_TOL, rtol=LOGIT_TOL)
+        for name in ("k", "v"):
+            np.testing.assert_allclose(tc[name].numpy(), np.asarray(jc[name]),
+                                       atol=POOL_TOL, rtol=POOL_TOL)
+
+
+def test_generator_greedy_streams_match_jax(models):
+    """The single-sequence oracle: greedy streams equal JAX's ``Generator``,
+    ``stream=True`` yields them one at a time, and a prompt near max_len
+    stops where JAX's does."""
+    jcfg, jparams, tcfg, tparams = models
+    jg = jgen.Generator(jparams, jcfg)
+    tg = tgen.Generator(tparams, tcfg, device="cpu")
+    for p in PROMPTS:
+        want = jg.generate(p, max_new_tokens=12)
+        assert tg.generate(p, max_new_tokens=12) == want
+        it = tg.generate(p, max_new_tokens=12, stream=True)
+        assert next(it) == want[0]
+        assert [want[0]] + list(it) == want
+    near_cap = list(range(1, 60))
+    want = jg.generate(near_cap, max_new_tokens=10)
+    assert len(want) == 64 - 59 + 1
+    assert tg.generate(near_cap, max_new_tokens=10) == want
+    sampled = tg.generate(PROMPTS[1], max_new_tokens=12, temperature=0.8,
+                          seed=5)
+    assert sampled == tg.generate(PROMPTS[1], max_new_tokens=12,
+                                  temperature=0.8, seed=5)
+    assert all(0 <= t < 256 for t in sampled)
+
+
+def test_generator_chunked_fns_match_jax(models):
+    """``chunked_fns``: a prefill fused with a greedy chunk from a padded
+    bucket (decoding from the real length), then a second chunk — the
+    tokens and the carried logits equal JAX's."""
+    jcfg, jparams, tcfg, tparams = models
+    jg = jgen.Generator(jparams, jcfg)
+    tg = tgen.Generator(tparams, tcfg, device="cpu")
+    padded = np.zeros((1, 16), np.int32)
+    padded[0, :5] = PROMPTS[1]
+    jpd, jdc = jg.chunked_fns(4, False)
+    tpd, tdc = tg.chunked_fns(4, False)
+    key = jax.random.key(0)
+    jt, jl, jc, jpos, _ = jpd(jparams, jgen.init_cache(jcfg, 1), padded, 5,
+                              key, 1.0)
+    tt, tl, tc, tpos, _ = tpd(tg.params, tgen.init_cache(tcfg, 1), padded, 5,
+                              None, 1.0)
+    assert tt.tolist() == np.asarray(jt).tolist() and tpos == int(jpos) == 9
+    jt, jl, jc, jpos, _ = jdc(jparams, jc, jl, jpos, key, 1.0)
+    tt, tl, tc, tpos, _ = tdc(tg.params, tc, tl, tpos, None, 1.0)
+    assert tt.tolist() == np.asarray(jt).tolist() and tpos == int(jpos)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_TOL,
+                               rtol=LOGIT_TOL)
+
+
+def test_slotted_generator_matches_jax(models):
+    """``SlottedGenerator``: two prompts prefilled into slots 2 and 0 (slot
+    1 idle), a greedy chunk with slot 1 inactive, then a slot parked at the
+    cache cap — logits, tokens, lengths and live cache rows against JAX."""
+    jcfg, jparams, tcfg, tparams = models
+    S, M = 3, 32
+    js = jgen.SlottedGenerator(jparams, jcfg, slots=S, max_len=M)
+    ts = tgen.SlottedGenerator(tparams, tcfg, slots=S, device="cpu",
+                               max_len=M)
+    jcache, jlast, jkeys = js.init_state()
+    tcache, tlast, tgens = ts.init_state()
+    for slot, p in ((2, PROMPTS[0]), (0, PROMPTS[1])):
+        padded = np.zeros((1, 16), np.int32)
+        padded[0, :len(p)] = p
+        jcache, jlast, jkeys = js.prefill_fn(16)(
+            jparams, jcache, jlast, jkeys, padded, len(p), slot, 0)
+        tcache, tlast, tgens = ts.prefill_fn(16)(
+            tparams, tcache, tlast, tgens, padded, len(p), slot, 0)
+    np.testing.assert_allclose(tlast.numpy(), np.asarray(jlast),
+                               atol=LOGIT_TOL, rtol=LOGIT_TOL)
+    active = np.array([True, False, True])
+    greedy = np.ones(S, bool)
+    temps = np.zeros(S, np.float32)
+    jt, jcache, jlast, jkeys = js.decode_fn(4)(
+        jparams, jcache, jlast, jkeys, active, greedy, temps)
+    tt, tcache, tlast, tgens = ts.decode_fn(4)(
+        tparams, tcache, tlast, tgens, active, greedy, temps)
+    assert tt.dtype == torch.int32
+    assert tt[active].tolist() == np.asarray(jt)[active].tolist()
+    assert tcache["lengths"].tolist() == np.asarray(jcache["lengths"]).tolist()
+    np.testing.assert_allclose(tlast.numpy(), np.asarray(jlast),
+                               atol=LOGIT_TOL, rtol=LOGIT_TOL)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(
+            tcache[name].numpy()[:, active],
+            np.asarray(jcache[name])[:, active],
+            atol=POOL_TOL, rtol=POOL_TOL)
+    # A slot parked at the cap writes at M - 1 instead of out of bounds.
+    lengths = np.array([M, 7, 0], np.int32)
+    toks = np.array([[3], [4], [5]], np.int32)
+    jl, _, _ = jgen._forward_decode_slotted(
+        jparams, jnp.asarray(toks), jcache["k"], jcache["v"],
+        jnp.asarray(lengths), jcfg)
+    tl, _, _ = tgen._forward_decode_slotted(
+        tparams, torch.tensor(toks, dtype=torch.long), tcache["k"],
+        tcache["v"], torch.tensor(lengths), tcfg)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_TOL,
+                               rtol=LOGIT_TOL)

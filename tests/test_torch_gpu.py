@@ -28,7 +28,8 @@ from ray_tpu_torch.models import training, transformer
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops import layers
 from ray_tpu_torch.ops import paged_attention as pa
-from ray_tpu_torch.serve.llm import PagedLLMEngine
+from ray_tpu_torch.models.generate import Generator
+from ray_tpu_torch.serve.llm import LLMEngine, PagedLLMEngine
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
@@ -189,6 +190,106 @@ def test_engine_kernel_path_matches_gather_path(cuda):
             prompt, max_new_tokens=10)
     assert pa.launches > before
     assert kern.kv.active_blocks() == plain.kv.active_blocks() == 0
+
+
+# The speculative verify's shapes: T = k+1 query rows a slot, a slot near
+# the table's end whose rows run past NB * bt (1024 here): slot 0 (its rows
+# past the table must not read slot 1's entries), a fresh slot, slot 2
+# exactly at the edge, slot 3 past it (the tables' last row).
+SPEC_LENGTHS = [1022, 3, 1019, 1021]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,route", [("float32", "split"),
+                                         ("bfloat16", "split"),
+                                         ("bfloat16", "wgmma")])
+@pytest.mark.parametrize("T", [4, 5, 8])
+def test_verify_rows_past_the_table(cuda, dtype, route, T):
+    """Query rows at lengths + t >= NB * bt attend the whole table and no
+    entry past it, on both routes: outputs match the plain version, and NaN
+    in the trash block (the fresh slot's dead entries) reaches no row."""
+    dt = getattr(torch, dtype)
+    ops = _operands(np.random.default_rng(T), dt, SPEC_LENGTHS, T)
+    s = 1.0 / ops[0].shape[-1] ** 0.5
+    got = pa._paged_attention_cuda(*ops, s, route=route)
+    torch.cuda.synchronize()
+    want = pa.paged_attention_reference(*ops)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dt],
+                               rtol=TOL[dt])
+    kp, vp = ops[1].clone(), ops[2].clone()
+    kp[0] = float("nan")
+    vp[0] = float("nan")
+    assert torch.equal(pa._paged_attention_cuda(ops[0], kp, vp, *ops[3:], s,
+                                                route=route), got)
+
+
+def _spec_models():
+    """tiny widths raised to head_dim 64, f32: a target and three drafts
+    (the target itself, the target + 0.05 × an independent init, and an
+    independent one-layer init)."""
+    cfg = transformer.tiny(d_model=128, n_heads=2, max_seq_len=128)
+    params = transformer.init_params(cfg, 0, device="cuda")
+    other = transformer.init_params(cfg, 1, device="cuda")
+
+    def plus(a, b):
+        return {k: plus(v, b[k]) if isinstance(v, dict) else v + 0.05 * b[k]
+                for k, v in a.items()}
+
+    near = plus(params, other)
+    shallow = cfg.replace(n_layers=1)
+    drafts = {"aligned": (params, cfg), "near": (near, cfg),
+              "miss": (transformer.init_params(shallow, 2, device="cuda"),
+                       shallow)}
+    return cfg, params, drafts
+
+
+SPEC_KW = dict(prompt_buckets=(16, 32, 64), chunk=4, slots=2, max_queue=0,
+               block_tokens=16, pool_blocks=40)
+SPEC_PROMPTS = [[7, 3, 11], list(range(40, 60)), [5, 9] * 20]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [3, 4])
+def test_spec_engine_kernel_path_matches_gather_path(cuda, k):
+    """The spec engine on the card: greedy streams through the kernel (the
+    verify at T = k+1) equal the gather path's and the plain engine's, for
+    every draft; blocks drain."""
+    cfg, params, drafts = _spec_models()
+    plain = PagedLLMEngine(params, cfg, attention_kernel="cuda", **SPEC_KW)
+    want = [plain.generate(p, max_new_tokens=24) for p in SPEC_PROMPTS]
+    for name, (dp, dc) in drafts.items():
+        engs = [PagedLLMEngine(params, cfg, attention_kernel=kernel,
+                               draft_params=dp, draft_config=dc,
+                               spec_tokens=k, **SPEC_KW)
+                for kernel in ("cuda", "gather")]
+        before = pa.launches
+        for e in engs:
+            assert [e.generate(p, max_new_tokens=24)
+                    for p in SPEC_PROMPTS] == want, name
+            assert e.kv.active_blocks() == 0
+            assert e.stats()["spec_forwards"] > 0
+        assert pa.launches > before
+
+
+@pytest.mark.gpu
+def test_slotted_engine_on_the_card(cuda):
+    """The slotted engine on the card: greedy streams equal the paged
+    engine's (kernel path) and the Generator's."""
+    cfg = transformer.tiny(d_model=128, n_heads=2, max_seq_len=128)
+    params = transformer.init_params(cfg, 3, device="cuda")
+    kw = dict(prompt_buckets=(16, 32, 64), chunk=4, slots=2, max_queue=0)
+    slotted = LLMEngine(params, cfg, **kw)
+    paged = PagedLLMEngine(params, cfg, block_tokens=16, pool_blocks=40,
+                           **kw)
+    oracle = Generator(params, cfg)
+    assert slotted.device.type == "cuda" and oracle.device.type == "cuda"
+    for p in SPEC_PROMPTS:
+        want = oracle.generate(p, max_new_tokens=20)
+        assert slotted.generate(p, max_new_tokens=20) == want
+        assert paged.generate(p, max_new_tokens=20) == want
+    m = slotted.device_metrics()
+    assert m["device_ttft_ms"] > 0 and m["device_decode_tokens_per_sec"] > 0
 
 
 def _flash_operands(seed, dt, B, Lq, Lk, H, D):

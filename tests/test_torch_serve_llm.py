@@ -1,13 +1,16 @@
-"""The port's ``PagedLLMEngine`` against the JAX ``PagedLLMEngine``.
+"""The port's engines against the JAX engines: ``PagedLLMEngine`` and the
+slotted ``LLMEngine``.
 
-Both engines run ``tiny(max_seq_len=64)`` in f32 with the same weights
+Both packages run ``tiny(max_seq_len=64)`` in f32 with the same weights
 (carried across by ``params_from_numpy``) and the geometry of
 ``test_serve_paged.py`` (buckets 16/32, chunk 4, 2 slots, 8-token blocks,
 129-block pool); the JAX engine runs its gather path, the port its plain
 attention version on the CPU. Greedy streams must be token-identical and
 prefix hits must count the same tokens. Sampled streams differ by design
 (torch generators are not threefry), so they are held to finishing, staying
-in the vocab and repeating for a seed.
+in the vocab and repeating for a seed. The slotted engines run the same
+weights and geometry (less the pool), and their greedy streams must equal
+JAX's, the port's paged engine's and the port's ``Generator``'s.
 """
 
 import threading
@@ -19,19 +22,32 @@ import pytest
 import torch
 
 from ray_tpu.models import transformer as jtf
+from ray_tpu.serve.llm import LLMEngine as JaxSlotted
 from ray_tpu.serve.llm import PagedLLMEngine as JaxEngine
 from ray_tpu_torch.models import transformer as ttf
 from ray_tpu_torch.models.convert import params_from_numpy
+from ray_tpu_torch.models.generate import Generator
 from ray_tpu_torch.serve.errors import Saturated
-from ray_tpu_torch.serve.llm import PagedLLMEngine
+from ray_tpu_torch.serve.llm import LLMEngine, PagedLLMEngine
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
 BT = 8
-GEOM = dict(prompt_buckets=(16, 32), chunk=4, slots=2, block_tokens=BT,
-            pool_blocks=129)
+SLOT_GEOM = dict(prompt_buckets=(16, 32), chunk=4, slots=2)
+GEOM = dict(SLOT_GEOM, block_tokens=BT, pool_blocks=129)
 PROMPTS = [[7, 3, 11], [2, 4, 6, 8, 10], [1] * 9, [5, 9] * 7,
            list(range(100, 125))]  # last spans the 32 bucket
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread for this module: its tiny-model ops gain nothing
+    from more, and the suite's workers share the cores, where extra threads
+    only contend (several times slower under a full test run)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -176,7 +192,7 @@ def test_serve_knobs_match_the_jax_defaults(monkeypatch):
     port = config()
     names = [n for n, v in vars(Config).items()
              if type(v).__name__ == "_Flag"]
-    assert len(names) == 7
+    assert len(names) == 11
     for n in names:
         assert getattr(port, n) == getattr(JaxConfig, n).default, n
     monkeypatch.setenv("RAY_TPU_SERVE_LLM_SLOTS", "3")
@@ -196,6 +212,126 @@ def test_device_defaults_to_the_card():
     params = ttf.init_params(ttf.tiny(), 0, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PagedLLMEngine(params, ttf.tiny(), **GEOM)
-    with pytest.raises(NotImplementedError, match="speculative"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LLMEngine(params, ttf.tiny(), **SLOT_GEOM)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Generator(params, ttf.tiny())
+    with pytest.raises(ValueError, match="draft model"):
         PagedLLMEngine(params, ttf.tiny(), device="cpu", spec_tokens=2,
                        **GEOM)
+
+
+def test_env_spec_tokens_without_a_draft_raises_as_in_jax(monkeypatch):
+    """``RAY_TPU_SERVE_SPEC_TOKENS=2`` and no draft model: both packages'
+    paged engines refuse to build (JAX reads its config once a process, so
+    its test installs a fresh one)."""
+    from ray_tpu.core import config as jconfig
+
+    monkeypatch.setenv("RAY_TPU_SERVE_SPEC_TOKENS", "2")
+    jcfg = jtf.tiny(max_seq_len=64)
+    old = jconfig.config()
+    jconfig.set_config(jconfig.Config())
+    try:
+        with pytest.raises(ValueError, match="draft model"):
+            JaxEngine(jtf.init_params(jcfg, jax.random.key(0)), jcfg, **GEOM)
+    finally:
+        jconfig.set_config(old)
+    params = ttf.init_params(ttf.tiny(), 0, device="cpu")
+    with pytest.raises(ValueError, match="draft model"):
+        PagedLLMEngine(params, ttf.tiny(max_seq_len=64), device="cpu",
+                       **GEOM)
+
+
+def test_env_kv_tier_raises_not_yet_ported(monkeypatch):
+    """``RAY_TPU_KV_TIER_ENABLED=1`` turns the cluster KV tier on in JAX; the
+    port has no tier yet, so its paged engine refuses rather than serve
+    without it. Off, ``close`` is an idempotent no-op."""
+    params = ttf.init_params(ttf.tiny(), 0, device="cpu")
+    eng = PagedLLMEngine(params, ttf.tiny(max_seq_len=64), device="cpu",
+                         **GEOM)
+    eng.close()
+    eng.close()
+    monkeypatch.setenv("RAY_TPU_KV_TIER_ENABLED", "1")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        PagedLLMEngine(params, ttf.tiny(max_seq_len=64), device="cpu",
+                       **GEOM)
+
+
+@pytest.fixture(scope="module")
+def slotted(engines):
+    jeng, teng, tparams = engines
+    jcfg = jtf.tiny(max_seq_len=64)
+    jparams = jtf.init_params(jcfg, jax.random.key(0))
+    jslot = JaxSlotted(jparams, jcfg, max_queue=0, name="jax-slotted",
+                       **SLOT_GEOM)
+    jslot.warmup()
+    tslot = LLMEngine(tparams, ttf.tiny(max_seq_len=64), device="cpu",
+                      max_queue=0, name="torch-slotted", **SLOT_GEOM)
+    tslot.warmup()
+    return jslot, tslot
+
+
+def test_slotted_greedy_matches_jax_paged_and_generator(engines, slotted):
+    """The slotted engine, concurrent across both buckets: JAX's slotted
+    engine's streams, the port's paged engine's and the port's
+    ``Generator``'s (the single-sequence oracle)."""
+    _, teng, tparams = engines
+    jslot, tslot = slotted
+    want = [jslot.generate(p, max_new_tokens=12) for p in PROMPTS]
+    assert _concurrent(tslot, PROMPTS, 12) == want
+    assert [teng.generate(p, max_new_tokens=12) for p in PROMPTS] == want
+    oracle = Generator(tparams, ttf.tiny(max_seq_len=64), device="cpu")
+    assert [oracle.generate(p, max_new_tokens=12) for p in PROMPTS] == want
+    assert tslot.stats()["slots_busy"] == 0.0
+
+
+def test_slotted_length_cap_and_cancel(slotted):
+    """A request that would outgrow max_len finishes as length_cap with
+    JAX's tokens; an abandoned stream cancels and frees its slot, and a
+    cancelled queued request leaves the queue."""
+    jslot, tslot = slotted
+    prompt = list(range(1, 31))
+    res_j, res_t = {}, {}
+    want = list(jslot.stream(prompt, max_new_tokens=100, result=res_j))
+    got = list(tslot.stream(prompt, max_new_tokens=100, result=res_t))
+    assert got == want
+    assert res_t["finish_reason"] == res_j["finish_reason"] == "length_cap"
+    req = tslot.submit([3, 1, 4, 1, 5], max_new_tokens=40)
+    gen = tslot.drive(req)
+    assert isinstance(next(gen), int)
+    gen.close()
+    assert req.finish_reason == "cancelled"
+    queued = tslot.submit([9, 9, 9], max_new_tokens=4)
+    tslot._cancel(queued)
+    st = tslot.stats()
+    assert (st["slots_busy"], st["queue_depth"]) == (0.0, 0.0)
+    sampled = tslot.generate(PROMPTS[1], max_new_tokens=12, temperature=0.8,
+                             seed=123)
+    assert sampled == tslot.generate(PROMPTS[1], max_new_tokens=12,
+                                     temperature=0.8, seed=123)
+    assert all(0 <= t < 256 for t in sampled)
+
+
+def test_slotted_saturated_past_max_queue(engines):
+    _, _, tparams = engines
+    eng = LLMEngine(tparams, ttf.tiny(max_seq_len=64), device="cpu",
+                    max_queue=1, name="shed-slotted", **SLOT_GEOM)
+    req = eng.submit([1, 2, 3], max_new_tokens=4)
+    with pytest.raises(Saturated) as ei:
+        eng.submit([1, 2, 3], max_new_tokens=4)
+    assert ei.value.retry_after_s == pytest.approx(0.05)
+    eng._cancel(req)
+    assert eng.stats()["queue_depth"] == 0.0
+
+
+def test_device_metrics_of_both_engines(engines, slotted):
+    """``device_metrics`` runs on a throwaway state and returns both keys
+    (on the CPU, CPU times: the card's numbers come from chip_smoke.py)."""
+    _, teng, _ = engines
+    _, tslot = slotted
+    for eng in (teng, tslot):
+        m = eng.device_metrics(prompt_len=10, reps=2)
+        assert set(m) == {"device_ttft_ms", "device_decode_tokens_per_sec"}
+        assert m["device_ttft_ms"] > 0
+        assert m["device_decode_tokens_per_sec"] > 0
+    assert teng.kv.active_blocks() == 0
