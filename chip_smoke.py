@@ -8,7 +8,8 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 Phases (any failure exits non-zero; no phase catches an error and goes on):
 
 1. device — the card's name and power limit (``nvidia-smi``), the torch
-   device name and count; no CUDA device is a failure;
+   device name and count, the size and free space of /dev/shm; no CUDA
+   device is a failure;
 2. build — every kernel under ``ray_tpu_torch/ops/csrc`` from the checkout's
    sources, one ``nvcc`` per source, all started together; prints the
    ``-Xptxas -v`` lines (registers, shared memory, spills); a spill in a
@@ -69,9 +70,25 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    and by route; blocks drain; the aligned draft accepts >= 90 %; decode
    tokens/s and the accept ratio beside the plain engine's on the same
    requests (8 for aligned, 4 for the others); then at 2 layers in f32
-   every draft at k = 3 and 4 gives the plain engine's greedy tokens.
+   every draft at k = 3 and 4 gives the plain engine's greedy tokens;
+10. disaggregated — ``DisaggregatedLLMEngine`` (a prefill engine feeding a
+   decode engine over the shm KV handoff lane, in one process) on
+   ``gpt2_small()`` at full width, bf16, answers phase 4's 8 requests from
+   concurrent threads after a check that its lane fits in /dev/shm: K4's
+   launches, set to 0 just before and read just after, must be n_layers x
+   the prefill engine's prefills on the wgmma route and n_layers x the
+   decode engine's steps on the split route (the decode engine never
+   prefills); blocks drain on both engines; after ``close()`` no worker
+   thread and no lane file is left; decode tokens/s and TTFT beside phase
+   4's; then the handoff of one 1024-token prompt alone (gather, send into
+   the slot, recv, insert with its synchronise) beside pinned copies of the
+   same bytes; then at 2 layers in f32 disaggregated, colocated
+   paged-on-kernel and ``Generator`` greedy streams are equal, each
+   disaggregated request's spans are one admission wait, one prefill and
+   one decode chunk per step, and ``serve_tokens_total`` counts the tokens
+   delivered.
 
-In phases 5, 8 and 9 a greedy stream that departs from its reference must
+In phases 5, 8, 9 and 10 a greedy stream that departs from its reference must
 do so at a near tie: the plain path's top-2 logit gap there under 1e-3.
 
 It prints the kernels line ``{"kernels": [...]}`` and, last, the line
@@ -82,6 +99,7 @@ It prints the kernels line ``{"kernels": [...]}`` and, last, the line
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -140,6 +158,9 @@ def phase_device(torch):
     count = torch.cuda.device_count()
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}: "
         f"{kind} x{count}")
+    st = os.statvfs("/dev/shm")
+    log(f"[device] /dev/shm: {st.f_blocks * st.f_frsize} bytes, "
+        f"{st.f_bavail * st.f_frsize} free")
     return card, kind, count
 
 
@@ -1393,6 +1414,310 @@ def _spec_identity(torch, np):
     return ties
 
 
+# -- phase 10 ----------------------------------------------------------------
+DISAGG_LANE_SLOTS = 4                 # the engine's default lane depth
+DISAGG_POOL_BLOCKS = 513              # phase 4's pool: 2 x 4 slots x 64 + 1
+HANDOFF_TOKENS = 1024                 # the handoff alone: 64 blocks of 16
+
+
+def _lane_fits(cfg, block_tokens, max_len, slots):
+    """Fail unless /dev/shm has room for the disaggregated engine's lane:
+    ``slots`` slots of JAX's capacity formula at this configuration."""
+    from ray_tpu_torch.dag import channel
+    from ray_tpu_torch.serve.llm import lane_capacity
+
+    cap = lane_capacity(cfg, block_tokens, -(-max_len // block_tokens),
+                        cfg.padded_vocab)
+    need = channel.shm_footprint(cap, slots)
+    total, free = channel.shm_room()
+    if need > free:
+        fail(f"disagg: the KV handoff lane needs {slots} x {cap} bytes "
+             f"({need} in all) of /dev/shm, which has {free} free of "
+             f"{total}")
+    log(f"[disagg] lane: {slots} slots x {cap} bytes = {need} bytes of "
+        f"/dev/shm ({free} free)")
+    return cap
+
+
+def phase_disagg(torch, np, card, counts, paged_summary):
+    """Prefill/decode disaggregation on ``gpt2_small`` at full width, bf16:
+    phase 4's 8 requests from concurrent threads, K4's launches by route
+    against the two engines' forwards, blocks drained, no lane file or
+    worker left after ``close()``; the handoff of one 1024-token prompt
+    alone; then greedy identity of disaggregated, colocated paged-on-kernel
+    and ``Generator`` at 2 layers in f32, with each request's spans and the
+    tokens counter."""
+    from ray_tpu_torch.dag.channel import SHM_DIR
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.serve.llm import DisaggregatedLLMEngine
+
+    cfg = transformer.gpt2_small()
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     device=DEVICE)
+    _lane_fits(cfg, 16, cfg.max_seq_len, DISAGG_LANE_SLOTS)
+    t0 = time.perf_counter()
+    # Both halves get phase 4's pool (its auto size at 4 slots): the prefill
+    # engine's own auto size (1 slot: 129 blocks) would evict the shared
+    # prefix before its second request arrives, with the 8 prompts' 156
+    # blocks passing through it.
+    eng = DisaggregatedLLMEngine(params, cfg, device=DEVICE, name="disagg",
+                                 pool_blocks=DISAGG_POOL_BLOCKS,
+                                 lane_slots=DISAGG_LANE_SLOTS)
+    del params
+    eng.warmup()
+    torch.cuda.synchronize()
+    lane_file = os.path.join(SHM_DIR, eng.lane.name)
+    log(f"[disagg] gpt2_small ({cfg.dtype}) decode slots {eng.slots}, "
+        f"prefill slots {eng.prefill.slots}, lane {eng.lane.chan.slots} "
+        f"slots; set-up + warmup {time.perf_counter() - t0:.1f} s")
+    for half in (eng.prefill, eng.decode):
+        if half._pg.attention_kernel != "cuda":
+            fail(f"disagg {half.name} resolved attention to "
+                 f"{half._pg.attention_kernel!r}")
+
+    reqs = _requests(np)
+    halves = {"prefill": eng.prefill, "decode": eng.decode}
+    # Where a request's TTFT goes: the workers' two calls, timed on the
+    # host clock (each ends in a host copy or a synchronise).
+    calls = {"prefill_to_blocks": [], "admit_prefilled": []}
+    for half, fn in ((eng.prefill, "prefill_to_blocks"),
+                     (eng.decode, "admit_prefilled")):
+        setattr(half, fn, _timed_calls(getattr(half, fn), calls[fn]))
+    # Counts to 0 just before the run, read just after.
+    counts.reset()
+    st0 = {h: e.stats() for h, e in halves.items()}
+    hit0 = eng.stats()["prefill_kv_hit_tokens"]
+    results, wall = _serve(torch, eng, reqs, "disagg")
+    launches = counts.read()
+    st1 = {h: e.stats() for h, e in halves.items()}
+    del eng.prefill.prefill_to_blocks, eng.decode.admit_prefilled
+    _check_streams(reqs, results, cfg.vocab_size)
+    d = {h: {n: int(st1[h][n] - st0[h][n])
+             for n in ("prefill_forwards", "decode_forwards")}
+         for h in halves}
+    if d["decode"]["prefill_forwards"] or d["prefill"]["decode_forwards"]:
+        fail(f"disagg: the decode engine prefilled or the prefill engine "
+             f"decoded: {d}")
+    L = cfg.n_layers
+    want = {"wgmma": L * d["prefill"]["prefill_forwards"],
+            "split": L * d["decode"]["decode_forwards"]}
+    got = {r: launches[f"paged_attention/{r}"] for r in want}
+    if got != want or not all(got.values()):
+        fail(f"disagg: K4 launches by route {got}, wanted {want} = "
+             f"{L} layers x (prefill engine's prefills, decode engine's "
+             f"steps) {d}")
+    hits = eng.stats()["prefill_kv_hit_tokens"] - hit0
+    cows = (st1["prefill"]["kv_cow_copies"]
+            - st0["prefill"]["kv_cow_copies"])
+    if hits < 256 or cows < 1:
+        fail(f"disagg: prefix paths not exercised on the prefill engine: "
+             f"hit tokens {hits}, COW forks {cows}")
+    pinned = {h: e.kv.active_blocks() for h, e in halves.items()}
+    if any(pinned.values()):
+        fail(f"disagg: blocks still pinned after the run: {pinned}")
+    summary = _serve_summary(eng, reqs, results, wall)
+    worker_ms = {fn: {"calls": len(t), "mean": 1e3 * sum(t) / len(t),
+                      "max": 1e3 * max(t), "sum": 1e3 * sum(t)}
+                 for fn, t in calls.items()}
+    summary.update(forwards=d, launches=got, prefill_kv_hit_tokens=hits,
+                   prefill_kv_cow_copies=cows, worker_ms=worker_ms,
+                   tokens_per_decode_step=(summary["tokens"]
+                                           / d["decode"]["decode_forwards"]))
+    log(f"[disagg] {len(reqs)} requests, {summary['tokens']} tokens in "
+        f"{wall:.2f} s: decode {summary['decode_tokens_per_s']:.1f} "
+        f"tokens/s (colocated, phase 4: "
+        f"{paged_summary['decode_tokens_per_s']:.1f}), TTFT median "
+        f"{summary['ttft_ms_median']:.1f} ms (colocated "
+        f"{paged_summary['ttft_ms_median']:.1f}), max "
+        f"{summary['ttft_ms_max']:.1f} ms (colocated "
+        f"{paged_summary['ttft_ms_max']:.1f})  [{card}]")
+    colo_per_step = (paged_summary["tokens"]
+                     / paged_summary["decode_forwards"])
+    log(f"[disagg] prefill worker: {len(calls['prefill_to_blocks'])} "
+        f"prefill_to_blocks, mean "
+        f"{worker_ms['prefill_to_blocks']['mean']:.1f} ms, max "
+        f"{worker_ms['prefill_to_blocks']['max']:.1f} ms, "
+        f"{worker_ms['prefill_to_blocks']['sum']:.0f} ms in all; ingest "
+        f"worker: admit_prefilled (alloc, step lock, insert, synchronise) "
+        f"mean {worker_ms['admit_prefilled']['mean']:.1f} ms, max "
+        f"{worker_ms['admit_prefilled']['max']:.1f} ms; "
+        f"{summary['tokens_per_decode_step']:.2f} tokens a decode step "
+        f"(colocated {colo_per_step:.2f})  [{card}]")
+    log(f"[disagg] K4 wgmma {got['wgmma']} = {L} x "
+        f"{d['prefill']['prefill_forwards']} prefills (prefill engine), "
+        f"split {got['split']} = {L} x {d['decode']['decode_forwards']} "
+        f"steps (decode engine); prefill-side hit tokens {hits:.0f}, COW "
+        f"forks {cows:.0f}; blocks pinned after: 0 and 0")
+    summary["handoff"] = _handoff(torch, np, eng, card)
+
+    eng.close()
+    eng.close()
+    left = [t.name for t in threading.enumerate() if "-disagg-" in t.name]
+    if left or os.path.exists(lane_file):
+        fail(f"disagg: after close(), threads {left} alive, lane file "
+             f"{lane_file} present: {os.path.exists(lane_file)}")
+    log("[disagg] close(): no worker thread alive, no lane file in "
+        "/dev/shm")
+    del eng
+    summary["f32_identity"] = _disagg_identity(torch, np)
+    return summary
+
+
+def _timed_calls(fn, into):
+    """``fn`` wrapped to append each call's host-clock seconds to ``into``."""
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            into.append(time.perf_counter() - t0)
+    return timed
+
+
+def _handoff(torch, np, eng, card, reps=5):
+    """The handoff of one 1024-token prompt (64 blocks) alone, each step
+    timed on the host clock around work that ends in a synchronise, the
+    median of ``reps``: the gather on the prefill engine's pool, ``send``
+    (the device-to-host copy straight into the lane slot), ``recv`` and the
+    insert into the decode pool with its synchronise; beside a pinned
+    ``copy_`` of the same bytes each way."""
+    from ray_tpu_torch.serve.dag_pipeline import KVHandoffLane
+
+    rng = np.random.default_rng(7)
+    prompt = rng.integers(0, 50257, HANDOFF_TOKENS).tolist()
+    k, v, last, _ = eng.prefill.prefill_to_blocks(prompt, seed=0)
+    nb = int(k.shape[1])
+    nbytes = k.nbytes + v.nbytes
+    ids = np.arange(1, nb + 1, dtype=np.int32)
+    ef = eng.prefill._pg.extract_fn(nb)
+    inf = eng.decode._pg.insert_fn(nb)
+    lane = KVHandoffLane(capacity=eng.lane.chan.capacity, slots=2)
+    dst = eng.decode.kv.alloc(nb)
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    flat = torch.cat([k.reshape(-1).view(torch.uint8),
+                      v.reshape(-1).view(torch.uint8)])
+    times = {n: [] for n in ("extract", "send", "recv", "insert",
+                             "pinned_d2h", "pinned_h2d")}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    meta = {"prompt": np.asarray(prompt, np.int32), "last_row": last}
+    try:
+        for _ in range(reps + 1):
+            kk, vv = timed("extract", lambda: ef(eng.prefill._k_pool,
+                                                 eng.prefill._v_pool, ids))
+            timed("send", lambda: lane.send(meta, kk, vv, timeout=10))
+            _, rk, rv, token = timed("recv", lambda: lane.recv(timeout=10))
+            timed("insert", lambda: inf(eng.decode._k_pool,
+                                        eng.decode._v_pool, rk, rv, dst))
+            if not (torch.equal(eng.decode._k_pool[:, dst[0]],
+                                kk[:, 0]) and torch.equal(
+                    eng.decode._v_pool[:, dst[-1]], vv[:, -1])):
+                fail("handoff: the decode pool does not hold the extracted "
+                     "blocks bit for bit")
+            del rk, rv
+            lane.ack(token)
+            timed("pinned_d2h", lambda: pinned.copy_(flat))
+            timed("pinned_h2d", lambda: flat.copy_(pinned))
+    finally:
+        eng.decode.kv.release(dst)
+        lane.destroy()
+    ms = {n: sorted(t[1:])[len(t[1:]) // 2] for n, t in times.items()}
+    rate = {n: nbytes / (ms[n] * 1e-3) / 1e9 for n in ms}
+    out = {"tokens": HANDOFF_TOKENS, "blocks": nb, "bytes": nbytes,
+           "ms": ms, "gb_per_s": rate, "reps": reps}
+    log(f"[disagg] handoff of {HANDOFF_TOKENS} tokens ({nb} blocks, "
+        f"{nbytes} bytes of K+V), median of {reps}: extract (gather on the "
+        f"card) {ms['extract']:.3f} ms, send (device to slot) "
+        f"{ms['send']:.3f} ms = {rate['send']:.2f} GB/s, recv "
+        f"{ms['recv']:.3f} ms, insert + synchronise {ms['insert']:.3f} ms "
+        f"= {rate['insert']:.2f} GB/s; pinned copy_ device to host "
+        f"{ms['pinned_d2h']:.3f} ms = {rate['pinned_d2h']:.2f} GB/s, host "
+        f"to device {ms['pinned_h2d']:.3f} ms = {rate['pinned_h2d']:.2f} "
+        f"GB/s  [{card}]")
+    return out
+
+
+def _disagg_identity(torch, np):
+    """Greedy identity at 2 layers f32: disaggregated == colocated paged on
+    the kernel == ``Generator``, each disaggregated request under a sampled
+    root trace context whose spans must be one ``llm.admission_wait``, one
+    ``llm.prefill`` and one ``llm.decode_chunk`` per 8-token chunk, all in
+    the root's trace; ``serve_tokens_total`` must count the tokens
+    delivered."""
+    from ray_tpu_torch.core import metrics_export
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.models.generate import Generator
+    from ray_tpu_torch.serve.llm import (DisaggregatedLLMEngine,
+                                         PagedLLMEngine)
+    from ray_tpu_torch.util import tracing
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = transformer.gpt2_small(n_layers=2, dtype=torch.float32)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(11),
+                                     device=DEVICE)
+    name = "f32-disagg"
+    disagg = DisaggregatedLLMEngine(params, cfg, device=DEVICE, name=name)
+    paged = PagedLLMEngine(params, cfg, device=DEVICE,
+                           attention_kernel="cuda", name="f32-colocated")
+    oracle = Generator(params, cfg, device=DEVICE)
+    tokens_ctr = metrics_export.serve_tokens_total()
+    tok0 = tokens_ctr.get({"deployment": name})
+    rng = np.random.default_rng(11)
+    ties, delivered, n_new = [], 0, 24
+    try:
+        for n in (20, 150, 400, 700):
+            p = rng.integers(0, cfg.vocab_size, n).tolist()
+            want = oracle.generate(p, max_new_tokens=n_new)
+            spans = []
+            tracing.set_sink(spans.append)
+            root = tracing.new_root_context()
+            tracing.set_context(root)
+            try:
+                got = disagg.generate(p, max_new_tokens=n_new)
+            finally:
+                tracing.set_context(None)
+                tracing.set_sink(None)
+            delivered += len(got)
+            names = {}
+            for s in spans:
+                if s["trace_id"] != root[0]:
+                    fail(f"disagg f32: a span of another trace: {s}")
+                names[s["name"]] = names.get(s["name"], 0) + 1
+            steps = -(-n_new // disagg.chunk)
+            if names != {"llm.admission_wait": 1, "llm.prefill": 1,
+                         "llm.decode_chunk": steps}:
+                fail(f"disagg f32: prompt of {n} tokens gave spans {names}, "
+                     f"wanted 1 admission_wait, 1 prefill and {steps} "
+                     f"decode_chunk")
+            ties += _same_greedy(
+                torch, oracle.params, cfg, p, want,
+                {"disaggregated": got,
+                 "colocated kernel": paged.generate(p, max_new_tokens=n_new)},
+                "disagg")
+        counted = tokens_ctr.get({"deployment": name}) - tok0
+        if counted != delivered:
+            fail(f"disagg f32: serve_tokens_total counted {counted}, "
+                 f"{delivered} delivered")
+        pinned = (disagg.decode.kv.active_blocks(),
+                  disagg.prefill.kv.active_blocks())
+        if any(pinned):
+            fail(f"disagg f32: blocks still pinned: {pinned}")
+    finally:
+        disagg.close()
+    log(f"[disagg] 4 greedy requests, gpt2_small widths x 2 layers, f32: "
+        f"disaggregated == colocated paged on the kernel == Generator"
+        + (f" up to {len(ties)} near tie(s)" if ties else "")
+        + f"; spans as the steps imply, serve_tokens_total {delivered}")
+    return ties
+
+
 def _leaf_names(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -1436,6 +1761,8 @@ def main() -> None:
     spec = phase_spec(torch, np, card, counts, plain, params)
     del plain, params
     done(9)
+    disagg = phase_disagg(torch, np, card, counts, engine)
+    done(10)
 
     def bf16_case(label):
         return next(c for c in cases
@@ -1465,6 +1792,7 @@ def main() -> None:
         "spec_launches_by_route": {
             r: sum(run["launches"][r] for run in spec["runs"])
             for r in ("split", "wgmma")},
+        "disagg_launches_by_route": disagg["launches"],
     }]
     for name, (replaces, _) in FLASH.items():
         mine = [c for c in flash_cases if c["kernel"] == name]
@@ -1486,7 +1814,8 @@ def main() -> None:
          "cases": cases, "paged_threshold": threshold,
          "flash_cases": flash_cases,
          "engine": engine, "end_to_end": e2e, "train": train,
-         "train_end_to_end": train_e2e, "slotted": slotted, "spec": spec},
+         "train_end_to_end": train_e2e, "slotted": slotted, "spec": spec,
+         "disagg": disagg},
         indent=1))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,4 +1,4 @@
-"""Env-overridable configuration: the serve knobs the engines read.
+"""Env-overridable configuration: the knobs the port's modules read.
 
 Counterpart of ``ray_tpu/core/config.py`` cut to this slice. Each flag
 resolves from the ``RAY_TPU_<NAME>`` environment variable, else its default
@@ -79,6 +79,36 @@ class Config:
     # The cluster-wide KV tier. Not ported yet: the paged engine raises when
     # it is on rather than serve without it.
     kv_tier_enabled = _Flag(False)
+
+    # -- timeouts -------------------------------------------------------------
+    # Wait budget of internal loops that re-check a predicate; a blocked
+    # channel endpoint is recorded as stalled after a quarter of it.
+    internal_wait_timeout_s = _Flag(60.0)
+
+    # -- shm channels ---------------------------------------------------------
+    # Ring depth of an shm channel: values in flight on one edge before the
+    # writer blocks on the reader's ack (1 = strict lock-step).
+    dag_channel_slots = _Flag(8)
+    # Busy-spin iterations before a blocked channel endpoint sleep-polls.
+    dag_channel_tight_spins = _Flag(0)
+    # Sleep-poll granularity (microseconds) of a blocked channel endpoint;
+    # backs off exponentially to 40x this while idle.
+    dag_channel_spin_us = _Flag(50.0)
+
+    # -- observability --------------------------------------------------------
+    # Gate of every built-in metric observation (off = one flag check).
+    metrics_export_enabled = _Flag(True)
+    # Request tracing master gate: off, every potential span costs one flag
+    # check; on, head-based sampling below decides per trace at its root.
+    trace_enabled = _Flag(True)
+    # Head-based sampling probability in [0, 1], decided once at a trace
+    # root and carried in the context.
+    trace_sample_rate = _Flag(1.0)
+    # Per-process flight recorder (util.flightrec): a bounded mmap'd event
+    # ring under the session dir. Off = every record site costs one check.
+    flightrec_enabled = _Flag(True)
+    # Flight-recorder ring size per process, KiB (128-byte slots).
+    flightrec_ring_kb = _Flag(256)
 
     def __init__(self):
         for name, flag in list(vars(type(self)).items()):

@@ -29,8 +29,9 @@ by the engine). Sampling draws from per-slot ``torch.Generator``s (JAX:
 threefry keys), so sampled streams repeat for a seed but are not JAX's;
 greedy streams match JAX token for token.
 
-Not in this slice: the disaggregation/KV-tier block transfer
-(``extract_fn``/``insert_fn``).
+The disaggregation handoff moves whole blocks between two engines' pools
+(:meth:`PagedGenerator.extract_fn`, :meth:`PagedGenerator.insert_fn`):
+plain tensor indexing, as in JAX, where no Pallas kernel computes them.
 """
 
 from __future__ import annotations
@@ -805,6 +806,43 @@ class PagedGenerator:
             return k_pool, v_pool
 
         return copy_block
+
+    def extract_fn(self, nb: int):
+        """extract(k_pool, v_pool, block_ids [nb]) -> (k [L,nb,bt,H,Dh], v):
+        gather a finished prefill's blocks for the disaggregation handoff
+        into new tensors on the pool's device; the pools are left as they
+        are (the prefill engine keeps serving its prefix cache from them)."""
+
+        def extract(k_pool, v_pool, block_ids):
+            ids = torch.as_tensor(np.asarray(block_ids, np.int64),
+                                  device=k_pool.device)
+            if ids.shape != (nb,):
+                raise ValueError(f"extract of {nb} blocks got ids of shape "
+                                 f"{tuple(ids.shape)}")
+            return k_pool[:, ids], v_pool[:, ids]
+
+        return extract
+
+    def insert_fn(self, nb: int):
+        """insert(k_pool, v_pool, k [L,nb,bt,H,Dh], v, block_ids [nb]) ->
+        (k_pool, v_pool): write handed-off blocks into the pools IN PLACE
+        (JAX donates the pools and rebinds them; here the tensors every
+        table, operand and kernel call holds are the ones written). ``k``
+        and ``v`` may lie on another device (the lane's host views): they
+        are copied to the pool's device first."""
+
+        def insert(k_pool, v_pool, k, v, block_ids):
+            ids = torch.as_tensor(np.asarray(block_ids, np.int64),
+                                  device=k_pool.device)
+            if ids.shape != (nb,) or tuple(k.shape[1:2]) != (nb,):
+                raise ValueError(f"insert of {nb} blocks got ids of shape "
+                                 f"{tuple(ids.shape)} and k of shape "
+                                 f"{tuple(k.shape)}")
+            k_pool.index_copy_(1, ids, torch.as_tensor(k).to(k_pool.device))
+            v_pool.index_copy_(1, ids, torch.as_tensor(v).to(v_pool.device))
+            return k_pool, v_pool
+
+        return insert
 
     def set_last_fn(self):
         """set_last(last, gens, row [V], slot, seed) -> (last, gens): park a

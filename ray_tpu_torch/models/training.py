@@ -5,7 +5,7 @@ update into one jitted program over a device mesh; here the step runs
 eagerly on one device: the loss, ``backward()`` (through the flash
 attention kernels on the card), the global gradient norm and one optimizer
 step. The mesh, sharding rules, donation and the sharded optimizer state
-wait for ROADMAP Queue 1 item 8.
+wait for ROADMAP Queue 1 item 9.
 
 Parameters are a dict of leaf tensors that require grad; ``step`` updates
 them IN PLACE (JAX returns new arrays and donates the old ones) and returns

@@ -17,7 +17,7 @@ Attention is picked by :func:`_make_attention` as in JAX: flash attention
 :func:`_block_tail`, :func:`_logits`) is shared with the serving forwards of
 ``models/generate.py``.
 
-Not ported yet (ROADMAP Queue 1 item 8): the mesh and sharding rules,
+Not ported yet (ROADMAP Queue 1 item 9): the mesh and sharding rules,
 ``logical_axes``, ring and Ulysses attention, ``make_tp_block_fn``,
 ``pp_lm_loss``; and ``remat_policy="dots"``.
 """
@@ -232,7 +232,7 @@ def _make_attention(config: TransformerConfig):
     if impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attn_impl {impl!r} needs a device mesh, not yet ported "
-            f"(ROADMAP Queue 1 item 8)")
+            f"(ROADMAP Queue 1 item 9)")
     raise ValueError(f"unknown attn_impl {config.attn_impl!r}")
 
 
@@ -263,7 +263,7 @@ def forward(params: Dict, tokens: torch.Tensor,
     c = config
     if c.remat and c.remat_policy == "dots":
         raise NotImplementedError("remat_policy 'dots' is not yet ported "
-                                  "(ROADMAP Queue 1 item 2)")
+                                  "(ROADMAP Queue 1 item 9)")
     cast = lambda p: p.to(c.dtype)
     L = tokens.shape[1]
     h = cast(params["tok_embed"])[tokens]

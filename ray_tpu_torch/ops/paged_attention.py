@@ -30,6 +30,7 @@ tokens' K/V must already be in the pool (the caller writes, then attends).
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -56,11 +57,14 @@ _SPLIT_MIN_KEYS = 64
 launches = 0
 prefill_launches = 0     # paged_prefill_wgmma_kernel
 decode_launches = 0      # paged_decode_split_kernel
+_count_lock = threading.Lock()
 
 _fn = None
 # Per device: the split kernel's arrival counters, zeroed once; every call
-# leaves them 0. Calls on one device share them, so they run in stream order
-# (the engine's calls all go to one stream).
+# leaves them 0. Calls on one device share them, so they run in stream order:
+# every engine launches on the device's default stream, the disaggregated
+# engine's prefill and ingest threads and its request threads too. Launches
+# on other streams would first need counters per stream.
 _counters: Dict[torch.device, torch.Tensor] = {}
 
 
@@ -180,11 +184,12 @@ def _paged_attention_cuda(q, k_pool, v_pool, tables, lengths, s_val,
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    launches += 1
-    if route == "wgmma":
-        prefill_launches += 1
-    else:
-        decode_launches += 1
+    with _count_lock:  # threads of one engine pair launch concurrently
+        launches += 1
+        if route == "wgmma":
+            prefill_launches += 1
+        else:
+            decode_launches += 1
     return out
 
 

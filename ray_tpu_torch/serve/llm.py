@@ -21,10 +21,17 @@ under ``_step_lock``; the admission path touches host state only.
 Admission control sheds with :class:`~ray_tpu_torch.serve.errors.Saturated`
 once ``max_queue`` requests are already waiting.
 
+Prefill/decode disaggregation in one process
+(:class:`DisaggregatedLLMEngine`) pairs two paged engines over a shm KV
+handoff lane. Each engine step emits the request spans of
+``util.tracing`` (``llm.admission_wait``, ``llm.prefill``,
+``llm.decode_chunk``, ``llm.spec``) for sampled requests, and observes the
+serve metrics of ``core.metrics_export`` (tokens, TTFT by phase, prefix hit
+tokens, pool occupancy, speculation, sheds) in this process's registry.
+
 Not in this slice (see ROADMAP.md): the cluster KV tier (``kv_tier_enabled``
-raises), prefill/decode disaggregation, the Serve deployment
-(``llm_deployment``), tracing spans, metrics export and the steady-state
-guard, each marked where it would sit.
+raises), the Serve deployment (``llm_deployment``), the metrics exporter to
+the GCS and the steady-state guard, each marked where it would sit.
 """
 
 from __future__ import annotations
@@ -38,12 +45,14 @@ from typing import Dict, Iterable, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ray_tpu_torch.core import metrics_export
 from ray_tpu_torch.core.config import config as _get_config
 from ray_tpu_torch.models.generate import (KVBlockManager, NoFreeBlocks,
                                            PagedGenerator, SlottedGenerator,
                                            _to_device)
 from ray_tpu_torch.models.transformer import TransformerConfig
 from ray_tpu_torch.serve.errors import Saturated
+from ray_tpu_torch.util import tracing
 from ray_tpu_torch.utils.device import resolve_device
 from ray_tpu_torch.utils.logging import get_logger
 
@@ -70,10 +79,10 @@ def _check_token_ids(prompt: np.ndarray, vocab: int, name: str) -> None:
 
 
 def _shed(name: str, depth: int, limit: int, what: str) -> Saturated:
-    """Build the engine-queue-full :class:`Saturated`: ``retry_after_s``
-    estimates the queue's drain time at one admitted-item service time per
-    waiting request. (The shed counter of the metrics pipeline comes with
-    the metrics slice.)"""
+    """Build the engine-queue-full :class:`Saturated` (and bump the shed
+    counter): ``retry_after_s`` estimates the queue's drain time at one
+    admitted-item service time per waiting request."""
+    metrics_export.observe_shed(name, "saturated")
     try:
         retry = depth * _get_config().serve_retry_after_item_s
     except ValueError:  # a malformed env override: the hint is advisory
@@ -91,8 +100,8 @@ class _Request:
         "prompt", "padded", "real_len", "bucket", "max_new", "temperature",
         "seed", "tokens", "cond", "slot", "emitted", "done", "cancelled",
         "error", "finish_reason", "decode_tokens", "decode_seconds",
-        "submitted_at", "ttft_s", "queued_s", "prefill_s", "out_ids",
-        "hit_tokens",
+        "submitted_at", "ttft_s", "trace_ctx", "queued_s", "prefill_s",
+        "out_ids", "blocks", "hit_tokens", "preloaded",
     )
 
     def __init__(self, prompt, padded, real_len, bucket, max_new,
@@ -122,7 +131,19 @@ class _Request:
         # Every delivered token id, in order — the paged engine registers
         # the finished prompt+output chain in the prefix cache at retire.
         self.out_ids: List[int] = []
+        # Paged-engine state: pool blocks pinned for a QUEUED request that
+        # already owns them (disaggregation handoff), prefix-cache hit size,
+        # and — for handed-off requests — the prefill's last-token logits
+        # row (None means prefill runs locally at admission).
+        self.blocks: List[int] = []
         self.hit_tokens = 0
+        self.preloaded: Optional[np.ndarray] = None
+        # Captured at submit time on the request's own thread; engine spans
+        # use THIS explicit context (the step loop runs on whichever thread
+        # won the driver election — its ambient context belongs to another
+        # request). None unless the trace sampled in.
+        self.trace_ctx = (tracing.current_context()
+                          if tracing.is_sampled() else None)
 
     def decode_tps(self) -> float:
         if self.decode_seconds == 0:
@@ -231,8 +252,10 @@ class LLMEngine:
         a variable 1..chunk*(k+1). Called under _state_lock."""
         return [int(t) for t in host_toks[slot][:self.chunk]], self.chunk
 
-    # (_chunk_span_attrs, the extra attrs of a request's llm.decode_chunk
-    # span, comes with the tracing item.)
+    def _chunk_span_attrs(self, slot: int) -> Optional[Dict]:
+        """Extra attrs for a request's ``llm.decode_chunk`` span (the spec
+        engine reports its proposed/accepted counts)."""
+        return None
 
     def _release_slot_device(self, slot: int) -> None:
         """Per-slot device-side cleanup when a slot frees (paged: unpin the
@@ -503,8 +526,17 @@ class LLMEngine:
                 break
             nxt.queued_s = t_admit - nxt.submitted_at
             nxt.prefill_s = time.perf_counter() - t_admit
-            # (The llm.admission_wait / llm.prefill spans come with the
-            # tracing slice.)
+            if nxt.trace_ctx is not None:
+                tracing.emit(
+                    "llm.admission_wait", nxt.trace_ctx,
+                    duration=nxt.queued_s,
+                    attrs={"slot": free, "engine": self.name})
+                tracing.emit(
+                    "llm.prefill", nxt.trace_ctx,
+                    duration=nxt.prefill_s,
+                    attrs={"slot": free, "bucket": nxt.bucket,
+                           "prompt_len": nxt.real_len,
+                           "hit_tokens": nxt.hit_tokens})
             admitted_tokens += cost
 
         with self._state_lock:
@@ -524,6 +556,9 @@ class LLMEngine:
 
         # 4. Distribute each slot's tokens to its request.
         delivered_total = 0
+        ttfts: List[tuple] = []  # (total, queued, prefill) per first token
+        batch_size = int(active.sum())
+        chunk_spans: List[tuple] = []  # sampled requests' (ctx, slot, ntok)
         with self._state_lock:
             for slot in range(self.slots):
                 req = self._slot_req[slot]
@@ -537,6 +572,9 @@ class LLMEngine:
                 upto = min(len(emitted), req.max_new - req.emitted)
                 if upto > 0 and req.ttft_s is None:
                     req.ttft_s = now - req.submitted_at
+                    ttfts.append((req.ttft_s, req.queued_s, req.prefill_s))
+                if req.trace_ctx is not None and upto > 0:
+                    chunk_spans.append((req.trace_ctx, slot, upto))
                 new_toks = emitted[:upto]
                 req.tokens.extend(new_toks)
                 req.out_ids.extend(new_toks)
@@ -551,8 +589,38 @@ class LLMEngine:
         with self._agg_lock:
             self.decode_tokens += delivered_total
             self.decode_seconds += dt
-        # (The llm.decode_chunk spans and the token/TTFT metrics of the JAX
-        # engine's _observe come with the tracing and metrics slices.)
+        # Emitted OUTSIDE _state_lock: a span sink may take its own locks.
+        for ctx, slot, ntok in chunk_spans:
+            attrs = {"slot": slot, "tokens": ntok, "batch": batch_size}
+            extra_attrs = self._chunk_span_attrs(slot)
+            if extra_attrs:
+                attrs.update(extra_attrs)
+                # Propose + verify run fused in the one spec call, so the
+                # spec span's duration IS the step's device time; the attrs
+                # carry the per-slot proposed/accepted split.
+                tracing.emit("llm.spec", ctx, duration=dt, end_time=None,
+                             attrs={"slot": slot, **extra_attrs})
+            tracing.emit("llm.decode_chunk", ctx, duration=dt, end_time=None,
+                         attrs=attrs)
+        self._observe(delivered_total, ttfts)
+
+    def _observe(self, delivered: int, ttfts: List[tuple]) -> None:
+        """The step's serve metrics: tokens delivered, and each first
+        token's TTFT split by phase."""
+        if not metrics_export.metrics_enabled():
+            return
+        tags = {"deployment": self.name}
+        if delivered:
+            metrics_export.serve_tokens_total().inc(delivered, tags)
+        hist = metrics_export.serve_ttft_hist()
+        for total, queued, prefill in ttfts:
+            # Phase split: queued (submit→admission), prefill (the prefill
+            # dispatch), decode (the remainder — first chunk + distribution).
+            hist.observe(total, {**tags, "phase": "total"})
+            hist.observe(queued, {**tags, "phase": "queued"})
+            hist.observe(prefill, {**tags, "phase": "prefill"})
+            hist.observe(max(0.0, total - queued - prefill),
+                         {**tags, "phase": "decode"})
 
     # -- introspection --------------------------------------------------------
     def stats(self) -> Dict[str, float]:
@@ -722,13 +790,13 @@ class PagedLLMEngine(LLMEngine):
         self._slot_table = np.zeros((self.slots, self.blocks_per_seq),
                                     np.int32)
         self._slot_blocks: List[List[int]] = [[] for _ in range(self.slots)]
+        self._hit_pending = 0  # hit tokens awaiting metric flush (step thread)
         self._init_spec_state()
 
     def _init_spec_state(self) -> None:
         # Speculative-decoding host state, all [S] and owned by the step
         # thread, except the per-slot resets at admission and release (under
-        # _state_lock, which the step thread also holds there). The *_pending
-        # counters of the metrics exporter come with the metrics item.
+        # _state_lock, which the step thread also holds there).
         if not self._spec:
             return
         self._kd_pool, self._vd_pool = self._pg.init_draft_state()
@@ -738,6 +806,11 @@ class PagedLLMEngine(LLMEngine):
         self._spec_ewma = np.ones(self.slots, np.float32)
         self._spec_on = np.zeros(self.slots, bool)
         self._last_counts = None        # last spec step's [S, chunk] advances
+        self._spec_last_accept = np.zeros(self.slots, np.int64)
+        self._spec_last_on = np.zeros(self.slots, bool)
+        self._spec_last_dt = 0.0
+        self._spec_proposed_pending = 0  # await metric flush (step thread)
+        self._spec_accepted_pending = 0
         self._spec_proposed_total = 0
         self._spec_accepted_total = 0
 
@@ -809,11 +882,16 @@ class PagedLLMEngine(LLMEngine):
         return self.buckets[-1]
 
     def _admission_cost(self, req: _Request) -> int:
+        if req.preloaded is not None:
+            return 0  # prefill already paid on the prefill-side engine
         hit = self.kv.peek_hit_len([int(t) for t in req.prompt])
         return self._suffix_bucket(max(1, req.real_len - hit))
 
     def _dispatch_prefill(self, req: _Request, slot: int) -> None:
         bt = self.block_tokens
+        if req.preloaded is not None:
+            self._attach_preloaded(req, slot)
+            return
         tokens = [int(t) for t in req.prompt]
         full, tail, hit_len = self.kv.lookup(tokens)
         try:
@@ -879,6 +957,7 @@ class PagedLLMEngine(LLMEngine):
             self._slot_blocks[slot] = ids
             if n_full_prompt:
                 self.kv.register_chain(tokens, ids, n_full_prompt)
+            self._hit_pending += hit_len
             if self._spec:
                 # Fresh speculation state: the draft chain's first forward
                 # re-consumes the last prompt token at real_len - 1, so the
@@ -889,6 +968,38 @@ class PagedLLMEngine(LLMEngine):
                 self._spec_use_pending[slot] = False
                 self._spec_ewma[slot] = 1.0
                 self._spec_on[slot] = True
+
+    def _attach_preloaded(self, req: _Request, slot: int) -> None:
+        """Disaggregation handoff: the prompt's K/V blocks were already
+        written into the pool by ``admit_prefilled`` — attach the table row
+        and seed the slot's logits row and generator from the handed-off
+        state."""
+        ids = list(req.blocks)
+        row = np.zeros(self.blocks_per_seq, np.int32)
+        row[:len(ids)] = ids
+        sl = self._pg.set_last_fn()
+        self._last, self._gens = sl(self._last, self._gens,
+                                    np.asarray(req.preloaded, np.float32),
+                                    slot, req.seed)
+        # Same atomic commit as _dispatch_prefill: a cancel that freed the
+        # slot mid-attach found _slot_blocks[slot] empty (and, with req.slot
+        # set, never took the _discard_request_locked path), so the handoff
+        # pins are ours to drop here.
+        with self._state_lock:
+            req.blocks = []
+            if self._slot_req[slot] is not req or req.cancelled:
+                self.kv.release(ids)
+                return
+            self._slot_table[slot, :] = row
+            self._slot_blocks[slot] = ids
+            self._hit_pending += req.hit_tokens
+            if self._spec:
+                # Handed-off blocks carry no draft-side KV — the draft never
+                # saw this prompt. Speculation stays off for the request;
+                # the slot decodes one token a step.
+                self._spec_on[slot] = False
+                self._spec_ewma[slot] = 0.0
+                self._spec_use_pending[slot] = False
 
     def _decode_operands_locked(self):
         base = (self._slot_table.copy(),
@@ -926,9 +1037,12 @@ class PagedLLMEngine(LLMEngine):
             # force-reject everything. (A just-demoted slot runs one more
             # spec step, which consumes its pending token.)
             self._last_counts = None
+            self._spec_last_accept[:] = 0
+            self._spec_last_on[:] = False
             return self._run_plain_decode(active, greedy, temps, tables,
                                           lengths)
         sf = self._pg.spec_decode_fn(self.chunk, self.spec_k)
+        t0 = time.perf_counter()
         (toks, counts, accepted, self._k_pool, self._v_pool, self._kd_pool,
          self._vd_pool, self._last, self._gens, tail_t, pending_t,
          up_t) = sf(
@@ -944,6 +1058,7 @@ class PagedLLMEngine(LLMEngine):
         host = torch.cat([counts, accepted, tail_t[:, None],
                           pending_t[:, None],
                           up_t[:, None].to(torch.int32)], dim=1).cpu().numpy()
+        self._spec_last_dt = time.perf_counter() - t0
         self._last_counts = host[:, :c]
         acc = host[:, c:2 * c].sum(axis=1)
         self._spec_tail = host[:, 2 * c].copy()
@@ -952,6 +1067,8 @@ class PagedLLMEngine(LLMEngine):
         # The acceptance EWMA feeds the next step's gate: a slot whose EWMA
         # sinks below the floor stops proposing for the rest of its request
         # (its draft passes would cost more than its accepted tokens buy).
+        self._spec_last_accept = acc
+        self._spec_last_on = spec_on
         prop = np.where(spec_on, self.chunk * self.spec_k, 0)
         live = prop > 0
         if live.any():
@@ -959,6 +1076,8 @@ class PagedLLMEngine(LLMEngine):
             self._spec_ewma[live] = ((1.0 - a) * self._spec_ewma[live]
                                      + a * acc[live] / prop[live])
             self._spec_on[live] = self._spec_ewma[live] >= self._spec_floor
+        self._spec_proposed_pending += int(prop.sum())
+        self._spec_accepted_pending += int(acc.sum())
         self._spec_proposed_total += int(prop.sum())
         self._spec_accepted_total += int(acc.sum())
         return toks
@@ -973,8 +1092,12 @@ class PagedLLMEngine(LLMEngine):
             out.extend(int(x) for x in toks[t, :counts[t]])
         return out, int(counts.sum())
 
-    # (_chunk_span_attrs, the spec proposed/accepted counts of a request's
-    # llm.decode_chunk span, comes with the tracing item.)
+    def _chunk_span_attrs(self, slot: int) -> Optional[Dict]:
+        if (not self._spec or self._last_counts is None
+                or not self._spec_last_on[slot]):
+            return None
+        return {"spec_proposed": self.chunk * self.spec_k,
+                "spec_accepted": int(self._spec_last_accept[slot])}
 
     def _release_slot_device(self, slot: int) -> None:
         ids = self._slot_blocks[slot]
@@ -998,6 +1121,132 @@ class PagedLLMEngine(LLMEngine):
         n_real = min(len(chain), len(ids) * self.block_tokens)
         self.kv.register_chain(chain, ids, n_real)
 
+    def _discard_request_locked(self, req: _Request) -> None:
+        ids, req.blocks = req.blocks, []
+        if ids:
+            self.kv.release(ids)
+
+    # -- disaggregation halves ------------------------------------------------
+    def prefill_to_blocks(self, prompt_ids: Sequence[int], *, seed: int = 0):
+        """Prefill-side half of disaggregated serving: run (suffix-)prefill
+        for ``prompt_ids`` into pool blocks and return them for the handoff
+        lane — ``(k [L,nb,bt,H,Dh], v, last_row [V], hit_tokens)``. ``k``
+        and ``v`` are new tensors on the engine's device (the lane copies
+        them to the host, straight into its slot); ``last_row`` is a host
+        f32 array.
+
+        The chain (full blocks AND partial tail — nothing will extend these
+        blocks here) is registered in the LOCAL prefix cache before the pins
+        drop, so a same-prefix prompt later only prefills its suffix even
+        on the prefill side. Uses slot 0 under the step lock; a prefill
+        engine serves no decode traffic, so the slot is exclusive. The
+        prefill seeds the slot's generator and draws nothing from it.
+        """
+        prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
+        real_len = int(prompt.shape[0])
+        if real_len == 0:
+            raise ValueError("empty prompt")
+        bt = self.block_tokens
+        tokens = [int(t) for t in prompt]
+        with self._step_lock:
+            full, tail, hit_len = self.kv.lookup(tokens)
+            try:
+                need = -(-real_len // bt)
+                fresh = self.kv.alloc(need - len(full))
+            except NoFreeBlocks:
+                self.kv.release(full + ([tail] if tail is not None else []))
+                raise
+            ids = list(full)
+            if tail is not None:
+                dst = fresh.pop(0)
+                cf = self._pg.copy_fn()
+                self._k_pool, self._v_pool = cf(self._k_pool, self._v_pool,
+                                                int(tail), int(dst))
+                self.kv.note_cow()
+                self.kv.release([tail])
+                ids.append(dst)
+            ids.extend(fresh)
+            row = np.zeros(self.blocks_per_seq, np.int32)
+            row[:len(ids)] = ids
+            suffix_len = real_len - hit_len
+            bucket = self._suffix_bucket(suffix_len)
+            padded = np.zeros((1, bucket), np.int32)
+            padded[0, :suffix_len] = prompt[hit_len:]
+            pf = self._pg.prefill_fn(bucket)
+            (self._k_pool, self._v_pool, self._last, self._gens) = pf(
+                self.params, self._k_pool, self._v_pool, self._last,
+                self._gens, row, padded, hit_len, suffix_len, 0, seed)
+            ef = self._pg.extract_fn(len(ids))
+            k, v = ef(self._k_pool, self._v_pool, np.asarray(ids, np.int32))
+            last_row = self._last[0].cpu().numpy()
+            self.kv.register_chain(tokens, ids, real_len)
+            self.kv.release(ids)
+        return k, v, last_row, hit_len
+
+    def admit_prefilled(self, prompt_ids: Sequence[int],
+                        k: torch.Tensor, v: torch.Tensor,
+                        last_row: np.ndarray, *, max_new_tokens: int = 32,
+                        temperature: float = 0.0, seed: int = 0,
+                        hit_tokens: int = 0,
+                        submitted_at: Optional[float] = None,
+                        trace_ctx=None, timeout_s: float = 30.0) -> _Request:
+        """Decode-side half of disaggregated serving: write handed-off KV
+        blocks into the pool and enqueue a decode-only request (admission
+        attaches the table row instead of prefilling). Blocks — briefly —
+        until the pool can supply the sequence's block budget.
+
+        The upload is synchronous: the device is synchronised after the
+        insert, so on return the caller may release the shm views ``k``/
+        ``v`` point into.
+        """
+        prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
+        real_len = int(prompt.shape[0])
+        if real_len == 0:
+            raise ValueError("empty prompt")
+        bucket = self._bucket_for(real_len)  # validates decode headroom
+        req = _Request(prompt, None, real_len, bucket, int(max_new_tokens),
+                       float(temperature), int(seed),
+                       threading.Condition(self._state_lock))
+        req.trace_ctx = trace_ctx
+        if submitted_at is not None:
+            req.submitted_at = submitted_at
+        if max_new_tokens <= 0:
+            req.done = True
+            req.finish_reason = "stop"
+            return req
+        nb_in = int(k.shape[1])
+        n_chunks = -(-req.max_new // self.chunk)
+        max_written = min(self.max_len, real_len + n_chunks * self.chunk)
+        need = max(-(-max_written // self.block_tokens), nb_in)
+        deadline = time.monotonic() + timeout_s
+        while True:
+            try:
+                ids = self.kv.alloc(need)
+                break
+            except NoFreeBlocks:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.002)  # in-flight retires free blocks
+        with self._step_lock:
+            inf = self._pg.insert_fn(nb_in)
+            self._k_pool, self._v_pool = inf(
+                self._k_pool, self._v_pool, k, v,
+                np.asarray(ids[:nb_in], np.int32))
+            # The upload must have landed before the lane slot is acked.
+            _synchronize(self.device)
+        # Publish the prompt's full blocks for LOCAL hits too — a colocated
+        # follow-up skips the handoff entirely.
+        tokens = [int(t) for t in prompt]
+        n_full = (real_len // self.block_tokens) * self.block_tokens
+        if n_full:
+            self.kv.register_chain(tokens, ids, n_full)
+        req.blocks = ids
+        req.preloaded = np.array(last_row, np.float32)  # a writable copy
+        req.hit_tokens = int(hit_tokens)
+        with self._state_lock:
+            self._waiting.append(req)
+        return req
+
     # -- introspection --------------------------------------------------------
     def stats(self) -> Dict[str, float]:
         """Slot occupancy, queue depth, pool state and prefix-cache counters;
@@ -1018,6 +1267,41 @@ class PagedLLMEngine(LLMEngine):
             out["spec_accepted_total"] = float(acc)
             out["spec_accept_ratio"] = float(acc) / prop if prop else 0.0
         return out
+
+    def _observe(self, delivered: int, ttfts: List[tuple]) -> None:
+        super()._observe(delivered, ttfts)
+        hits, self._hit_pending = self._hit_pending, 0
+        if not metrics_export.metrics_enabled():
+            if self._spec:
+                self._spec_proposed_pending = 0
+                self._spec_accepted_pending = 0
+            return
+        tags = {"deployment": self.name}
+        if hits:
+            metrics_export.serve_kv_hit_tokens_total().inc(hits, tags)
+        st = self.kv.stats()
+        gauge = metrics_export.serve_kv_block_occupancy()
+        for state in ("active", "cached", "free"):
+            gauge.set(st[f"kv_blocks_{state}"], {**tags, "state": state})
+        if self._spec:
+            prop, self._spec_proposed_pending = self._spec_proposed_pending, 0
+            acc, self._spec_accepted_pending = self._spec_accepted_pending, 0
+            if prop:
+                metrics_export.serve_spec_proposed_total().inc(prop, tags)
+            if acc:
+                metrics_export.serve_spec_accepted_total().inc(acc, tags)
+            tot_prop = self._spec_proposed_total
+            if tot_prop:
+                metrics_export.serve_spec_accept_ratio().set(
+                    self._spec_accepted_total / tot_prop, tags)
+            # The spec call IS the first decode chunk for a first token
+            # delivered this step — its propose+verify time is a TTFT phase
+            # of its own next to queued/prefill/decode.
+            if ttfts and self._last_counts is not None:
+                hist = metrics_export.serve_ttft_hist()
+                for _ in ttfts:
+                    hist.observe(self._spec_last_dt,
+                                 {**tags, "phase": "spec"})
 
     def close(self) -> None:
         """Release what the engine holds outside itself: nothing without the
@@ -1052,3 +1336,355 @@ class PagedLLMEngine(LLMEngine):
                           greedy, temps)[1:]
 
         return prefill, decode
+
+
+def lane_capacity(config: TransformerConfig, block_tokens: int,
+                  blocks_per_seq: int, logits_dim: int) -> int:
+    """Bytes one handoff lane slot holds: the K and V of a whole sequence's
+    blocks, the f32 last-token logits row and 64 KiB for the rest of the
+    meta (JAX's formula)."""
+    c = config
+    block_bytes = (c.n_layers * block_tokens * c.n_heads * c.head_dim
+                   * c.dtype.itemsize)
+    return 2 * blocks_per_seq * block_bytes + logits_dim * 4 + 65536
+
+
+class _DisaggTicket:
+    """One request's place in the disaggregated pipeline: queued → prefill
+    → lane → decode-engine ``_Request``. Resolution (req or error) is
+    signalled through the engine's condition variable."""
+
+    __slots__ = ("prompt", "max_new", "temperature", "seed", "req", "error",
+                 "resolved", "cancelled", "trace_ctx", "submitted_at")
+
+    def __init__(self, prompt, max_new, temperature, seed):
+        self.prompt = prompt
+        self.max_new = max_new
+        self.temperature = temperature
+        self.seed = seed
+        self.req: Optional[_Request] = None
+        self.error: Optional[BaseException] = None
+        self.resolved = False
+        self.cancelled = False
+        self.submitted_at = time.perf_counter()
+        self.trace_ctx = (tracing.current_context()
+                          if tracing.is_sampled() else None)
+
+
+class DisaggregatedLLMEngine:
+    """Prefill/decode disaggregation: a prefill-specialized
+    :class:`PagedLLMEngine` feeding a decode-specialized one over a
+    :class:`~ray_tpu_torch.serve.dag_pipeline.KVHandoffLane`.
+
+    Mixed prefill+decode in one engine serializes heterogeneous work — a
+    long prompt's prefill stalls every in-flight decode chunk behind it.
+    Here decode NEVER runs a prompt prefill: a prefill worker thread turns
+    prompts into KV blocks (with its own prefix cache, so shared prefixes
+    cost their FLOPs once), ships them over the lane's deferred-ack shm
+    ring, and an ingest worker thread writes them into the decode pool
+    (``insert_fn``, in place) and enqueues a decode-only request.
+    Streaming contract, shedding, and stats match :class:`LLMEngine`;
+    ``close()`` joins the workers and destroys the lane.
+
+    Both halves share this object and ``device`` (the card unless
+    ``device="cpu"``). The workers and the request threads that drive the
+    decode steps all launch on the device's default stream, so their
+    kernels run in stream order: the split paged-attention kernel's
+    arrival counters are shared per device and need that order.
+    """
+
+    def __init__(self, params, config: TransformerConfig, *,
+                 device: Optional[Union[str, torch.device]] = None,
+                 max_len: Optional[int] = None,
+                 prompt_buckets: Optional[Sequence[int]] = None,
+                 chunk: int = 8, slots: Optional[int] = None,
+                 max_queue: Optional[int] = None, name: str = "LLM",
+                 prefill_slots: int = 1,
+                 block_tokens: Optional[int] = None,
+                 pool_blocks: Optional[int] = None,
+                 lane_slots: int = 4):
+        from ray_tpu_torch.serve.dag_pipeline import KVHandoffLane
+
+        knobs = _get_config()
+        self.name = name
+        self.chunk = chunk
+        self.max_queue = int(max_queue if max_queue is not None
+                             else knobs.serve_admission_queue_limit)
+        # spec_tokens=0: disaggregated decode admits via KV handoff, where
+        # draft-side KV never exists — speculation is a colocated-engine
+        # feature.
+        self.decode = PagedLLMEngine(
+            params, config, device=device, max_len=max_len,
+            prompt_buckets=prompt_buckets, chunk=chunk, slots=slots,
+            max_queue=0, name=name, block_tokens=block_tokens,
+            pool_blocks=pool_blocks, spec_tokens=0)
+        self.device = self.decode.device
+        self.prefill = PagedLLMEngine(
+            params, config, device=self.device, max_len=max_len,
+            prompt_buckets=prompt_buckets, chunk=chunk,
+            slots=max(1, prefill_slots), max_queue=0,
+            name=f"{name}-prefill", block_tokens=block_tokens,
+            pool_blocks=pool_blocks, spec_tokens=0)
+        self.slots = self.decode.slots
+        self.finish_reason = "stop"  # single-stream convenience, as LLMEngine
+
+        cap = lane_capacity(config, self.decode.block_tokens,
+                            self.decode.blocks_per_seq,
+                            self.decode._pg.logits_dim)
+        self.lane = KVHandoffLane(capacity=cap, slots=max(2, lane_slots))
+
+        self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
+        self._pq: collections.deque = collections.deque()
+        self._lane_fifo: collections.deque = collections.deque()
+        self._closed = False
+        self._prefill_thread = threading.Thread(
+            target=self._prefill_loop, name=f"{name}-disagg-prefill",
+            daemon=True)
+        self._ingest_thread = threading.Thread(
+            target=self._ingest_loop, name=f"{name}-disagg-ingest",
+            daemon=True)
+        self._prefill_thread.start()
+        self._ingest_thread.start()
+
+    # -- pipeline workers -----------------------------------------------------
+    def _prefill_loop(self) -> None:
+        from ray_tpu_torch.dag.channel import ChannelTimeout
+
+        while True:
+            with self._cv:
+                while not self._pq and not self._closed:
+                    self._cv.wait(timeout=0.1)
+                if self._closed:
+                    return
+                t = self._pq.popleft()
+            if t.cancelled:
+                self._resolve(t, error=None)
+                continue
+            try:
+                k, v, last_row, hit = self.prefill.prefill_to_blocks(
+                    t.prompt, seed=t.seed)
+                meta = {"prompt": t.prompt, "max_new": t.max_new,
+                        "temperature": t.temperature, "seed": t.seed,
+                        "hit_tokens": hit, "last_row": last_row,
+                        "submitted_at": t.submitted_at}
+                with self._cv:
+                    self._lane_fifo.append(t)
+                while True:
+                    try:
+                        self.lane.send(meta, k, v, timeout=1.0)
+                        break
+                    except ChannelTimeout:  # decode side slow to drain
+                        if self._closed:
+                            with self._cv:
+                                try:
+                                    self._lane_fifo.remove(t)
+                                except ValueError:
+                                    pass
+                            self._resolve(
+                                t, error=RuntimeError("engine closed"))
+                            break
+            except BaseException as e:  # noqa: BLE001 — poison one request
+                # The ticket may already sit in _lane_fifo (send can fail
+                # AFTER the append — channel fault, oversized payload);
+                # leaving it there would pair every later handoff with the
+                # wrong ticket. Unqueue before resolving.
+                with self._cv:
+                    try:
+                        self._lane_fifo.remove(t)
+                    except ValueError:
+                        pass
+                self._resolve(t, error=e)
+
+    def _ingest_loop(self) -> None:
+        from ray_tpu_torch.dag.channel import ChannelClosed, ChannelTimeout
+
+        while True:
+            try:
+                meta, k, v, token = self.lane.recv(timeout=0.25)
+            except ChannelTimeout:
+                if self._closed:
+                    return
+                continue
+            except ChannelClosed:
+                return
+            with self._cv:
+                t = self._lane_fifo.popleft() if self._lane_fifo else None
+            if t is None:
+                # Payload with no waiting ticket (its prefill thread
+                # unqueued itself on a send-path error) — drop it and
+                # return the ring slot.
+                del k, v
+                self.lane.ack(token)
+                continue
+            try:
+                req = self.decode.admit_prefilled(
+                    meta["prompt"], k, v, meta["last_row"],
+                    max_new_tokens=meta["max_new"],
+                    temperature=meta["temperature"], seed=meta["seed"],
+                    hit_tokens=meta["hit_tokens"],
+                    submitted_at=meta["submitted_at"],
+                    trace_ctx=t.trace_ctx)
+            except BaseException as e:  # noqa: BLE001 — poison one request
+                del k, v
+                self.lane.ack(token)
+                self._resolve(t, error=e)
+                continue
+            # The upload landed (admit_prefilled synchronises) — release the
+            # ring slot back to the prefill writer. THE deferred-ack handoff.
+            del k, v
+            self.lane.ack(token)
+            self._resolve(t, req=req)
+
+    def _resolve(self, t: _DisaggTicket, req: Optional[_Request] = None,
+                 error: Optional[BaseException] = None) -> None:
+        with self._cv:
+            t.req = req
+            t.error = error
+            t.resolved = True
+            cancelled = t.cancelled
+            self._cv.notify_all()
+        if cancelled and req is not None:
+            self.decode._cancel(req)
+
+    # -- request surface (LLMEngine contract) ---------------------------------
+    def submit(self, prompt_ids: Sequence[int], *, max_new_tokens: int = 32,
+               temperature: float = 0.0, seed: int = 0) -> _DisaggTicket:
+        prompt = np.asarray(prompt_ids, np.int64).reshape(-1)
+        if prompt.shape[0] == 0:
+            raise ValueError("empty prompt")
+        _check_token_ids(prompt, self.decode.config.vocab_size, self.name)
+        prompt = prompt.astype(np.int32)
+        self.decode._bucket_for(int(prompt.shape[0]))  # validate headroom
+        t = _DisaggTicket(prompt, int(max_new_tokens), float(temperature),
+                          int(seed))
+        if max_new_tokens <= 0:
+            t.resolved = True
+            return t
+        with self._cv:
+            if self._closed:
+                raise RuntimeError(f"engine {self.name} closed")
+            if self.max_queue and len(self._pq) >= self.max_queue:
+                raise _shed(self.name, len(self._pq), self.max_queue,
+                            "already waiting for prefill")
+            self._pq.append(t)
+            self._cv.notify_all()
+        return t
+
+    def stream(self, prompt_ids: Sequence[int], *, max_new_tokens: int = 32,
+               temperature: float = 0.0, seed: int = 0,
+               result: Optional[Dict] = None) -> Iterable[int]:
+        if result is None:
+            result = {}
+        t = self.submit(prompt_ids, max_new_tokens=max_new_tokens,
+                        temperature=temperature, seed=seed)
+
+        def run():
+            raised = None
+            try:
+                with self._cv:
+                    deadline = time.monotonic() + 120.0
+                    while not t.resolved:
+                        # _cv wraps self._lock; wait() releases it.
+                        if not self._cv.wait(timeout=0.2) \
+                                and time.monotonic() > deadline:
+                            raise TimeoutError(
+                                "disaggregated prefill stalled")
+                if t.error is not None:
+                    raise t.error
+                if t.req is None:
+                    return
+                for tok in self.decode.drive(t.req):
+                    result["decode_tps"] = t.req.decode_tps()
+                    yield tok
+            except BaseException as e:
+                raised = e
+                raise
+            finally:
+                if t.req is not None:
+                    fr = t.req.finish_reason or "stop"
+                elif t.error is not None or raised is not None:
+                    # The prefill-stall TimeoutError resolves nothing on the
+                    # ticket — without tracking the raise this path would
+                    # claim a clean "stop" for a generator that blew up.
+                    fr = "error"
+                elif t.cancelled:
+                    fr = "cancelled"
+                else:
+                    fr = "stop"
+                result["finish_reason"] = self.finish_reason = fr
+                if t.req is not None and t.req.ttft_s is not None:
+                    result["ttft_s"] = t.req.ttft_s
+
+        gen = run()
+        weakref.finalize(gen, self._cancel_ticket, t)
+        return gen
+
+    def generate(self, prompt_ids: Sequence[int], **kw) -> List[int]:
+        return list(self.stream(prompt_ids, **kw))
+
+    def _cancel_ticket(self, t: _DisaggTicket) -> None:
+        req = None
+        with self._cv:
+            t.cancelled = True
+            try:
+                self._pq.remove(t)
+                t.resolved = True  # never entered the pipeline
+            except ValueError:
+                req = t.req  # mid-pipeline (worker resolves) or decoding
+            self._cv.notify_all()
+        if req is not None:
+            self.decode._cancel(req)
+
+    # -- engine surface delegates ---------------------------------------------
+    def warmup(self) -> None:
+        self.prefill.warmup()
+        self.decode.warmup()
+
+    def stats(self) -> Dict[str, float]:
+        out = self.decode.stats()
+        with self._cv:
+            out["queue_depth"] += float(len(self._pq)
+                                        + len(self._lane_fifo))
+        pf = self.prefill.kv.stats()
+        out["prefill_kv_hit_tokens"] = pf["kv_hit_tokens"]
+        out["prefill_kv_blocks_cached"] = pf["kv_blocks_cached"]
+        return out
+
+    def decode_tokens_per_sec(self) -> float:
+        return self.decode.decode_tokens_per_sec()
+
+    def device_metrics(self, **kw) -> Dict:
+        return self.decode.device_metrics(**kw)
+
+    def close(self) -> None:
+        """Stop the pipeline workers, poison-pill the lane, destroy it.
+        Pending tickets resolve as errors. Idempotent."""
+        with self._cv:
+            if self._closed:
+                return
+            self._closed = True
+            leftovers = list(self._pq)
+            self._pq.clear()
+            self._cv.notify_all()
+        for t in leftovers:
+            self._resolve(t, error=RuntimeError(f"engine {self.name} closed"))
+        self._prefill_thread.join(timeout=5.0)
+        self.lane.close()  # pill — wakes the ingest loop
+        self._ingest_thread.join(timeout=5.0)
+        if self._ingest_thread.is_alive():
+            # It can be parked in admit_prefilled's alloc retry (bounded by
+            # its timeout_s=30) while holding zero-copy views into the ring
+            # — wait that bound out before touching the mapping.
+            self._ingest_thread.join(timeout=35.0)
+        with self._cv:
+            stranded = list(self._lane_fifo)
+            self._lane_fifo.clear()
+        for t in stranded:
+            self._resolve(t, error=RuntimeError(f"engine {self.name} closed"))
+        if self._ingest_thread.is_alive():
+            # Still wedged: destroy() would unmap shm under the thread's
+            # live views — leak the lane instead and let channel teardown
+            # reclaim it when the views drop.
+            return
+        self.lane.destroy()

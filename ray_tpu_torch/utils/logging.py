@@ -15,6 +15,17 @@ _FORMAT = "%(asctime)s %(levelname).1s %(process)d %(name)s] %(message)s"
 _configured = False
 
 
+def log_swallowed(logger: logging.Logger, context: str) -> None:
+    """Record an intentionally swallowed exception instead of ``pass``: the
+    traceback stays one ``RAY_TPU_LOG_LEVEL=DEBUG`` away. Call from inside
+    the ``except`` block; never raises, not even during interpreter
+    teardown."""
+    try:
+        logger.debug("swallowed exception in %s", context, exc_info=True)
+    except Exception:  # noqa: BLE001 — the helper itself must not raise
+        pass
+
+
 def get_logger(component: str) -> logging.Logger:
     global _configured
     if not _configured:

@@ -82,6 +82,10 @@ def test_serving_imports_with_jax_blocked():
         "import ray_tpu_torch.ops.paged_attention\n"
         "import ray_tpu_torch.ops.flash_attention\n"
         "import ray_tpu_torch.models.transformer, ray_tpu_torch.models.training\n"
+        "import ray_tpu_torch.serve.dag_pipeline, ray_tpu_torch.dag.channel\n"
+        "import ray_tpu_torch.util.tracing, ray_tpu_torch.util.flightrec\n"
+        "import ray_tpu_torch.core.metrics_export\n"
+        "import ray_tpu_torch.core.serialization\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ray_tpu')]\n"
         "assert not bad, bad\n"

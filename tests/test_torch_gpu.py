@@ -475,3 +475,116 @@ def test_matmul_f32_runs_bf16_with_f32_output(cuda):
                                rtol=1e-2)
     torch.testing.assert_close(wg.grad.float(), wr.grad, atol=1e-2,
                                rtol=1e-2)
+
+
+# -- prefill/decode disaggregation on the card -----------------------------------
+DISAGG_KW = dict(prompt_buckets=(16, 32, 64), chunk=4, slots=2, max_queue=0,
+                 block_tokens=16, pool_blocks=40)
+
+
+def _disagg_model(dtype=torch.float32):
+    cfg = transformer.tiny(d_model=128, n_heads=2, max_seq_len=128,
+                           dtype=dtype)
+    return cfg, transformer.init_params(cfg, 3, device="cuda")
+
+
+@pytest.mark.gpu
+def test_handoff_round_trip_bit_exact_in_bf16(cuda):
+    """bf16 blocks gathered from one pool on the card, sent through the
+    lane (device to host straight into the slot), received as views of the
+    slot and written into another pool: bit for bit, and the write lands in
+    the pool tensors themselves."""
+    from ray_tpu_torch.models.generate import PagedGenerator
+    from ray_tpu_torch.serve.dag_pipeline import KVHandoffLane
+
+    cfg, params = _disagg_model(torch.bfloat16)
+    pg = PagedGenerator(params, cfg, slots=2, num_blocks=24, block_tokens=16,
+                        device="cuda")
+    src_k, src_v, _, _ = pg.init_state()
+    dst_k, dst_v, _, _ = pg.init_state()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    src_k.copy_(torch.randn(src_k.shape, generator=g, device="cuda"))
+    src_v.copy_(torch.randn(src_v.shape, generator=g, device="cuda"))
+    ids = np.array([3, 17, 9, 1], np.int32)
+    k, v = pg.extract_fn(4)(src_k, src_v, ids)
+    lane = KVHandoffLane(capacity=1 << 22, slots=2)
+    try:
+        lane.send({"n": 4}, k, v, timeout=5)
+        meta, rk, rv, token = lane.recv(timeout=5)
+        assert rk.device.type == "cpu" and rk.dtype == torch.bfloat16
+        out_k, out_v = pg.insert_fn(4)(dst_k, dst_v, rk, rv,
+                                       np.array([20, 2, 11, 5], np.int32))
+        torch.cuda.synchronize()
+        del rk, rv
+        lane.ack(token)
+    finally:
+        lane.destroy()
+    assert out_k is dst_k and out_v is dst_v
+    for s, d in zip(ids.tolist(), (20, 2, 11, 5)):
+        assert torch.equal(dst_k[:, d].view(torch.int16),
+                           src_k[:, s].view(torch.int16))
+        assert torch.equal(dst_v[:, d].view(torch.int16),
+                           src_v[:, s].view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_disaggregated_matches_colocated_on_the_kernel(cuda):
+    """At 2 layers in f32 the disaggregated engine's greedy streams equal
+    the colocated paged engine's on the kernel (decoding after the insert
+    reads the blocks the handoff wrote), and both workers launch on the
+    device's default stream."""
+    from ray_tpu_torch.serve.llm import DisaggregatedLLMEngine
+
+    cfg, params = _disagg_model()
+    colo = PagedLLMEngine(params, cfg, name="gpu-colo", **DISAGG_KW)
+    eng = DisaggregatedLLMEngine(params, cfg, name="gpu-disagg", **DISAGG_KW)
+    streams = {}
+
+    def on_stream(half, fn):
+        def wrapped(*a, **k):
+            dev = half.device
+            on_default = (torch.cuda.current_stream(dev)
+                          == torch.cuda.default_stream(dev))
+            streams.setdefault(fn.__name__, set()).add(on_default)
+            return fn(*a, **k)
+        return wrapped
+
+    eng.prefill.prefill_to_blocks = on_stream(eng.prefill,
+                                              eng.prefill.prefill_to_blocks)
+    eng.decode.admit_prefilled = on_stream(eng.decode,
+                                           eng.decode.admit_prefilled)
+    try:
+        assert eng.device.type == "cuda"
+        assert eng.decode._pg.attention_kernel == "cuda"
+        before = pa.launches
+        for p in SPEC_PROMPTS:
+            assert eng.generate(p, max_new_tokens=20) == \
+                colo.generate(p, max_new_tokens=20)
+        assert pa.launches > before
+        assert eng.decode.kv.active_blocks() == 0
+        assert eng.prefill.kv.active_blocks() == 0
+    finally:
+        eng.close()
+    assert streams == {"prefill_to_blocks": {True},
+                       "admit_prefilled": {True}}
+
+
+@pytest.mark.gpu
+def test_disaggregated_refuses_a_lane_past_free_shm(cuda, monkeypatch):
+    """With too little /dev/shm for the lane, building the engine raises
+    ENOSPC naming the sizes, before any worker starts."""
+    import threading
+
+    from ray_tpu_torch.dag import channel
+    from ray_tpu_torch.serve.llm import DisaggregatedLLMEngine
+
+    class TinyShm:  # a 1 MiB filesystem with 64 KiB free
+        f_frsize, f_blocks, f_bavail = 4096, 256, 16
+
+    monkeypatch.setattr(channel.os, "statvfs", lambda path: TinyShm)
+    cfg, params = _disagg_model()
+    with pytest.raises(OSError, match="needs .* bytes of /dev/shm, which "
+                                      "has 65536 free of 1048576"):
+        DisaggregatedLLMEngine(params, cfg, name="gpu-noshm", **DISAGG_KW)
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("gpu-noshm-disagg")]

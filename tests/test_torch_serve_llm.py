@@ -192,7 +192,8 @@ def test_serve_knobs_match_the_jax_defaults(monkeypatch):
     port = config()
     names = [n for n, v in vars(Config).items()
              if type(v).__name__ == "_Flag"]
-    assert len(names) == 11
+    assert len(names) == 20   # 11 serve knobs, 9 of the transport and
+    #                           observability modules
     for n in names:
         assert getattr(port, n) == getattr(JaxConfig, n).default, n
     monkeypatch.setenv("RAY_TPU_SERVE_LLM_SLOTS", "3")

@@ -124,7 +124,7 @@ def test_loss_mask_and_unported_options():
                       {"tokens": torch.tensor(tokens),
                        "loss_mask": torch.tensor(mask)}, tcfg)
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         ttf.forward(_port_params(jparams), torch.tensor(tokens),
                     tcfg.replace(attn_impl="ring"))
     with pytest.raises(NotImplementedError, match="dots"):
