@@ -86,9 +86,32 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    paged-on-kernel and ``Generator`` greedy streams are equal, each
    disaggregated request's spans are one admission wait, one prefill and
    one decode chunk per step, and ``serve_tokens_total`` counts the tokens
-   delivered.
+   delivered;
+11. runtime — the in-process core runtime: ``ray_tpu_torch.init()`` with no
+   arguments must register the card (``GPU`` and a ``GPU-<model>`` marker,
+   no ``TPU``) and build its shared-memory arena; a ``num_gpus=1,
+   max_concurrency=8`` actor hosts phase 4's engine (``gpt2_small`` at full
+   width, bf16, the same seed) and answers phase 4's 8 requests as
+   streaming ``.remote()`` calls from concurrent threads, its threads the
+   engine's request threads: K4's launches, set to 0 just before and read
+   from the actor just after, must be n_layers x its prefills on the wgmma
+   route and n_layers x its decode steps on the split route; blocks drain;
+   decode tokens/s and TTFT beside phase 4's and the mean round trip of a
+   no-op actor method; ``serve_tokens_total``, shipped by the runtime's
+   exporter into its GCS aggregator, must equal the tokens delivered; a
+   second ``num_gpus=1`` actor must stay pending while the first holds the
+   card and come up after ``kill``, and at 2 layers in f32 its greedy
+   streams must equal a direct engine's on the kernel and ``Generator``'s;
+   ``num_gpus=2`` work must be infeasible; a ``num_gpus=1`` task returns
+   phase 10's 1024-token K/V gather (bf16, on the card) and ``get`` must
+   give the same bytes back as CPU tensors, through the arena, with
+   ``put``/``get`` timed beside a pinned ``copy_``; a placement group
+   ``[{GPU: 1, CPU: 1}]`` must become ready and host an engine actor; the
+   steady-state guard must record no violation in any warm step; after
+   ``shutdown()`` no actor or exporter thread and no arena of the process
+   is left.
 
-In phases 5, 8, 9 and 10 a greedy stream that departs from its reference must
+In phases 5, 8, 9, 10 and 11 a greedy stream that departs from its reference must
 do so at a near tie: the plain path's top-2 logit gap there under 1e-3.
 
 It prints the kernels line ``{"kernels": [...]}`` and, last, the line
@@ -1718,6 +1741,421 @@ def _disagg_identity(torch, np):
     return ties
 
 
+# -- phase 11 ----------------------------------------------------------------
+RUNTIME_NOOP_CALLS = 200              # round trips timed for the per-call cost
+RUNTIME_KV_TOKENS = 1024              # phase 10's handoff prompt: 64 blocks
+
+
+class _EngineActor:
+    """The paged engine hosted in an actor: built from ``cfg`` and a weight
+    seed on the card and warmed, answering ``.remote()`` calls from the
+    actor's threads (the engine's request threads)."""
+
+    def __init__(self, cfg, seed, name, **kw):
+        import torch
+        from ray_tpu_torch.models import transformer
+        from ray_tpu_torch.serve.llm import PagedLLMEngine
+
+        params = transformer.init_params(
+            cfg, torch.Generator().manual_seed(seed), device=DEVICE)
+        self.eng = PagedLLMEngine(params, cfg, device=DEVICE, name=name,
+                                  **kw)
+        self.eng.warmup()
+
+    def stream(self, prompt, max_new_tokens, temperature, seed):
+        """The request's tokens, then its result dict (TTFT, finish)."""
+        out = {}
+        yield from self.eng.stream(prompt, max_new_tokens=max_new_tokens,
+                                   temperature=temperature, seed=seed,
+                                   result=out)
+        yield out
+
+    def generate(self, prompt, max_new_tokens):
+        return self.eng.generate(prompt, max_new_tokens=max_new_tokens)
+
+    def generate_whole(self, prompt, max_new_tokens, temperature, seed):
+        """The request's tokens and result dict in one return."""
+        out = {}
+        toks = list(self.eng.stream(prompt, max_new_tokens=max_new_tokens,
+                                    temperature=temperature, seed=seed,
+                                    result=out))
+        return toks, out
+
+    def info(self):
+        from ray_tpu_torch.models import transformer
+
+        e = self.eng
+        return {"attention_kernel": e._pg.attention_kernel,
+                "device": str(e.device), "slots": e.slots, "chunk": e.chunk,
+                "pool_blocks": e.kv.num_blocks,
+                "params": transformer.param_count(e.params)}
+
+    def stats(self):
+        return self.eng.stats()
+
+    def launches(self):
+        """The kernels' launch counters as this actor reads them."""
+        return Counts().read()
+
+    def decode_counters(self):
+        return self.eng.decode_tokens, self.eng.decode_seconds
+
+    def active_blocks(self):
+        return self.eng.kv.active_blocks()
+
+    def noop(self):
+        return None
+
+
+class _ActorStreams:
+    """``eng.stream`` over an ``_EngineActor``: ``_serve`` drives it as it
+    drives an engine. Each call is one streaming ``.remote()`` whose tokens
+    come back through ``get`` as the actor yields them, or, with
+    ``whole=True``, one ``.remote()`` returning the request's tokens at
+    its end."""
+
+    def __init__(self, rt, actor, whole=False):
+        self.rt, self.actor, self.whole = rt, actor, whole
+        self.first_token_s = {}
+
+    def stream(self, prompt, *, max_new_tokens, temperature, seed, result):
+        t0 = time.perf_counter()
+        if self.whole:
+            toks, out = self.rt.get(self.actor.generate_whole.remote(
+                prompt, max_new_tokens, temperature, seed), timeout=600)
+            result.update(out)
+            self.first_token_s[id(result)] = time.perf_counter() - t0
+            yield from toks
+            return
+        gen = self.actor.stream.options(num_returns="streaming").remote(
+            prompt, max_new_tokens, temperature, seed)
+        for ref in gen:
+            item = self.rt.get(ref, timeout=600)
+            if isinstance(item, dict):
+                result.update(item)
+                continue
+            self.first_token_s.setdefault(id(result),
+                                          time.perf_counter() - t0)
+            yield item
+
+
+def _noop_round_trip_us(rt, actor):
+    """Mean µs of ``get(actor.noop.remote())``, one call at a time."""
+    rt.get(actor.noop.remote())
+    t0 = time.perf_counter()
+    for _ in range(RUNTIME_NOOP_CALLS):
+        rt.get(actor.noop.remote())
+    return 1e6 * (time.perf_counter() - t0) / RUNTIME_NOOP_CALLS
+
+
+def _kv_gather(eng, prompt, keep):
+    """A task on the card: the prefill of ``prompt`` into ``eng``'s pool and
+    the gather of its blocks (phase 10's handoff gather), returned as two
+    bf16 tensors on the card. ``keep`` (an in-process argument, passed by
+    reference) holds the same tensors for the bit-for-bit check."""
+    k, v, _, _ = eng.prefill_to_blocks(prompt, seed=0)
+    keep["kv"] = (k, v)
+    return k, v
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def phase_runtime(torch, np, card, kind, count, counts, paged_summary):
+    """The in-process core runtime on the card: ``init()`` registers the
+    card; phase 4's engine and requests through a ``num_gpus=1`` actor;
+    a pending and an infeasible ``GPU`` request; the 2-layer f32 identity
+    through an actor; the K/V gather through a task and the object plane;
+    a placement group hosting an engine actor; the tokens counter through
+    the exporter; and nothing left after ``shutdown()``."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.accelerators import gpu_model
+    from ray_tpu_torch.core.runtime import get_runtime
+    from ray_tpu_torch.devtools import jitcheck
+    from ray_tpu_torch.models import transformer
+
+    pid = os.getpid()
+    rt.init()
+    res = rt.cluster_resources()
+    marker = f"GPU-{gpu_model(kind)}"
+    if (res.get("GPU") != float(count) or res.get(marker) != float(count)
+            or "TPU" in res or any(k.startswith("TPU") for k in res)):
+        fail(f"runtime: init() registered {res}, wanted GPU and {marker} "
+             f"at {count} and no TPU")
+    store = get_runtime().store
+    if store._native is None:
+        fail("runtime: the shared-memory arena did not build (g++)")
+    log(f"[runtime] init(): GPU {res['GPU']:.0f}, {marker} "
+        f"{res[marker]:.0f}, CPU {res['CPU']:.0f}; arena "
+        f"{store._native.name} ({store._native.capacity()} bytes)")
+    jitcheck.install()
+    jitcheck.clear_violations()
+    summary = {"resources": res}
+
+    # The engine actor on phase 4's requests.
+    cfg = transformer.gpt2_small()
+    name = "runtime-actor"
+    engine_actor = rt.remote(num_gpus=1, max_concurrency=8)(_EngineActor)
+    t0 = time.perf_counter()
+    a = engine_actor.remote(cfg, 0, name)
+    info = rt.get(a.info.remote(), timeout=600)
+    log(f"[runtime] engine actor (num_gpus=1, max_concurrency=8): "
+        f"gpt2_small ({info['params']} params, {cfg.dtype}) on "
+        f"{info['device']}, attention {info['attention_kernel']}; set-up + "
+        f"warmup {time.perf_counter() - t0:.1f} s")
+    if info["attention_kernel"] != "cuda":
+        fail(f"runtime: the actor's engine resolved attention to "
+             f"{info['attention_kernel']!r}")
+    if rt.available_resources().get("GPU", 0) != float(count) - 1:
+        fail(f"runtime: the engine actor does not hold its card: "
+             f"{rt.available_resources()}")
+    reqs = _requests(np)
+    proxy = _ActorStreams(rt, a)
+    st0 = rt.get(a.stats.remote())
+    dec0 = rt.get(a.decode_counters.remote())
+    counts.reset()
+    results, wall = _serve(torch, proxy, reqs, "runtime")
+    launches = rt.get(a.launches.remote())
+    st1 = rt.get(a.stats.remote())
+    dec1 = rt.get(a.decode_counters.remote())
+    _check_streams(reqs, results, cfg.vocab_size)
+    d_pref = int(st1["prefill_forwards"] - st0["prefill_forwards"])
+    d_dec = int(st1["decode_forwards"] - st0["decode_forwards"])
+    L = cfg.n_layers
+    want = {"wgmma": L * d_pref, "split": L * d_dec}
+    got = {r: launches[f"paged_attention/{r}"] for r in want}
+    if got != want or not all(got.values()):
+        fail(f"runtime: K4 launches by route {got}, wanted {want} = {L} "
+             f"layers x (prefills {d_pref}, decode steps {d_dec})")
+    pinned = rt.get(a.active_blocks.remote())
+    if pinned:
+        fail(f"runtime: {pinned} blocks still pinned after the run")
+    rate = (dec1[0] - dec0[0]) / (dec1[1] - dec0[1])
+    summary.update(_serve_summary(None, reqs, results, wall, rate=rate))
+    summary.update(prefill_forwards=d_pref, decode_forwards=d_dec,
+                   launches=got)
+    first = sorted(1e3 * v for v in proxy.first_token_s.values())
+    summary["client_first_token_ms_median"] = first[len(first) // 2]
+    summary["noop_round_trip_us"] = _noop_round_trip_us(rt, a)
+    log(f"[runtime] {len(reqs)} requests as streaming .remote() calls, "
+        f"{summary['tokens']} tokens in {wall:.2f} s: decode {rate:.1f} "
+        f"tokens/s (direct engine, phase 4: "
+        f"{paged_summary['decode_tokens_per_s']:.1f}), TTFT median "
+        f"{summary['ttft_ms_median']:.1f} ms (phase 4 "
+        f"{paged_summary['ttft_ms_median']:.1f}), max "
+        f"{summary['ttft_ms_max']:.1f} ms (phase 4 "
+        f"{paged_summary['ttft_ms_max']:.1f}); first token at the caller "
+        f"median {summary['client_first_token_ms_median']:.1f} ms; a no-op "
+        f"actor method's round trip {summary['noop_round_trip_us']:.1f} us "
+        f"(mean of {RUNTIME_NOOP_CALLS})  [{card}]")
+    log(f"[runtime] K4 wgmma {got['wgmma']} = {L} x {d_pref} prefills, "
+        f"split {got['split']} = {L} x {d_dec} decode steps (read from the "
+        f"actor); blocks pinned after: 0")
+    # The same requests again as whole-request calls (one .remote() and
+    # one get a request): what per-token streaming costs the engine.
+    whole_reqs = _requests(np)
+    results_w, wall_w = _serve(torch, _ActorStreams(rt, a, whole=True),
+                               whole_reqs, "runtime whole")
+    dec2 = rt.get(a.decode_counters.remote())
+    _check_streams(whole_reqs, results_w, cfg.vocab_size)
+    rate_w = (dec2[0] - dec1[0]) / (dec2[1] - dec1[1])
+    summary["whole_request"] = _serve_summary(None, whole_reqs, results_w,
+                                              wall_w, rate=rate_w)
+    log(f"[runtime] the same requests as whole-request calls: "
+        f"{summary['whole_request']['tokens']} tokens in {wall_w:.2f} s, "
+        f"decode {rate_w:.1f} tokens/s (streamed {rate:.1f})  [{card}]")
+
+    # The tokens counter, through the exporter into the GCS aggregator.
+    delivered = sum(len(res[r["name"]]["tokens"]) for res in
+                    (results, results_w) for r in reqs)
+    get_runtime()._metrics_exporter.flush()
+    counted = [float(ln.rsplit(" ", 1)[1])
+               for ln in get_runtime().gcs.metrics_text().splitlines()
+               if ln.startswith("ray_tpu_serve_tokens_total{")
+               and f'deployment="{name}"' in ln]
+    if counted != [delivered]:
+        fail(f"runtime: serve_tokens_total in the GCS aggregator "
+             f"{counted}, {delivered} tokens delivered")
+    log(f"[runtime] serve_tokens_total through the exporter into the GCS "
+        f"aggregator: {delivered:.0f} = tokens delivered")
+
+    # A second num_gpus=1 actor pends while the first holds the card, and
+    # runs after kill(); it carries the 2-layer f32 identity.
+    f32 = transformer.gpt2_small(n_layers=2, dtype=torch.float32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b = rt.remote(num_gpus=1)(_EngineActor).remote(f32, 13, "runtime-f32")
+    b_info = b.info.remote()
+    ready, _ = rt.wait([b_info], timeout=2.0)
+    state = get_runtime().gcs.get_actor(b.actor_id).state
+    if ready or state != "PENDING":
+        fail(f"runtime: a second num_gpus=1 actor ran while the first held "
+             f"the card (state {state})")
+    rt.kill(a)
+    rt.get(b_info, timeout=600)
+    log("[runtime] a second num_gpus=1 actor stayed PENDING while the "
+        "engine actor held the card and came up after kill()")
+    summary["noop_round_trip_us_one_thread"] = _noop_round_trip_us(rt, b)
+    log(f"[runtime] a no-op method's round trip on a one-thread actor "
+        f"{summary['noop_round_trip_us_one_thread']:.1f} us (eight "
+        f"threads: {summary['noop_round_trip_us']:.1f})  [{card}]")
+    summary["f32_identity"] = _runtime_identity(torch, np, rt, b, f32)
+    rt.kill(b)
+
+    for what in ("task", "actor"):
+        try:
+            if what == "task":
+                rt.get(rt.remote(num_gpus=2)(_median).remote([1]),
+                       timeout=60)
+            else:
+                c = rt.remote(num_gpus=2)(_EngineActor).remote(f32, 13, "x")
+                rt.get(c.noop.remote(), timeout=60)
+        except (RuntimeError, rt.ActorDiedError) as e:
+            if "no feasible node" not in str(e):
+                fail(f"runtime: num_gpus=2 {what} failed otherwise: {e}")
+        else:
+            fail(f"runtime: a num_gpus=2 {what} ran on {count} card(s)")
+    log("[runtime] num_gpus=2 task and actor: no feasible node")
+
+    summary["object_plane"] = _runtime_object_plane(torch, np, rt, card)
+
+    pg = rt.placement_group([{"GPU": 1, "CPU": 1}], strategy="STRICT_PACK")
+    if not pg.ready(timeout=60):
+        fail("runtime: the placement group {GPU: 1, CPU: 1} is not ready")
+    strategy = rt.PlacementGroupSchedulingStrategy(
+        placement_group=pg, placement_group_bundle_index=0)
+    c = rt.remote(num_gpus=1)(_EngineActor).options(
+        scheduling_strategy=strategy).remote(f32, 13, "runtime-pg")
+    prompt = summary["f32_identity"]["first_prompt"]
+    got_pg = rt.get(c.generate.remote(prompt, 24), timeout=600)
+    if got_pg != summary["f32_identity"]["first_want_actor"]:
+        fail("runtime: the engine actor in the placement group gave "
+             "another stream than the actor outside it")
+    rt.kill(c)
+    rt.remove_placement_group(pg)
+    log("[runtime] placement group [{GPU: 1, CPU: 1}] ready; an engine "
+        "actor in its bundle gave the same greedy stream")
+
+    violations = jitcheck.violations()
+    jitcheck.uninstall()
+    if violations:
+        fail(f"runtime: steady-state violations on the card: {violations}")
+    log("[runtime] steady-state guard: no implicit device-to-host read and "
+        "no kernel build in any warm engine step")
+
+    rt.shutdown()
+    for t in threading.enumerate():
+        if t.name.startswith(("actor-", "metrics-export-")):
+            t.join(timeout=30)
+    threads = [t.name for t in threading.enumerate()
+               if t.name.startswith(("actor-", "metrics-export-"))]
+    arenas = [n for n in os.listdir("/dev/shm")
+              if n.startswith(f"rtpu_store_{pid}_")]
+    if threads or arenas:
+        fail(f"runtime: after shutdown(), threads {threads} and arenas "
+             f"{arenas} are left")
+    log("[runtime] shutdown(): no actor or exporter thread, no arena of "
+        "this process in /dev/shm")
+    return summary
+
+
+def _runtime_identity(torch, np, rt, actor, cfg):
+    """Greedy identity at 2 layers f32: streams through the actor == a
+    direct engine on the kernel == ``Generator``, the same weights."""
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.models.generate import Generator
+    from ray_tpu_torch.serve.llm import PagedLLMEngine
+
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(13),
+                                     device=DEVICE)
+    direct = PagedLLMEngine(params, cfg, device=DEVICE,
+                            attention_kernel="cuda", name="runtime-direct")
+    oracle = Generator(params, cfg, device=DEVICE)
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (20, 150, 400, 700)]
+    through = rt.get([actor.generate.remote(p, 24) for p in prompts],
+                     timeout=600)
+    ties = []
+    for p, got in zip(prompts, through):
+        want = oracle.generate(p, max_new_tokens=24)
+        ties += _same_greedy(
+            torch, oracle.params, cfg, p, want,
+            {"actor": got,
+             "direct kernel": direct.generate(p, max_new_tokens=24)},
+            "runtime")
+    log(f"[runtime] 4 greedy requests, gpt2_small widths x 2 layers, f32: "
+        f"through the actor == direct paged engine on the kernel == "
+        f"Generator" + (f" up to {len(ties)} near tie(s)" if ties else ""))
+    return {"ties": ties, "first_prompt": prompts[0],
+            "first_want_actor": through[0]}
+
+
+def _runtime_object_plane(torch, np, rt, card, reps=5):
+    """Phase 10's 1024-token K/V gather returned by a ``num_gpus=1`` task:
+    ``get`` gives the same bytes back as CPU tensors; then ``put`` and
+    ``get`` of those bf16 tensors on the card timed (the bytes in the
+    shared-memory arena) beside a pinned ``copy_`` of the same bytes."""
+    from ray_tpu_torch.core.runtime import get_runtime
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.serve.llm import PagedLLMEngine
+
+    cfg = transformer.gpt2_small()
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     device=DEVICE)
+    eng = PagedLLMEngine(params, cfg, device=DEVICE, name="runtime-kv")
+    prompt = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, RUNTIME_KV_TOKENS).tolist()
+    keep = {}
+    ref = rt.remote(num_gpus=1)(_kv_gather).remote(eng, prompt, keep)
+    k_host, v_host = rt.get(ref, timeout=600)
+    k, v = keep["kv"]
+    nbytes = k.nbytes + v.nbytes
+    if not (k.device.type == torch.device(DEVICE).type
+            and k.dtype == torch.bfloat16):
+        fail(f"runtime: the gather is not bf16 on the card: {k.dtype} "
+             f"{k.device}")
+    if not (k_host.device.type == "cpu" and k_host.dtype == torch.bfloat16
+            and torch.equal(k_host.view(torch.int16),
+                            k.cpu().view(torch.int16))
+            and torch.equal(v_host.view(torch.int16),
+                            v.cpu().view(torch.int16))):
+        fail("runtime: get of the task's K/V is not the gather bit for bit")
+    if not get_runtime().store._objects[ref.id].shm_keys:
+        fail("runtime: the task's K/V did not go to the shm arena")
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    flat = torch.cat([k.reshape(-1).view(torch.uint8),
+                      v.reshape(-1).view(torch.uint8)])
+    times = {"put": [], "get": [], "pinned_d2h": []}
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = rt.put((k, v))
+        t1 = time.perf_counter()
+        kk, vv = rt.get(r)
+        t2 = time.perf_counter()
+        pinned.copy_(flat)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        times["put"].append((t1 - t0) * 1e3)
+        times["get"].append((t2 - t1) * 1e3)
+        times["pinned_d2h"].append((t3 - t2) * 1e3)
+        if not torch.equal(kk.view(torch.int16), k_host.view(torch.int16)):
+            fail("runtime: put/get of the K/V is not bit for bit")
+        del r, kk, vv
+    ms = {n: _median(t[1:]) for n, t in times.items()}
+    rate = {n: nbytes / (ms[n] * 1e-3) / 1e9 for n in ms}
+    log(f"[runtime] a num_gpus=1 task returned the {RUNTIME_KV_TOKENS}-token "
+        f"K/V gather ({nbytes} bytes, bf16, on the card); get gave the same "
+        f"bytes as CPU tensors. Median of {reps}: put (device to host + "
+        f"arena) {ms['put']:.2f} ms = {rate['put']:.2f} GB/s, get "
+        f"{ms['get']:.2f} ms = {rate['get']:.2f} GB/s; pinned copy_ device "
+        f"to host {ms['pinned_d2h']:.2f} ms = {rate['pinned_d2h']:.2f} "
+        f"GB/s  [{card}]")
+    return {"bytes": nbytes, "ms": ms, "gb_per_s": rate, "reps": reps}
+
+
 def _leaf_names(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -1763,6 +2201,8 @@ def main() -> None:
     done(9)
     disagg = phase_disagg(torch, np, card, counts, engine)
     done(10)
+    runtime = phase_runtime(torch, np, card, kind, count, counts, engine)
+    done(11)
 
     def bf16_case(label):
         return next(c for c in cases
@@ -1793,6 +2233,7 @@ def main() -> None:
             r: sum(run["launches"][r] for run in spec["runs"])
             for r in ("split", "wgmma")},
         "disagg_launches_by_route": disagg["launches"],
+        "runtime_launches_by_route": runtime["launches"],
     }]
     for name, (replaces, _) in FLASH.items():
         mine = [c for c in flash_cases if c["kernel"] == name]
@@ -1815,7 +2256,7 @@ def main() -> None:
          "flash_cases": flash_cases,
          "engine": engine, "end_to_end": e2e, "train": train,
          "train_end_to_end": train_e2e, "slotted": slotted, "spec": spec,
-         "disagg": disagg},
+         "disagg": disagg, "runtime": runtime},
         indent=1))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

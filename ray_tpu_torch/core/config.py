@@ -1,15 +1,22 @@
 """Env-overridable configuration: the knobs the port's modules read.
 
-Counterpart of ``ray_tpu/core/config.py`` cut to this slice. Each flag
-resolves from the ``RAY_TPU_<NAME>`` environment variable, else its default
-— the same names and defaults as the JAX package, so one environment
-configures both engines alike. (The JAX package's ``system_config`` dict
-comes from ``ray_tpu.init``, which the port does not have yet.)
+Counterpart of ``ray_tpu/core/config.py`` cut to the knobs the ported
+modules read. Each flag resolves from (1) the ``system_config`` dict given
+to ``init()``, (2) the ``RAY_TPU_<NAME>`` environment variable, (3) its
+default — the same names, order and defaults as the JAX package, so one
+environment configures both alike. A knob this table does not declare is
+refused by ``init(system_config=...)``, as the JAX table refuses it.
+
+While a runtime is up, :func:`config` returns the table ``init()`` resolved
+(as the JAX package's does); with none up it resolves a fresh one at each
+call, so an engine built after an env change sees the change.
 """
 
 from __future__ import annotations
 
 import os
+import threading
+from typing import Any, Optional
 
 
 class _Flag:
@@ -23,7 +30,9 @@ class _Flag:
     def __set_name__(self, owner, name):
         self.name = name
 
-    def resolve(self):
+    def resolve(self, overrides: dict):
+        if self.name in overrides:
+            return self._coerce(overrides[self.name])
         env = os.environ.get(f"RAY_TPU_{self.name.upper()}")
         if env is not None:
             return self._coerce(env)
@@ -31,18 +40,59 @@ class _Flag:
 
     def _coerce(self, value):
         if self.type is bool:
-            return value.lower() in ("1", "true", "yes", "on")
+            if isinstance(value, str):
+                return value.lower() in ("1", "true", "yes", "on")
+            return bool(value)
         try:
             return self.type(value)
         except (TypeError, ValueError) as e:
             raise ValueError(
                 f"invalid value {value!r} for config flag '{self.name}': "
                 f"expected {self.type.__name__} (set via the "
-                f"RAY_TPU_{self.name.upper()} env var)") from e
+                f"RAY_TPU_{self.name.upper()} env var or the system_config "
+                f"dict passed to init())") from e
 
 
 class Config:
-    """Resolved serve knobs; build one with :func:`config`."""
+    """Resolved knobs; read them through :func:`config`."""
+
+    # -- object store ---------------------------------------------------------
+    # In-process object-store capacity in bytes: the heap budget past which
+    # objects spill to disk, and the size of the shared-memory arena.
+    object_store_memory = _Flag(2 * 1024 * 1024 * 1024)
+    # Spill directory for objects evicted from the heap. "" (the default) =
+    # ray_tpu_spill under the temporary directory (TMPDIR), resolved at the
+    # first spill; the JAX package's default is /tmp/ray_tpu_spill.
+    object_spilling_dir = _Flag("")
+    # Put buffers of at least native_store_threshold bytes into the native
+    # shared-memory arena (built with g++ at first use; heap bytes when the
+    # build fails).
+    use_native_store = _Flag(True)
+    # Buffers at or above this size go to the native shm arena.
+    native_store_threshold = _Flag(64 * 1024)
+    # Entries kept in the store's deserialized-value cache (values of at
+    # most 1 MiB; eviction is LRU).
+    deser_cache_entries = _Flag(256)
+    # Task-argument reads that run concurrently: a task with several ref
+    # arguments materializes them on a pool of this many threads.
+    get_fanout = _Flag(8)
+
+    # -- scheduling -----------------------------------------------------------
+    # Hybrid policy: below this utilization a node scores 0 (nodes tie and
+    # the local one is preferred), above it the least loaded wins.
+    scheduler_spread_threshold = _Flag(0.5)
+    # Top-k fraction of the tied best nodes to pick among at random.
+    scheduler_top_k_fraction = _Flag(0.2)
+    # Preemption classes: preempt_gangs may revoke placement groups of
+    # strictly lower gang_priority. 0 disables preemption.
+    gang_preemption_enabled = _Flag(True)
+    # Default task retries (max_retries when the caller gives none).
+    default_max_retries = _Flag(3)
+
+    # -- control store --------------------------------------------------------
+    # Lock domains of the GCS internal KV: keys hash-partition across this
+    # many independent shards. 1 = one dict under one lock.
+    gcs_shards = _Flag(8)
 
     # KV-cache slots per continuous-batching engine: sequences that decode
     # together in one batched dispatch.
@@ -109,14 +159,49 @@ class Config:
     flightrec_enabled = _Flag(True)
     # Flight-recorder ring size per process, KiB (128-byte slots).
     flightrec_ring_kb = _Flag(256)
+    # Seconds between the runtime's metrics-exporter ticks (read every
+    # tick).
+    metrics_export_interval_s = _Flag(10.0)
+    # Bound on the GCS trace_id -> event-index side table; the oldest
+    # traces are evicted first.
+    trace_max_traces = _Flag(2048)
 
-    def __init__(self):
-        for name, flag in list(vars(type(self)).items()):
-            if isinstance(flag, _Flag):
-                setattr(self, name, flag.resolve())
+    # -- debugging ------------------------------------------------------------
+    # Opt-in steady-state guard (ray_tpu_torch.devtools.jitcheck): inside
+    # jitcheck.steady_state() — entered by the serve engines after warmup —
+    # an implicit device->host read of a tensor or a kernel library built
+    # after warmup is recorded as a contract violation. Dev/test only.
+    jit_check_enabled = _Flag(False)
+
+    def __init__(self, system_config: Optional[dict] = None):
+        overrides = dict(system_config or {})
+        flags = {n: f for n, f in vars(type(self)).items()
+                 if isinstance(f, _Flag)}
+        unknown = set(overrides) - set(flags)
+        if unknown:
+            raise ValueError(f"Unknown system_config keys: {sorted(unknown)}")
+        for name, flag in flags.items():
+            setattr(self, name, flag.resolve(overrides))
+
+    def to_dict(self) -> dict[str, Any]:
+        return {n: getattr(self, n) for n, f in vars(type(self)).items()
+                if isinstance(f, _Flag)}
+
+
+_global: Optional[Config] = None
+_lock = threading.Lock()
 
 
 def config() -> Config:
-    """The knobs as the environment sets them now (read at each call, so an
-    engine built after an env change sees the change)."""
-    return Config()
+    """The runtime's table while one is up, else the knobs as the
+    environment sets them now."""
+    cfg = _global
+    return cfg if cfg is not None else Config()
+
+
+def set_config(cfg: Optional[Config]) -> None:
+    """Install ``cfg`` as the table :func:`config` returns (``init`` does;
+    ``None`` goes back to resolving at each call)."""
+    global _global
+    with _lock:
+        _global = cfg

@@ -1,16 +1,16 @@
-"""Built-in framework metrics: the serve engines' instances.
+"""Per-process metrics exporter + built-in framework metrics.
 
-Counterpart of ``ray_tpu/core/metrics_export.py``, the part used in-process:
-the :func:`metrics_enabled` gate, the process-wide metric cache
-(:func:`gauge`, :func:`counter`) and the serve constructors the engines
-observe through. Each built-in metric is created lazily, once per process,
+Counterpart of ``ray_tpu/core/metrics_export.py``: the :func:`metrics_enabled`
+gate, the process-wide metric cache (:func:`gauge`, :func:`counter`), the
+built-in constructors (task phases and states, gang placement, serve), and
+the :class:`MetricsExporter` thread that snapshots this process's
+:mod:`ray_tpu_torch.util.metrics` registry every ``metrics_export_interval_s``
+and ships it to the runtime's GCS aggregator (:func:`cluster_histogram`
+reads it back). Each built-in metric is created lazily, once per process,
 under the same name, description and tag keys as the JAX package's, so one
-exposition reads the same from either package.
-
-The per-process ``MetricsExporter`` thread, the default stats collectors and
-``cluster_histogram`` ship to or read from the GCS, which comes with the
-core runtime (ROADMAP Queue 1); until then the series stay in this
-process's :mod:`ray_tpu_torch.util.metrics` registry.
+exposition reads the same from either package. The JAX module's default
+collectors mirror the RPC, object-pull and collective stats of the
+multiprocess cluster and come with it.
 
 Every ``observe`` at a hot path is gated on :func:`metrics_enabled` so
 ``metrics_export_enabled=0`` reduces instrumentation to one flag check.
@@ -18,12 +18,16 @@ Every ``observe`` at a hot path is gated on :func:`metrics_enabled` so
 
 from __future__ import annotations
 
+import os
 import threading
-from typing import Dict
+from typing import Callable, Dict, List, Optional
 
 from ray_tpu_torch.core.config import config
 from ray_tpu_torch.util import flightrec
 from ray_tpu_torch.util import metrics as um
+from ray_tpu_torch.utils.logging import get_logger, log_swallowed
+
+logger = get_logger("metrics")
 
 # Latency-style histogram bounds (seconds): 100us .. 60s, exponential.
 _LATENCY_BOUNDS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
@@ -62,6 +66,42 @@ def counter(name: str, desc: str = "", tag_keys=()) -> um.Counter:
     """Cached process-wide Counter — for collectors mirroring monotonic
     ad-hoc totals (inc by positive delta only)."""
     return _metric(um.Counter, name, desc, tag_keys=tag_keys)
+
+
+def mirror_stats_gauge(name: str, desc: str, stats: Dict[str, float]) -> None:
+    """Mirror an ad-hoc stats dict into one gauge with a ``counter`` tag per
+    key — the shared shape of every stats-dict collector."""
+    g = gauge(name, desc, tag_keys=("counter",))
+    for key, val in stats.items():
+        g.set(float(val), {"counter": key})
+
+
+def gang_placement_hist() -> um.Histogram:
+    """Gang placement latency, reserve→commit, tagged by planner path
+    (``gang`` atomic block reservation vs ``2pc`` legacy per-bundle)."""
+    return _metric(
+        um.Histogram, "ray_tpu_gang_placement_s",
+        "Placement-group gang placement latency (reserve to commit)",
+        boundaries=_LATENCY_BOUNDS, tag_keys=("path",))
+
+
+def gang_preemptions_total() -> um.Counter:
+    return _metric(um.Counter, "ray_tpu_gang_preemptions_total",
+                   "Gangs revoked to make room for higher gang_priority "
+                   "capacity (serve SLO pressure)")
+
+
+def task_phase_hist() -> um.Histogram:
+    return _metric(
+        um.Histogram, "ray_tpu_task_phase_s",
+        "Task lifecycle phase durations (queued/args_fetch/execute/total)",
+        boundaries=_LATENCY_BOUNDS, tag_keys=("phase",))
+
+
+def tasks_total() -> um.Counter:
+    return _metric(um.Counter, "ray_tpu_tasks_total",
+                   "Tasks executed, by terminal state",
+                   tag_keys=("state",))
 
 
 def serve_ttft_hist() -> um.Histogram:
@@ -128,3 +168,122 @@ def serve_kv_block_occupancy() -> um.Gauge:
                    "Paged KV pool blocks by state "
                    "(active=pinned, cached=prefix-reusable, free)",
                    tag_keys=("deployment", "state"))
+
+
+def cluster_histogram(name: str, tags: Dict[str, str]) -> Optional[dict]:
+    """Cluster-merged cumulative histogram from the GCS aggregator —
+    ``{"bounds", "buckets", "sum", "count"}`` summed across every live
+    process's series matching ``tags`` (see
+    :meth:`~ray_tpu_torch.util.metrics.MetricsAggregator.histogram_merged`).
+    None when no runtime is up or nothing matching has been reported yet:
+    callers treat the signal as absent, never as zero."""
+    from ray_tpu_torch.core.exceptions import RuntimeNotInitializedError
+    from ray_tpu_torch.core.runtime import get_runtime
+
+    try:
+        rt = get_runtime()
+    except RuntimeNotInitializedError:
+        return None
+    return rt.gcs.metrics_histogram(name, dict(tags))
+
+
+# Precomputed tag keys for the per-task hot path (one merge/validate/sort
+# per phase name per process instead of per task execution).
+_phase_keys: Dict[str, tuple] = {}
+_state_keys: Dict[str, tuple] = {}
+
+
+def observe_task_phases(phases: Dict[str, float],
+                        ok: bool = True) -> None:
+    """Record one task execution's phase durations (the runtime's execute
+    paths call this with whatever phases they could stamp)."""
+    if not metrics_enabled():
+        return
+    h = task_phase_hist()
+    for phase, dur in phases.items():
+        if dur is not None and dur >= 0:
+            key = _phase_keys.get(phase)
+            if key is None:
+                key = _phase_keys[phase] = h.tag_key({"phase": phase})
+            h.observe_key(dur, key)
+    state = "FINISHED" if ok else "FAILED"
+    skey = _state_keys.get(state)
+    if skey is None:
+        skey = _state_keys[state] = tasks_total().tag_key({"state": state})
+    tasks_total().inc_key(1, skey)
+
+
+# ---------------------------------------------------------------------------
+# The exporter thread
+# ---------------------------------------------------------------------------
+
+
+class MetricsExporter:
+    """Ships this process's registry to the GCS every export interval.
+
+    ``report`` is ``callable(node_id, component, pid, snapshot)`` — a direct
+    aggregator call for the in-process runtime. Failures are swallowed and
+    retried next tick: reports are stateless (each carries the full
+    snapshot), so a missed tick costs nothing but freshness.
+    """
+
+    def __init__(self, report: Callable[[str, str, int, list], None],
+                 node_id: str, component: str,
+                 collectors: Optional[List[Callable[[], None]]] = None):
+        self._report = report
+        self._node_id = node_id
+        self._component = component
+        self._collectors = list(collectors or [])
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> "MetricsExporter":
+        if not metrics_enabled():
+            return self
+        self._thread = threading.Thread(
+            target=self._loop, name=f"metrics-export-{self._component}",
+            daemon=True)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def _interval() -> float:
+        return max(0.05, float(config().metrics_export_interval_s))
+
+    def _loop(self) -> None:
+        # First flush immediately: a short-lived process must appear in the
+        # exposition without surviving a full interval. Then re-read the
+        # interval every tick (tests shrink the cadence via env).
+        self.flush()
+        while not self._stop.wait(self._interval()):
+            self.flush()
+
+    def flush(self) -> None:
+        """One export tick (also called directly by readers that want this
+        process's own series fresh)."""
+        if not metrics_enabled():
+            return
+        try:
+            for fn in self._collectors:
+                try:
+                    fn()
+                except Exception:  # noqa: BLE001 — a collector must never
+                    log_swallowed(logger, "metrics collector")  # kill the tick
+            snapshot = um.snapshot_registry()
+            self._report(self._node_id, self._component, os.getpid(),
+                         snapshot)
+        except Exception:  # noqa: BLE001 — retried next tick
+            log_swallowed(logger, "metrics export tick")
+
+    def stop(self) -> None:
+        """Join the exporter thread (with timeout), then ship the last
+        partial interval's observations. Idempotent."""
+        self._stop.set()
+        thread, self._thread = self._thread, None
+        if thread is not None:
+            thread.join(timeout=2.0)
+            if thread.is_alive():
+                logger.warning("metrics exporter did not stop in 2s "
+                               "(flush in flight); skipping final flush")
+                return
+            self.flush()

@@ -1,31 +1,61 @@
-"""Object serialization with out-of-band buffers.
+"""Object serialization with zero-copy buffer extraction.
 
-Counterpart of ``ray_tpu/core/serialization.py``'s one-shot half,
-:func:`dumps` and :func:`loads`: cloudpickle (plain pickle where it can)
-with protocol-5 out-of-band buffers, so a large numpy array rides beside the
-pickle as raw bytes and comes back as a view of the blob.
+Counterpart of ``ray_tpu/core/serialization.py``: cloudpickle (plain pickle
+where it can) with protocol-5 out-of-band buffers, so a large numpy array
+rides beside the pickle as raw bytes and comes back as a view of the blob.
+:class:`SerializedObject` is the object plane's framing (``to_bytes``,
+``framed_size``/``write_into`` straight into a shared-memory slot,
+``from_bytes``); :func:`dumps_inband` is the compact form without it; the
+ref collection (:func:`collecting_refs`) records every ``ObjectRef``
+pickled inside a value.
 
 Where the JAX package materializes a ``jax.Array`` to host numpy before
-pickling, the port does the same for a ``torch.Tensor``: the tensor is
-copied to the host and travels as its raw bytes (an integer view of the
-same width, so bfloat16, which numpy has no dtype for, survives bit for
-bit) beside its torch dtype and shape; :func:`loads` rebuilds a CPU tensor
-of that dtype. The object plane's framing helpers (``SerializedObject``'s
-``write_into``, the in-band task-spec encoding, the ref collection) come
-with the core runtime (ROADMAP Queue 1).
+pickling, the port does the same for a ``torch.Tensor`` — anywhere in the
+object, not only at its top: the tensor is copied to the host and travels
+as its raw bytes (an integer view of the same width, so bfloat16, which
+numpy has no dtype for, survives bit for bit) beside its torch dtype and
+shape; deserialization rebuilds a CPU tensor of that dtype. The object
+plane is a host-RAM plane: a consumer moves the tensor back to its device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import pickle
+import threading
 from dataclasses import dataclass
 
 import cloudpickle
 import numpy as np
 import torch
 
-# A torch dtype's raw bytes travel as the numpy integer type of its width.
+# Serialize-time ObjectRef collection (nested-ref borrow protocol): while a
+# collection scope is open on this thread, ObjectRef.__reduce__ records every
+# ref pickled. Scopes nest (spec serialization inside value serialization).
+_COLLECT = threading.local()
+
+
+def note_serialized_ref(ref) -> None:
+    lst = getattr(_COLLECT, "refs", None)
+    if lst is not None:
+        lst.append(ref)
+
+
+@contextlib.contextmanager
+def collecting_refs():
+    """Collect ObjectRefs pickled on this thread; yields the list."""
+    prev = getattr(_COLLECT, "refs", None)
+    out: list = []
+    _COLLECT.refs = out
+    try:
+        yield out
+    finally:
+        _COLLECT.refs = prev
+
+
+# A torch dtype's raw bytes travel as the numpy integer type of its width
+# (bytes for any other width).
 _RAW = {1: np.uint8, 2: np.int16, 4: np.int32, 8: np.int64}
 
 
@@ -45,7 +75,7 @@ class _HostTensor:
     def __init__(self, t: torch.Tensor):
         t = t.detach().to("cpu").contiguous()
         self.raw = t.reshape(-1).view(torch.uint8).numpy().view(
-            _RAW[t.element_size()])
+            _RAW.get(t.element_size(), np.uint8))
         self.dtype_name = str(t.dtype).removeprefix("torch.")
         self.shape = tuple(t.shape)
 
@@ -53,11 +83,11 @@ class _HostTensor:
         return (_rebuild_tensor, (self.raw, self.dtype_name, self.shape))
 
 
-def _devicify_for_pickle(obj):
-    """Convert a torch tensor to its host form; leave everything else."""
+def _host_reduce(obj):
+    """The reduction of ``obj`` if it is a tensor, else NotImplemented."""
     if isinstance(obj, torch.Tensor):
-        return _HostTensor(obj)
-    return obj
+        return _HostTensor(obj).__reduce__()
+    return NotImplemented
 
 
 @dataclass
@@ -66,6 +96,9 @@ class SerializedObject:
 
     header: bytes
     buffers: list  # list of bytes-like (memoryview/bytes/np buffers)
+
+    def total_size(self) -> int:
+        return len(self.header) + sum(len(memoryview(b).cast("B")) for b in self.buffers)
 
     def to_bytes(self) -> bytes:
         """Flatten to a single contiguous blob (header-length-prefixed)."""
@@ -78,6 +111,25 @@ class SerializedObject:
             out.write(len(mv).to_bytes(8, "big"))
             out.write(mv)
         return out.getvalue()
+
+    def framed_size(self) -> int:
+        """Exact size of the ``to_bytes`` flattening — lets a producer
+        allocate the destination (e.g. a shm arena slot) up front and
+        ``write_into`` it with no intermediate contiguous copy."""
+        return (12 + len(self.header)
+                + sum(8 + len(memoryview(b).cast("B")) for b in self.buffers))
+
+    def write_into(self, dest) -> None:
+        """Write the ``to_bytes`` layout directly into a writable buffer of
+        ``framed_size()`` bytes (no intermediate contiguous copy)."""
+        off = 0
+        off += fast_copy_into(dest, off, len(self.header).to_bytes(8, "big"))
+        off += fast_copy_into(dest, off, self.header)
+        off += fast_copy_into(dest, off, len(self.buffers).to_bytes(4, "big"))
+        for b in self.buffers:
+            mv = memoryview(b).cast("B")
+            off += fast_copy_into(dest, off, len(mv).to_bytes(8, "big"))
+            off += fast_copy_into(dest, off, mv)
 
     @classmethod
     def from_bytes(cls, blob) -> "SerializedObject":
@@ -100,6 +152,18 @@ class SerializedObject:
         return cls(header=header, buffers=buffers)
 
 
+def fast_copy_into(dest, dest_offset: int, src) -> int:
+    """memcpy-speed buffer copy: ``dest[dest_offset:...] = src`` through
+    numpy, because memoryview slice assignment degrades to ~75 MB/s on
+    large (especially cross-process shm) buffers. Returns bytes written.
+    One definition for every bulk copy in the object plane."""
+    src_mv = memoryview(src).cast("B")
+    out = np.frombuffer(memoryview(dest).cast("B"), dtype=np.uint8)
+    out[dest_offset:dest_offset + len(src_mv)] = np.frombuffer(
+        src_mv, dtype=np.uint8)
+    return len(src_mv)
+
+
 class _NeedCloudpickle(Exception):
     pass
 
@@ -108,9 +172,12 @@ class _FastPickler(pickle.Pickler):
     """Plain pickle with a tripwire: anything plain pickle would serialize
     BY REFERENCE into a module the receiving process may not have
     (``__main__``-defined classes/functions, interactively defined code)
-    aborts the fast path so cloudpickle serializes it by value."""
+    aborts the fast path so cloudpickle serializes it by value. Tensors go
+    to the host as :class:`_HostTensor`."""
 
     def reducer_override(self, obj):
+        if isinstance(obj, torch.Tensor):
+            return _host_reduce(obj)
         if isinstance(obj, type) or callable(obj):
             mod = getattr(obj, "__module__", None)
             if mod in ("__main__", "__mp_main__", None):
@@ -118,14 +185,29 @@ class _FastPickler(pickle.Pickler):
             registry = cloudpickle.list_registry_pickle_by_value()
             if registry and any(
                     mod == r or mod.startswith(r + ".") for r in registry):
+                # register_pickle_by_value(pkg) covers submodules too —
+                # mirror cloudpickle's parent-package walk.
                 raise _NeedCloudpickle
         return NotImplemented
 
 
+class _CloudPickler(cloudpickle.Pickler):
+    """cloudpickle, with tensors going to the host as in the fast path."""
+
+    def reducer_override(self, obj):
+        if isinstance(obj, torch.Tensor):
+            return _host_reduce(obj)
+        return super().reducer_override(obj)
+
+
+def _cloudpickle(obj, buffer_callback=None) -> bytes:
+    out = io.BytesIO()
+    _CloudPickler(out, protocol=5, buffer_callback=buffer_callback).dump(obj)
+    return out.getvalue()
+
+
 def serialize(obj) -> SerializedObject:
     buffers: list = []
-
-    obj = _devicify_for_pickle(obj)
 
     def _buffer_callback(pickle_buffer):
         buffers.append(pickle_buffer.raw())
@@ -138,8 +220,7 @@ def serialize(obj) -> SerializedObject:
         header = out.getvalue()
     except Exception:  # noqa: BLE001 — closures/lambdas/__main__ classes
         buffers.clear()
-        header = cloudpickle.dumps(obj, protocol=5,
-                                   buffer_callback=_buffer_callback)
+        header = _cloudpickle(obj, _buffer_callback)
     return SerializedObject(header=header, buffers=buffers)
 
 
@@ -154,3 +235,19 @@ def dumps(obj) -> bytes:
 
 def loads(blob):
     return deserialize(SerializedObject.from_bytes(blob))
+
+
+def dumps_inband(obj) -> bytes:
+    """Compact one-shot pickle with every buffer IN-BAND — no
+    SerializedObject framing (the JAX package's cached task-spec encoding
+    rides this form)."""
+    try:
+        out = io.BytesIO()
+        _FastPickler(out, protocol=5).dump(obj)
+        return out.getvalue()
+    except Exception:  # noqa: BLE001 — closures/lambdas/__main__ classes
+        return _cloudpickle(obj)
+
+
+def loads_inband(blob):
+    return pickle.loads(blob)

@@ -149,9 +149,11 @@ class _SlotOperands:
 
 
 def init_cache(config: TransformerConfig, batch: int,
-               max_len: Optional[int] = None, device="cpu") -> Dict:
+               max_len: Optional[int] = None, device=None) -> Dict:
     """Private KV cache [L, batch, max_len, H, Dh] for K and for V, and the
-    valid ``length`` every row shares."""
+    valid ``length`` every row shares. ``device`` defaults to the card;
+    ``device="cpu"`` puts it on the CPU."""
+    device = resolve_device(device)
     c = config
     max_len = max_len or c.max_seq_len
     shape = (c.n_layers, batch, max_len, c.n_heads, c.head_dim)
@@ -199,10 +201,12 @@ def _forward_cached(params, tokens, cache, config: TransformerConfig,
 
 
 def init_slot_cache(config: TransformerConfig, slots: int,
-                    max_len: Optional[int] = None, device="cpu") -> Dict:
+                    max_len: Optional[int] = None, device=None) -> Dict:
     """KV cache for ``slots`` INDEPENDENT sequences: the batch dim is a slot
     index and ``lengths[s]`` (int32 [S]) replaces the single ``length`` —
-    each slot decodes at its own position."""
+    each slot decodes at its own position. ``device`` defaults to the card;
+    ``device="cpu"`` puts it on the CPU."""
+    device = resolve_device(device)
     c = config
     max_len = max_len or c.max_seq_len
     shape = (c.n_layers, slots, max_len, c.n_heads, c.head_dim)

@@ -94,10 +94,15 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``, built first if needed. The
+    first load in a process is reported to the steady-state guard, for
+    which it is what a new XLA compile is to the JAX package's."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            from ray_tpu_torch.devtools import jitcheck
+
+            jitcheck.note_build(name)
             build_all([name])
             lib = _libs[name] = ctypes.CDLL(str(_target(name)[1]))
         return lib

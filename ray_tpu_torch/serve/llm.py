@@ -47,6 +47,7 @@ import torch
 
 from ray_tpu_torch.core import metrics_export
 from ray_tpu_torch.core.config import config as _get_config
+from ray_tpu_torch.devtools import jitcheck
 from ray_tpu_torch.models.generate import (KVBlockManager, NoFreeBlocks,
                                            PagedGenerator, SlottedGenerator,
                                            _to_device)
@@ -209,6 +210,11 @@ class LLMEngine:
         self.decode_seconds = 0.0
         self.finish_reason = "stop"  # convenience; races under concurrency
 
+        # Flipped by warmup(): from then on every scheduler step runs under
+        # jitcheck.steady_state() — zero implicit device->host reads, zero
+        # kernel builds (enforced when jitcheck is installed).
+        self._steady = False
+
     # -- device-half hooks (the paged engine overrides these) -----------------
     def _init_device(self) -> None:
         self._sg = SlottedGenerator(self.params, self.config,
@@ -284,8 +290,9 @@ class LLMEngine:
             toks, self._cache, self._last, self._gens = df(
                 self.params, self._cache, self._last, self._gens,
                 np.zeros(self.slots, bool), self._greedy, self._temps)
-            toks.cpu()
+            jitcheck.device_get(toks)
             self._reset_device_state()
+            self._steady = True
 
     def _bucket_for(self, n: int) -> int:
         # One full decode chunk must fit after the prompt: decode always
@@ -467,11 +474,16 @@ class LLMEngine:
 
     # -- the iteration-level scheduler ----------------------------------------
     def _step(self) -> None:
-        # Called holding _step_lock (the elected driver). The JAX engine runs
-        # each post-warmup step under jitcheck.steady_state(); its torch twin
-        # (a sync/recompile guard) comes with the devtools slice.
+        # Called holding _step_lock (the elected driver). Post-warmup the
+        # step runs under the steady-state contract: an implicit
+        # device->host read or a kernel build is a violation (recorded when
+        # jitcheck is installed; steady_state() is a no-op otherwise).
         try:
-            self._step_inner()
+            if self._steady:
+                with jitcheck.steady_state():
+                    self._step_inner()
+            else:
+                self._step_inner()
         except BaseException as err:
             self._fail_inflight(err)
             raise
@@ -550,7 +562,8 @@ class LLMEngine:
         # 3. One batched decode chunk advancing every active slot.
         t0 = time.perf_counter()
         toks = self._run_decode(active, greedy, temps, extra)
-        host_toks = toks.cpu().numpy()  # the step's single device sync
+        # The step's single device sync.
+        host_toks = jitcheck.device_get(toks).numpy()
         dt = time.perf_counter() - t0
         now = time.perf_counter()
 
@@ -843,7 +856,7 @@ class PagedLLMEngine(LLMEngine):
                                      np.int32),
                 np.zeros(self.slots, np.int32), np.zeros(self.slots, bool),
                 self._greedy, self._temps)
-            toks.cpu()
+            jitcheck.device_get(toks)
             cf = self._pg.copy_fn()
             self._k_pool, self._v_pool = cf(self._k_pool, self._v_pool, 0, 0)
             sl = self._pg.set_last_fn()
@@ -870,8 +883,9 @@ class PagedLLMEngine(LLMEngine):
                          np.zeros(self.slots, np.int32),
                          np.zeros(self.slots, np.int32),
                          np.zeros(self.slots, bool))
-                out[0].cpu()
+                jitcheck.device_get(out[0])
             self._reset_device_state()
+            self._steady = True
 
     def _suffix_bucket(self, n: int) -> int:
         # The suffix prefill's bucket — unlike _bucket_for it needs no
@@ -1057,7 +1071,8 @@ class PagedLLMEngine(LLMEngine):
         c = self.chunk
         host = torch.cat([counts, accepted, tail_t[:, None],
                           pending_t[:, None],
-                          up_t[:, None].to(torch.int32)], dim=1).cpu().numpy()
+                          up_t[:, None].to(torch.int32)], dim=1)
+        host = jitcheck.device_get(host).numpy()
         self._spec_last_dt = time.perf_counter() - t0
         self._last_counts = host[:, :c]
         acc = host[:, c:2 * c].sum(axis=1)
@@ -1178,7 +1193,7 @@ class PagedLLMEngine(LLMEngine):
                 self._gens, row, padded, hit_len, suffix_len, 0, seed)
             ef = self._pg.extract_fn(len(ids))
             k, v = ef(self._k_pool, self._v_pool, np.asarray(ids, np.int32))
-            last_row = self._last[0].cpu().numpy()
+            last_row = jitcheck.device_get(self._last[0]).numpy()
             self.kv.register_chain(tokens, ids, real_len)
             self.kv.release(ids)
         return k, v, last_row, hit_len

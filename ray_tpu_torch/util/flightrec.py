@@ -43,6 +43,7 @@ import itertools
 import mmap
 import os
 import struct
+import tempfile
 import time
 from typing import Any, Dict, List, Optional
 
@@ -63,12 +64,14 @@ CATEGORIES = {
 _CATEGORY_NAMES = {v: k for k, v in CATEGORIES.items()}
 
 ENV_SESSION_DIR = "RAY_TPU_SESSION_DIR"
-_DEFAULT_SESSION_DIR = "/tmp/ray_tpu_flightrec"
 
 
 def session_dir() -> str:
-    """The directory ring files live in (shared by a whole cluster run)."""
-    return os.environ.get(ENV_SESSION_DIR) or _DEFAULT_SESSION_DIR
+    """The directory ring files live in (shared by a whole cluster run):
+    ``RAY_TPU_SESSION_DIR``, else ``ray_tpu_flightrec`` under the temporary
+    directory (TMPDIR; the JAX package's default is /tmp/ray_tpu_flightrec)."""
+    return (os.environ.get(ENV_SESSION_DIR)
+            or os.path.join(tempfile.gettempdir(), "ray_tpu_flightrec"))
 
 
 class FlightRecorder:

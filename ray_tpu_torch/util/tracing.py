@@ -12,11 +12,12 @@ the context — children of an unsampled root emit nothing, so a trace is
 either fully collected or not at all.
 
 Export: a span goes to the sink :func:`set_sink` installed, if any;
-otherwise into a bounded in-module buffer. The JAX package ships that
-buffer to the GCS task-event stream; the port has no runtime yet (ROADMAP
-Queue 1), so it behaves as the JAX module does with no runtime up:
-a due or explicit :func:`flush` drops the batch, logged at debug level, and
-spans carry the process id as their ``node_id``.
+otherwise into a bounded in-module buffer that a due or explicit
+:func:`flush` ships as one batch to the runtime's GCS task-event stream
+(``ray_tpu_torch.init``), where ``timeline(trace_id)`` reads it back. With no
+runtime up the batch is dropped, logged at debug level, as the JAX module
+does. Spans carry the runtime's node id as their ``node_id`` (the process id
+with no runtime).
 """
 
 from __future__ import annotations
@@ -131,9 +132,21 @@ def child_context(ctx: Tuple[str, str, bool], span_id: str) -> Tuple[str, str, b
     return (ctx[0], span_id, ctx[2])
 
 
+def _runtime():
+    """The runtime, or None when none is up."""
+    from ray_tpu_torch.core import runtime as _rt_mod
+
+    return _rt_mod._global_runtime
+
+
 def _node_id() -> str:
-    """The process id: with no runtime attached (the JAX module's
-    no-runtime answer), spans group by process in a timeline."""
+    """The runtime's node id when one is attached (timeline lanes then group
+    spans by node like task events); the process id otherwise. Read per
+    emit: ``current_node_id`` depends on the executing thread (a worker
+    thread reports the virtual node it runs on)."""
+    rt = _runtime()
+    if rt is not None:
+        return rt.current_node_id.hex()
     return f"pid-{os.getpid()}"
 
 
@@ -189,13 +202,16 @@ _BUFFER = _SpanBuffer()
 
 
 def _ship(batch: list) -> None:
-    """Where the JAX module ships a batch to the runtime's GCS. The port has
-    no runtime yet, so the batch is dropped — logged at debug level, as the
-    JAX module logs a ship with no runtime up."""
-    from ray_tpu_torch.utils.logging import get_logger
+    """Ship a batch into the runtime's GCS task-event stream in one call;
+    with no runtime up the batch is dropped, logged at debug level."""
+    rt = _runtime()
+    if rt is None:
+        from ray_tpu_torch.utils.logging import get_logger
 
-    get_logger("tracing").debug(
-        "dropped %d span(s): no runtime to ship them to", len(batch))
+        get_logger("tracing").debug(
+            "dropped %d span(s): no runtime to ship them to", len(batch))
+        return
+    rt.gcs.record_task_events(batch)
 
 
 def _record(event: dict) -> None:
@@ -298,3 +314,8 @@ def span(name: str, *,
                                                          log_swallowed)
 
                 log_swallowed(get_logger("tracing"), "span finalize")
+
+
+def context_for_spec() -> Optional[Tuple[str, str, bool]]:
+    """What a submitting call should stamp into the TaskSpec."""
+    return current_context()

@@ -2,8 +2,10 @@
 nothing of JAX and nothing of the JAX package ``ray_tpu``.
 
 Every ``.py`` file is walked with ``ast`` (imports inside functions count
-too), and the serving and training entry modules are imported in a fresh
-interpreter with ``jax`` blocked from import.
+too), and the runtime, serving and training entry modules are imported in a
+fresh interpreter with ``jax`` blocked from import. The same walk holds the
+port's device rule: no function of the port takes a ``device`` that
+defaults to the CPU (entry points run on the card unless asked otherwise).
 """
 
 import ast
@@ -62,6 +64,40 @@ def test_no_jax_or_ray_tpu_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def _cpu_device_defaults(path: Path):
+    """(line, function) of every parameter named ``device`` whose default
+    is the string ``"cpu"``."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        args = node.args
+        positional = args.posonlyargs + args.args
+        pairs = list(zip(positional[len(positional) - len(args.defaults):],
+                         args.defaults))
+        pairs += [(a, d) for a, d in zip(args.kwonlyargs, args.kw_defaults)
+                  if d is not None]
+        for arg, default in pairs:
+            if (arg.arg == "device" and isinstance(default, ast.Constant)
+                    and default.value == "cpu"):
+                yield node.lineno, node.name
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_device_defaults_to_the_cpu(path):
+    bad = list(_cpu_device_defaults(path))
+    assert not bad, f"{path.relative_to(ROOT)}: device='cpu' defaults {bad}"
+
+
+def test_cpu_default_rule_sees_both_forms(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("def a(x, device='cpu'): pass\n"
+                 "def b(*, device='cpu'): pass\n"
+                 "def c(device=None): pass\n")
+    assert [n for _, n in _cpu_device_defaults(f)] == ["a", "b"]
+
+
 def test_forbidden_rule_keeps_the_port_prefix():
     assert not _forbidden("ray_tpu_torch.serve.llm")
     assert _forbidden("ray_tpu.serve.llm")
@@ -78,6 +114,9 @@ def test_serving_imports_with_jax_blocked():
         "        if top in ('jax', 'jaxlib', 'flax', 'optax', 'ray_tpu'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
+        "import ray_tpu_torch, ray_tpu_torch.core.placement_group\n"
+        "import ray_tpu_torch.util.state, ray_tpu_torch.devtools.jitcheck\n"
+        "import ray_tpu_torch.accelerators, ray_tpu_torch.core.native_store\n"
         "import ray_tpu_torch.serve.llm, ray_tpu_torch.models.convert\n"
         "import ray_tpu_torch.ops.paged_attention\n"
         "import ray_tpu_torch.ops.flash_attention\n"

@@ -257,7 +257,7 @@ def test_forward_cached_prefill_then_decode_matches_jax(models):
     jcfg, jparams, tcfg, tparams = models
     toks = np.random.default_rng(1).integers(0, 256, (2, 12)).astype(np.int32)
     jc = jgen.init_cache(jcfg, 2, 32)
-    tc = tgen.init_cache(tcfg, 2, 32)
+    tc = tgen.init_cache(tcfg, 2, 32, device="cpu")
     for lo, hi in ((0, 9), (9, 10), (10, 12)):
         jl, jc = jgen._forward_cached(jparams, jnp.asarray(toks[:, lo:hi]),
                                       jc, jcfg, lo)
@@ -310,8 +310,9 @@ def test_generator_chunked_fns_match_jax(models):
     key = jax.random.key(0)
     jt, jl, jc, jpos, _ = jpd(jparams, jgen.init_cache(jcfg, 1), padded, 5,
                               key, 1.0)
-    tt, tl, tc, tpos, _ = tpd(tg.params, tgen.init_cache(tcfg, 1), padded, 5,
-                              None, 1.0)
+    tt, tl, tc, tpos, _ = tpd(tg.params,
+                              tgen.init_cache(tcfg, 1, device="cpu"),
+                              padded, 5, None, 1.0)
     assert tt.tolist() == np.asarray(jt).tolist() and tpos == int(jpos) == 9
     jt, jl, jc, jpos, _ = jdc(jparams, jc, jl, jpos, key, 1.0)
     tt, tl, tc, tpos, _ = tdc(tg.params, tc, tl, tpos, None, 1.0)

@@ -18,6 +18,12 @@ through the flash kernels and through dense attention (f32): each gradient leaf 
 floored at 1e-3 of the model's largest (bk's gradient is 0 in exact
 arithmetic: both paths give rounding noise there), the losses of 3 AdamW
 steps 1e-4 relative.
+
+The core runtime on the card: ``gpu_resources()`` registers the card; a bf16
+CUDA tensor goes through ``put``/``get`` bit for bit below and above the
+arena threshold; the paged engine hosted in a ``num_gpus=1`` actor gives the
+direct engine's greedy streams on the kernel (2 layers, f32); and warm
+engine steps on the card record no steady-state violation.
 """
 
 import numpy as np
@@ -588,3 +594,104 @@ def test_disaggregated_refuses_a_lane_past_free_shm(cuda, monkeypatch):
         DisaggregatedLLMEngine(params, cfg, name="gpu-noshm", **DISAGG_KW)
     assert not [t for t in threading.enumerate()
                 if t.name.startswith("gpu-noshm-disagg")]
+
+
+# -- the core runtime on the card ---------------------------------------------
+
+
+@pytest.fixture
+def runtime(cuda):
+    import ray_tpu_torch
+
+    ray_tpu_torch.init()
+    yield ray_tpu_torch
+    ray_tpu_torch.shutdown()
+
+
+@pytest.mark.gpu
+def test_gpu_resources_on_the_card(runtime):
+    from ray_tpu_torch.accelerators import gpu_model, gpu_resources
+
+    n = float(torch.cuda.device_count())
+    marker = f"GPU-{gpu_model(torch.cuda.get_device_name(0))}"
+    assert gpu_resources() == {"GPU": n, marker: n}
+    res = runtime.cluster_resources()
+    assert res["GPU"] == n and res[marker] == n and "TPU" not in res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("numel", [1000, 1 << 20])  # 2 KB / 2 MB of bf16
+def test_cuda_bf16_tensor_through_put_get_bit_for_bit(runtime, numel):
+    from ray_tpu_torch.core.runtime import get_runtime
+
+    g = torch.Generator(device="cuda").manual_seed(numel)
+    t = torch.randn(numel // 8, 8, device="cuda", generator=g).to(
+        torch.bfloat16)
+    ref = runtime.put(t)
+    back = runtime.get(ref)
+    assert back.device.type == "cpu" and back.dtype == torch.bfloat16
+    assert torch.equal(back.view(torch.int16), t.cpu().view(torch.int16))
+    entry = get_runtime().store._objects[ref.id]
+    assert bool(entry.shm_keys) == (numel * 2 >= 64 * 1024)
+
+    @runtime.remote(num_gpus=1)
+    def twice(x):
+        return x * 2
+
+    out = runtime.get(twice.remote(t))  # a CUDA result, returned to host
+    assert torch.equal(out, (t * 2).cpu())
+
+
+class _EngineHost:
+    def __init__(self, params, cfg, name):
+        self.eng = PagedLLMEngine(params, cfg, name=name, **DISAGG_KW)
+        self.eng.warmup()
+
+    def generate(self, prompt, n):
+        return self.eng.generate(prompt, max_new_tokens=n)
+
+    def kernel(self):
+        return self.eng._pg.attention_kernel, self.eng.device.type
+
+
+@pytest.mark.gpu
+def test_engine_actor_on_the_kernel_matches_direct(runtime):
+    cfg, params = _disagg_model()
+    direct = PagedLLMEngine(params, cfg, name="gpu-direct", **DISAGG_KW)
+    want = [direct.generate(p, max_new_tokens=20) for p in SPEC_PROMPTS]
+    host = runtime.remote(num_gpus=1, max_concurrency=3)(_EngineHost).remote(
+        params, cfg, "gpu-actor")
+    assert runtime.get(host.kernel.remote()) == ("cuda", "cuda")
+    before = pa.launches
+    got = runtime.get([host.generate.remote(p, 20) for p in SPEC_PROMPTS],
+                      timeout=300)
+    assert got == want
+    assert pa.launches > before
+    assert runtime.available_resources().get("GPU", 0) == \
+        runtime.cluster_resources()["GPU"] - 1
+
+
+@pytest.mark.gpu
+def test_warm_engine_steps_on_the_card_record_no_violation(cuda):
+    from ray_tpu_torch.devtools import jitcheck
+
+    was = jitcheck.installed()
+    jitcheck.install()
+    jitcheck.clear_violations()
+    try:
+        cfg, params = _disagg_model()
+        eng = PagedLLMEngine(params, cfg, name="gpu-steady", **DISAGG_KW)
+        eng.warmup()
+        for p in SPEC_PROMPTS:
+            eng.generate(p, max_new_tokens=20)
+        assert jitcheck.violations() == []
+        t = torch.ones(3, device="cuda")
+        with jitcheck.steady_state():
+            jitcheck.device_get(t)
+            assert jitcheck.violations() == []
+            t.cpu()
+        assert len(jitcheck.violations()) == 1
+    finally:
+        jitcheck.clear_violations()
+        if not was:
+            jitcheck.uninstall()

@@ -192,9 +192,12 @@ def test_serve_knobs_match_the_jax_defaults(monkeypatch):
     port = config()
     names = [n for n, v in vars(Config).items()
              if type(v).__name__ == "_Flag"]
-    assert len(names) == 20   # 11 serve knobs, 9 of the transport and
-    #                           observability modules
+    assert len(names) == 34   # 11 serve knobs, 9 of the transport and
+    #                           observability modules, 14 of the runtime
     for n in names:
+        if n == "object_spilling_dir":  # by design: "" = under TMPDIR
+            assert port.object_spilling_dir == ""
+            continue
         assert getattr(port, n) == getattr(JaxConfig, n).default, n
     monkeypatch.setenv("RAY_TPU_SERVE_LLM_SLOTS", "3")
     monkeypatch.setenv("RAY_TPU_SERVE_PAGED_ATTENTION_KERNEL", "gather")
