@@ -109,9 +109,33 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    ``[{GPU: 1, CPU: 1}]`` must become ready and host an engine actor; the
    steady-state guard must record no violation in any warm step; after
    ``shutdown()`` no actor or exporter thread and no arena of the process
-   is left.
+   is left;
+12. serve — the Serve stack on the card: ``init()``, then
+   ``serve.run(llm_deployment(gpt2_small(), ...))`` at full width (bf16,
+   phase 4's weights from its seed, engine defaults) with
+   ``ray_actor_options={"num_gpus": 1}``; the replica's engine must be the
+   ``PagedLLMEngine`` on the card with the CUDA kernel, holding the card;
+   phase 4's 8 requests as concurrent streaming handle calls keep the
+   deployment's contract (contiguous ``index``, ``finish_reason`` and
+   ``ttft_s`` on the last item) and K4's launches, set to 0 just before
+   and read just after, must be n_layers x the replica's prefills (wgmma)
+   and decode steps (split) from ``get_engine_stats``; blocks drain; then
+   two ``num_gpus=0.5`` replicas (8 slots each) on the one card answer
+   phase 4's requests twice over (16): both replicas serve, the two
+   requests sharing a 256-token prefix land on one replica (prefix
+   affinity) whose prefix hits rise, K4's launches equal the sum over both
+   replicas, and a third ``num_gpus=0.5`` replica asked for on top stays
+   pending and is never built; at 2 layers in f32 the greedy streams
+   through a deployment equal a direct engine's on the kernel and
+   ``Generator``'s, and, where aiohttp imports, one streamed request over
+   the HTTP ingress gives the handle's tokens (whether grpcio imports is
+   printed); a no-op deployment's round trip through its handle is timed
+   beside phase 11's no-op actor call; a replica whose constructor fails
+   fails the run with its own error; after ``serve.shutdown()`` and
+   ``shutdown()`` no replica, controller or proxy thread, no arena and no
+   listening socket is left.
 
-In phases 5, 8, 9, 10 and 11 a greedy stream that departs from its reference must
+In phases 5, 8, 9, 10, 11 and 12 a greedy stream that departs from its reference must
 do so at a near tie: the plain path's top-2 logit gap there under 1e-3.
 
 It prints the kernels line ``{"kernels": [...]}`` and, last, the line
@@ -2156,6 +2180,412 @@ def _runtime_object_plane(torch, np, rt, card, reps=5):
     return {"bytes": nbytes, "ms": ms, "gb_per_s": rate, "reps": reps}
 
 
+# -- phase 12 ----------------------------------------------------------------
+SERVE_NOOP_CALLS = 200                # handle round trips timed for Serve's cost
+SERVE_TWO_SLOTS = 8                   # slots a replica of the two-replica run
+
+
+class _HandleStreams:
+    """``eng.stream`` over a Serve ``DeploymentHandle`` of
+    ``llm_deployment``: ``_serve`` drives it as it drives an engine. Each
+    call is one streaming ``.remote()``; its items must keep the deployment's
+    contract (``token``, ``index`` from 0 up, ``decode_tps``; ``finish_reason``
+    and ``ttft_s`` on the last item only). ``result`` also gets the key of
+    the replica the router picked."""
+
+    def __init__(self, handle):
+        self.handle = handle
+
+    def stream(self, prompt, *, max_new_tokens, temperature, seed, result):
+        gen = self.handle.options(stream=True).remote(
+            {"prompt_ids": prompt, "max_new_tokens": max_new_tokens,
+             "temperature": temperature, "seed": seed})
+        result["replica"] = gen._replica_key
+        last = None
+        for i, item in enumerate(gen):
+            if last is not None and ({"finish_reason", "ttft_s"} & set(last)):
+                fail(f"serve: item {i - 1} of {i}+ carries "
+                     f"{sorted(last)}: only the last item may")
+            if item.get("index") != i or not {"token", "decode_tps"} <= \
+                    set(item):
+                fail(f"serve: item {i} of a stream is {item}")
+            last = item
+            yield item["token"]
+        if last is None or not {"finish_reason", "ttft_s"} <= set(last):
+            fail(f"serve: a stream's last item is {last}")
+        result.update(finish_reason=last["finish_reason"],
+                      ttft_s=last["ttft_s"], decode_tps=last["decode_tps"])
+
+
+def _replica_actors():
+    """(actor id, GCS info) of every Serve replica actor the runtime made."""
+    from ray_tpu_torch.core.runtime import get_runtime
+
+    r = get_runtime()
+    return [(a, r.gcs.get_actor(a)) for a, run in list(r.actors.items())
+            if run.creation_spec.function_name == "ReplicaActor"]
+
+
+def _fail_on_dead_replicas(what):
+    """A replica that died other than by ``kill`` (its constructor raised: a
+    CUDA error, out of memory, a kernel build) fails the run with its own
+    error — serve.run would only time out."""
+    dead = [info.death_cause for _a, info in _replica_actors()
+            if info is not None and info.state == "DEAD"
+            and "killed via kill()" not in (info.death_cause or "")]
+    if dead:
+        fail(f"serve: {what}: a replica died: {dead[0]}")
+
+
+def _serve_up(rt_mod, serve, app, name, n, **run_kw):
+    """``serve.run(app)``, then wait until ``n`` replicas of ``name`` are up
+    (ALIVE); returns (handle, replica actor handles, their engines)."""
+    from ray_tpu_torch.core.runtime import get_runtime
+    from ray_tpu_torch.serve.controller import get_or_create_controller
+
+    try:
+        handle = serve.run(app, **run_kw)
+    except TimeoutError as e:
+        _fail_on_dead_replicas(f"serve.run({name})")
+        fail(f"serve: serve.run({name}) timed out: {e}")
+    ctrl = get_or_create_controller()
+    deadline = time.monotonic() + 600
+    while True:
+        _fail_on_dead_replicas(name)
+        _v, table = rt_mod.get(ctrl.get_snapshot.remote(-1, 0.0))
+        reps = table.get(name, {}).get("replicas", [])
+        states = [get_runtime().gcs.get_actor(r.actor_id).state
+                  for r in reps]
+        if len(reps) == n and states == ["ALIVE"] * n:
+            break
+        if time.monotonic() > deadline:
+            fail(f"serve: {name}: replicas {states} after 600 s")
+        time.sleep(0.05)
+    engines = [get_runtime().actors[r.actor_id].instance._callable.engine
+               for r in reps]
+    return handle, reps, engines
+
+
+def _retire(rt_mod, serve, name, count):
+    """Delete deployment ``name`` and wait until its replicas have given
+    the card back."""
+    serve.delete(name)
+    deadline = time.monotonic() + 120
+    while rt_mod.available_resources().get("GPU", 0) != float(count):
+        if time.monotonic() > deadline:
+            fail(f"serve: {name}'s replicas still hold the card after "
+                 f"delete: {rt_mod.available_resources()}")
+        time.sleep(0.05)
+
+
+def _doubled_requests(np):
+    """Phase 4's 8 requests twice over: the second copy's names end in
+    ``#2`` and its waits point at the second copy."""
+    out = _requests(np)
+    for r in _requests(np):
+        r["name"] += "#2"
+        if "after" in r:
+            base, event = r["after"].split(":")
+            r["after"] = f"{base}#2:{event}"
+        if r.get("extends"):
+            r["extends"] += "#2"
+        out.append(r)
+    return out
+
+
+def _k4_by_route(cfg, stats0, stats1):
+    """What K4's launches must be: n_layers x the replicas' prefills on the
+    wgmma route and x their decode steps on the split route, summed."""
+    d_pref = sum(int(b["prefill_forwards"] - a["prefill_forwards"])
+                 for a, b in zip(stats0, stats1))
+    d_dec = sum(int(b["decode_forwards"] - a["decode_forwards"])
+                for a, b in zip(stats0, stats1))
+    return d_pref, d_dec, {"wgmma": cfg.n_layers * d_pref,
+                           "split": cfg.n_layers * d_dec}
+
+
+def phase_serve(torch, np, card, count, counts, paged_summary,
+                runtime_summary):
+    """The Serve stack on the card: ``serve.run(llm_deployment(...))`` of
+    ``gpt2_small`` at full width with ``num_gpus=1``; phase 4's requests
+    through streaming handles with K4 counted by route; two ``num_gpus=0.5``
+    replicas on the one card with prefix affinity and a third pending; the
+    2-layer f32 identity through a deployment; a no-op deployment's round
+    trip; the HTTP leg where aiohttp imports; nothing left after
+    ``serve.shutdown()`` and ``shutdown()``."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.serve.controller import get_or_create_controller
+    from ray_tpu_torch.serve.llm import llm_deployment
+
+    pid = os.getpid()
+    threads_before = set(threading.enumerate())
+    rt.init()
+    if rt.cluster_resources().get("GPU") != float(count):
+        fail(f"serve: init() registered {rt.cluster_resources()}")
+    summary = {}
+    cfg = transformer.gpt2_small()
+    L = cfg.n_layers
+
+    def params_fn():
+        return transformer.init_params(
+            cfg, torch.Generator().manual_seed(0), device=DEVICE)
+
+    # One replica, the whole card, engine defaults.
+    t0 = time.perf_counter()
+    handle, reps, (eng,) = _serve_up(
+        rt, serve, llm_deployment(cfg, params_fn, name="serve-1",
+                                  ray_actor_options={"num_gpus": 1}).bind(),
+        "serve-1", 1)
+    if (type(eng).__name__ != "PagedLLMEngine"
+            or eng._pg.attention_kernel != "cuda"
+            or eng.device.type != torch.device(DEVICE).type):
+        fail(f"serve: the replica's engine is {type(eng).__name__} on "
+             f"{eng.device}, attention {eng._pg.attention_kernel!r}")
+    if rt.available_resources().get("GPU", 0) != float(count) - 1:
+        fail(f"serve: the replica does not hold its card: "
+             f"{rt.available_resources()}")
+    log(f"[serve] serve.run(llm_deployment(gpt2_small, num_gpus=1)): "
+        f"{type(eng).__name__} on {eng.device}, attention "
+        f"{eng._pg.attention_kernel}, slots {eng.slots}, pool "
+        f"{eng.kv.num_blocks} blocks; up in {time.perf_counter() - t0:.1f} s")
+    reqs = _requests(np)
+    st0 = [rt.get(r.get_metrics.remote()) for r in reps]
+    dec0 = (eng.decode_tokens, eng.decode_seconds)
+    counts.reset()
+    results, wall = _serve(torch, _HandleStreams(handle), reqs, "serve")
+    launches = counts.read()
+    st1 = [rt.get(r.get_metrics.remote()) for r in reps]
+    _check_streams(reqs, results, cfg.vocab_size)
+    d_pref, d_dec, want = _k4_by_route(cfg, st0, st1)
+    got = {r: launches[f"paged_attention/{r}"] for r in want}
+    if got != want or not all(got.values()):
+        fail(f"serve: K4 launches by route {got}, wanted {want} = {L} "
+             f"layers x (prefills {d_pref}, decode steps {d_dec})")
+    if st1[0]["kv_blocks_active"] != 0:
+        fail(f"serve: {st1[0]['kv_blocks_active']:.0f} blocks pinned after "
+             f"the run")
+    one = _serve_summary(None, reqs, results, wall,
+                         rate=_decode_rate(eng, dec0))
+    one.update(prefill_forwards=d_pref, decode_forwards=d_dec,
+               launches=got)
+    summary["one_replica"] = one
+    log(f"[serve] {len(reqs)} requests through streaming handles, "
+        f"{one['tokens']} tokens in {wall:.2f} s: decode "
+        f"{one['decode_tokens_per_s']:.1f} tokens/s (engine alone, phase 4: "
+        f"{paged_summary['decode_tokens_per_s']:.1f}), TTFT median "
+        f"{one['ttft_ms_median']:.1f} ms (phase 4 "
+        f"{paged_summary['ttft_ms_median']:.1f}), max "
+        f"{one['ttft_ms_max']:.1f} ms (phase 4 "
+        f"{paged_summary['ttft_ms_max']:.1f})  [{card}]")
+    log(f"[serve] K4 wgmma {got['wgmma']} = {L} x {d_pref} prefills, split "
+        f"{got['split']} = {L} x {d_dec} decode steps (get_engine_stats); "
+        f"blocks pinned after: 0")
+    del eng
+    _retire(rt, serve, "serve-1", count)
+
+    # Two replicas of half a card each, one interpreter.
+    t0 = time.perf_counter()
+    handle2, reps2, engs = _serve_up(
+        rt, serve, llm_deployment(
+            cfg, params_fn, name="serve-2", slots=SERVE_TWO_SLOTS,
+            num_replicas=2, ray_actor_options={"num_gpus": 0.5}).bind(),
+        "serve-2", 2)
+    log(f"[serve] two replicas of num_gpus=0.5 ({SERVE_TWO_SLOTS} slots "
+        f"each) up in {time.perf_counter() - t0:.1f} s")
+    reqs2 = _doubled_requests(np)
+    st0 = [rt.get(r.get_metrics.remote()) for r in reps2]
+    decs0 = [(e.decode_tokens, e.decode_seconds) for e in engs]
+    counts.reset()
+    results2, wall2 = _serve(torch, _HandleStreams(handle2), reqs2,
+                             "serve two replicas")
+    launches2 = counts.read()
+    st1 = [rt.get(r.get_metrics.remote()) for r in reps2]
+    _check_streams(reqs2, results2, cfg.vocab_size)
+    d_pref2, d_dec2, want2 = _k4_by_route(cfg, st0, st1)
+    got2 = {r: launches2[f"paged_attention/{r}"] for r in want2}
+    if got2 != want2 or not all(got2.values()):
+        fail(f"serve: two replicas: K4 launches by route {got2}, wanted "
+             f"{want2} = {L} layers x (prefills {d_pref2}, decode steps "
+             f"{d_dec2}) summed over both replicas")
+    keys = [r.actor_id.hex() for r in reps2]
+    served = {k: sum(1 for r in reqs2 if results2[r["name"]]["replica"] == k)
+              for k in keys}
+    if not all(served.values()):
+        fail(f"serve: two replicas: requests by replica {served}")
+    pair = {results2[n]["replica"] for n in ("prefix-a", "prefix-b")}
+    if len(pair) != 1:
+        fail("serve: two replicas: the requests sharing a 256-token prefix "
+             "landed on both replicas")
+    host = keys.index(next(iter(pair)))
+    hits = [b["kv_hit_tokens"] - a["kv_hit_tokens"]
+            for a, b in zip(st0, st1)]
+    if hits[host] < 256:
+        fail(f"serve: two replicas: the prefix pair's replica hit "
+             f"{hits[host]:.0f} tokens")
+    if any(s["kv_blocks_active"] for s in st1):
+        fail("serve: two replicas: blocks pinned after the run")
+    rates = [_decode_rate(e, d) for e, d in zip(engs, decs0)]
+    two = _serve_summary(None, reqs2, results2, wall2, rate=sum(rates))
+    two.update(prefill_forwards=d_pref2, decode_forwards=d_dec2,
+               launches=got2, requests_by_replica=list(served.values()),
+               decode_tokens_per_s_by_replica=rates, kv_hit_tokens=hits)
+    summary["two_replicas"] = two
+    log(f"[serve] {len(reqs2)} requests over two replicas ({served[keys[0]]}"
+        f" + {served[keys[1]]}), {two['tokens']} tokens in {wall2:.2f} s "
+        f"({two['tokens_per_s_wall']:.1f} tokens/s wall; one replica "
+        f"{one['tokens_per_s_wall']:.1f}): decode {rates[0]:.1f} + "
+        f"{rates[1]:.1f} = {sum(rates):.1f} tokens/s (one replica "
+        f"{one['decode_tokens_per_s']:.1f}), TTFT median "
+        f"{two['ttft_ms_median']:.1f} ms, max {two['ttft_ms_max']:.1f} ms  "
+        f"[{card}]")
+    log(f"[serve] K4 wgmma {got2['wgmma']} = {L} x {d_pref2}, split "
+        f"{got2['split']} = {L} x {d_dec2} over both replicas; the "
+        f"prefix pair on one replica, which hit {hits[host]:.0f} tokens")
+
+    # A third half-card replica on top stays pending.
+    ctrl = get_or_create_controller()
+    rt.get(ctrl.set_target_replicas.remote("serve-2", 3))
+    time.sleep(2.0)
+    from ray_tpu_torch.core.runtime import get_runtime
+
+    others = [(a, info) for a, info in _replica_actors()
+              if a.hex() not in keys and info.state != "DEAD"]
+    if len(others) != 1 or others[0][1].state != "PENDING" or \
+            get_runtime().actors[others[0][0]].instance is not None:
+        fail(f"serve: a third num_gpus=0.5 replica is "
+             f"{[i.state for _a, i in others]}, wanted one PENDING")
+    rt.get(ctrl.set_target_replicas.remote("serve-2", 2))
+    get_runtime().kill_actor(others[0][0])
+    log("[serve] a third num_gpus=0.5 replica asked for on top stayed "
+        "PENDING (never built)")
+    del engs
+    _retire(rt, serve, "serve-2", count)
+
+    # Identity at 2 layers, f32, with the HTTP leg.
+    summary["f32_identity"] = _serve_identity(torch, np, rt, serve, card)
+
+    # Serve's own cost a request: a no-op deployment's round trip.
+    noop = serve.run(serve.deployment(name="noop")(_serve_noop).bind())
+    noop.remote(None).result()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_NOOP_CALLS):
+        noop.remote(None).result()
+    summary["noop_round_trip_us"] = (
+        1e6 * (time.perf_counter() - t0) / SERVE_NOOP_CALLS)
+    log(f"[serve] a no-op deployment's round trip through its handle "
+        f"{summary['noop_round_trip_us']:.1f} us (mean of "
+        f"{SERVE_NOOP_CALLS}); phase 11's no-op actor method "
+        f"{runtime_summary['noop_round_trip_us_one_thread']:.1f} us  "
+        f"[{card}]")
+
+    serve.shutdown()
+    rt.shutdown()
+    deadline = time.monotonic() + 30
+    while True:
+        left = [t.name for t in set(threading.enumerate()) - threads_before
+                if t.is_alive()]
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    arenas = [n for n in os.listdir("/dev/shm")
+              if n.startswith(f"rtpu_store_{pid}_")]
+    http_port = summary["f32_identity"].get("http_port")
+    listening = http_port is not None and _listening(http_port)
+    if left or arenas or listening:
+        fail(f"serve: after serve.shutdown() and shutdown(): threads {left}, "
+             f"arenas {arenas}, HTTP port listening {listening}")
+    log("[serve] serve.shutdown() and shutdown(): no replica, controller or "
+        "proxy thread, no arena, no listening socket left")
+    return summary
+
+
+def _serve_noop(payload):
+    return None
+
+
+def _listening(port):
+    import socket
+
+    with socket.socket() as s:
+        s.settimeout(2)
+        return s.connect_ex(("127.0.0.1", port)) == 0
+
+
+def _serve_identity(torch, np, rt, serve, card):
+    """Greedy identity at 2 layers f32: streams through a ``num_gpus=1``
+    deployment == a direct engine on the kernel == ``Generator``; then one
+    streamed request over the HTTP ingress where aiohttp imports."""
+    import importlib.util
+
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.models.generate import Generator
+    from ray_tpu_torch.serve import api
+    from ray_tpu_torch.serve.llm import PagedLLMEngine, llm_deployment
+
+    f32 = transformer.gpt2_small(n_layers=2, dtype=torch.float32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def params_fn():
+        return transformer.init_params(
+            f32, torch.Generator().manual_seed(13), device=DEVICE)
+
+    have_http = importlib.util.find_spec("aiohttp") is not None
+    have_grpc = importlib.util.find_spec("grpc") is not None
+    log(f"[serve] ingress packages: aiohttp "
+        f"{'present' if have_http else 'absent'}, grpcio "
+        f"{'present' if have_grpc else 'absent'}")
+    handle, _reps, (eng,) = _serve_up(
+        rt, serve, llm_deployment(f32, params_fn, name="serve-f32",
+                                  ray_actor_options={"num_gpus": 1}).bind(),
+        "serve-f32", 1, route_prefix="/llm", _start_proxy=have_http,
+        http_port=0)
+    params = params_fn()
+    direct = PagedLLMEngine(params, f32, device=DEVICE,
+                            attention_kernel="cuda", name="serve-direct")
+    oracle = Generator(params, f32, device=DEVICE)
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, f32.vocab_size, n).tolist()
+               for n in (20, 150, 400, 700)]
+    through = [[it["token"] for it in handle.options(stream=True).remote(
+        {"prompt_ids": p, "max_new_tokens": 24})] for p in prompts]
+    ties = []
+    for p, got in zip(prompts, through):
+        want = oracle.generate(p, max_new_tokens=24)
+        ties += _same_greedy(
+            torch, oracle.params, f32, p, want,
+            {"deployment": got,
+             "direct kernel": direct.generate(p, max_new_tokens=24)},
+            "serve")
+    log(f"[serve] 4 greedy requests, gpt2_small widths x 2 layers, f32: "
+        f"through the deployment == direct paged engine on the kernel == "
+        f"Generator" + (f" up to {len(ties)} near tie(s)" if ties else ""))
+    out = {"ties": ties, "aiohttp": have_http, "grpcio": have_grpc}
+    if have_http:
+        import urllib.request
+
+        port = api._proxy.bound_port
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/llm",
+            data=json.dumps({"prompt_ids": prompts[0],
+                             "max_new_tokens": 24}).encode(),
+            headers={"X-Serve-Stream": "1"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            items = [json.loads(ln) for ln in
+                     resp.read().decode().splitlines() if ln.strip()]
+        if [it["token"] for it in items] != through[0] or \
+                "finish_reason" not in items[-1]:
+            fail(f"serve: the HTTP stream {items} is not the handle's")
+        out["http_port"] = port
+        log(f"[serve] one streamed request over the HTTP ingress: the "
+            f"handle's {len(items)} tokens")
+    else:
+        log("[serve] aiohttp is absent here: no HTTP leg")
+    del eng
+    return out
+
+
 def _leaf_names(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -2203,6 +2633,8 @@ def main() -> None:
     done(10)
     runtime = phase_runtime(torch, np, card, kind, count, counts, engine)
     done(11)
+    serving = phase_serve(torch, np, card, count, counts, engine, runtime)
+    done(12)
 
     def bf16_case(label):
         return next(c for c in cases
@@ -2234,6 +2666,10 @@ def main() -> None:
             for r in ("split", "wgmma")},
         "disagg_launches_by_route": disagg["launches"],
         "runtime_launches_by_route": runtime["launches"],
+        "serve_launches_by_route": {
+            r: serving["one_replica"]["launches"][r]
+            + serving["two_replicas"]["launches"][r]
+            for r in ("wgmma", "split")},
     }]
     for name, (replaces, _) in FLASH.items():
         mine = [c for c in flash_cases if c["kernel"] == name]
@@ -2256,7 +2692,7 @@ def main() -> None:
          "flash_cases": flash_cases,
          "engine": engine, "end_to_end": e2e, "train": train,
          "train_end_to_end": train_e2e, "slotted": slotted, "spec": spec,
-         "disagg": disagg, "runtime": runtime},
+         "disagg": disagg, "runtime": runtime, "serve": serving},
         indent=1))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

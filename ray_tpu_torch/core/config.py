@@ -105,6 +105,20 @@ class Config:
     serve_admission_queue_limit = _Flag(32)
     # Tokens per KV block in the paged pool.
     serve_kv_block_tokens = _Flag(16)
+    # Engine selection for llm_deployment: 1 serves replicas on the paged
+    # prefix-caching engine (PagedLLMEngine), 0 on the slotted LLMEngine.
+    serve_kv_paged_enabled = _Flag(True)
+    # Prefill/decode disaggregation: 1 builds each llm_deployment replica on
+    # a DisaggregatedLLMEngine (a prefill engine feeding a decode engine
+    # over a shm KV handoff lane); 0 keeps the colocated engine.
+    serve_disaggregation_enabled = _Flag(False)
+    # Router prefix affinity: 1 makes DeploymentHandle hash the prompt's
+    # leading KV blocks and prefer the replica that served that prefix last
+    # (its pool likely still caches those blocks).
+    serve_prefix_affinity_enabled = _Flag(True)
+    # Leading serve_kv_block_tokens-sized blocks of the prompt that feed the
+    # affinity hash.
+    serve_prefix_affinity_blocks = _Flag(4)
     # Blocks in the shared pool (block 0 is trash). 0 = auto: 2x a full slot
     # set at max_len, plus the trash block.
     serve_kv_pool_blocks = _Flag(0)
@@ -129,6 +143,16 @@ class Config:
     # The cluster-wide KV tier. Not ported yet: the paged engine raises when
     # it is on rather than serve without it.
     kv_tier_enabled = _Flag(False)
+    # Upper bound (seconds) the serve controller waits for a drain
+    # migration before it retires the victim anyway (read only with the
+    # KV tier on).
+    kv_tier_drain_timeout_s = _Flag(10.0)
+    # Minimum seconds between SLO-autoscaler evaluations per deployment:
+    # the controller ticks at 50 ms, but its signals refresh more slowly.
+    serve_autoscaling_interval_s = _Flag(0.25)
+    # Minimum seconds between reads of the cluster TTFT histogram for the
+    # p99 override (one read per deployment).
+    serve_slo_rollup_interval_s = _Flag(1.0)
 
     # -- timeouts -------------------------------------------------------------
     # Wait budget of internal loops that re-check a predicate; a blocked

@@ -34,6 +34,9 @@ _LATENCY_BOUNDS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
                    0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
                    60.0)
 
+# Batch-size histogram bounds (items per @serve.batch flush).
+_BATCH_BOUNDS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+
 _metrics_lock = threading.Lock()
 _metric_cache: Dict[str, um.Metric] = {}
 
@@ -102,6 +105,18 @@ def tasks_total() -> um.Counter:
     return _metric(um.Counter, "ray_tpu_tasks_total",
                    "Tasks executed, by terminal state",
                    tag_keys=("state",))
+
+
+def serve_request_hist() -> um.Histogram:
+    return _metric(
+        um.Histogram, "ray_tpu_serve_request_latency_s",
+        "Serve replica request latency", boundaries=_LATENCY_BOUNDS,
+        tag_keys=("deployment",))
+
+
+def serve_batch_hist() -> um.Histogram:
+    return _metric(um.Histogram, "ray_tpu_serve_batch_size",
+                   "Serve @batch flush sizes", boundaries=_BATCH_BOUNDS)
 
 
 def serve_ttft_hist() -> um.Histogram:

@@ -1080,6 +1080,19 @@ class Runtime:
         self, actor_id: ActorID, spec: TaskSpec, node_id: NodeID, held: ResourceSet,
         runner: ActorRunner,
     ) -> None:
+        if runner.dead:
+            # Killed while its creation waited in a node queue for resources
+            # (the JAX runtime builds it anyway and keeps the grant): give
+            # the grant back and build nothing.
+            if not held.is_empty():
+                self.scheduler.release(node_id, held)
+            if runner.bundle_held is not None and self._pg_manager is not None:
+                strategy, request = runner.bundle_held
+                runner.bundle_held = None
+                self._pg_manager.release_to_bundle(strategy, request)
+            for oid in spec.dependencies():
+                self.reference_counter.remove_submitted_task_reference(oid)
+            return
         runner.node_id = node_id
         try:
             cls = self.gcs.get_function(spec.function_id)

@@ -1,15 +1,17 @@
-"""The prefill→decode KV handoff lane.
+"""Serve pipelines and the prefill→decode KV handoff lane.
 
-Counterpart of ``ray_tpu/serve/dag_pipeline.py``'s :class:`KVHandoffLane`.
-The compiled serve pipelines of that module (``PipelineHandle``,
-``build_compiled_pipeline``) park replicas in DAG loops and need the core
-runtime, which comes with ROADMAP Queue 1.
+Counterpart of ``ray_tpu/serve/dag_pipeline.py``: :class:`KVHandoffLane`
+and the per-call pipeline (:class:`SequentialPipelineHandle`, what
+``serve.run_pipeline(compiled=False)`` returns). The compiled pipelines of
+that module (``PipelineHandle``, ``build_compiled_pipeline``) park replicas
+in compiled-DAG loops, which wait for the multi-process cluster slice
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
 
@@ -17,6 +19,37 @@ from ray_tpu_torch.core import serialization
 from ray_tpu_torch.dag.channel import (_CLOSE, FILE_HEADER_SIZE,
                                        SLOT_HEADER_SIZE, Channel,
                                        ChannelClosed)
+
+
+class SequentialPipelineHandle:
+    """Per-call pipeline: the chain walked with one routed actor call per
+    stage per request."""
+
+    def __init__(self, stage_names: List[str], handles: List[Any]):
+        self.stage_names = list(stage_names)
+        self._handles = list(handles)
+
+    def remote(self, value: Any) -> "_SequentialResponse":
+        return _SequentialResponse(self._handles, value)
+
+    def shutdown(self) -> None:
+        pass  # nothing resident to tear down
+
+
+class _SequentialResponse:
+    def __init__(self, handles, value):
+        self._handles = handles
+        self._value = value
+        self._done = False
+
+    def result(self, timeout_s: Optional[float] = 30.0):
+        if not self._done:
+            v = self._value
+            for h in self._handles:
+                v = h.remote(v).result(timeout_s=timeout_s)
+            self._value = v
+            self._done = True
+        return self._value
 
 
 def _round64(n: int) -> int:

@@ -29,9 +29,9 @@ handoff lane. Each engine step emits the request spans of
 serve metrics of ``core.metrics_export`` (tokens, TTFT by phase, prefix hit
 tokens, pool occupancy, speculation, sheds) in this process's registry.
 
-Not in this slice (see ROADMAP.md): the cluster KV tier (``kv_tier_enabled``
-raises), the Serve deployment (``llm_deployment``), the metrics exporter to
-the GCS and the steady-state guard, each marked where it would sit.
+:func:`llm_deployment` builds the Serve deployment around the engines,
+chosen by the knobs in each replica. Not ported yet (see ROADMAP.md): the
+cluster KV tier (``kv_tier_enabled`` raises).
 """
 
 from __future__ import annotations
@@ -40,7 +40,8 @@ import collections
 import threading
 import time
 import weakref
-from typing import Dict, Iterable, List, Optional, Sequence, Union
+from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
+                    Union)
 
 import numpy as np
 import torch
@@ -1703,3 +1704,122 @@ class DisaggregatedLLMEngine:
             # reclaim it when the views drop.
             return
         self.lane.destroy()
+
+
+def llm_deployment(
+    config: TransformerConfig,
+    params_fn: Callable[[], Dict],
+    *,
+    name: str = "LLM",
+    max_new_tokens_default: int = 32,
+    slots: Optional[int] = None,
+    chunk: int = 8,
+    max_queue: Optional[int] = None,
+    draft_config: Optional[TransformerConfig] = None,
+    draft_params_fn: Optional[Callable[[], Dict]] = None,
+    device: Optional[Union[str, torch.device]] = None,
+    **deployment_kwargs,
+):
+    """Build a Serve deployment class around a continuous-batching engine.
+
+    ``params_fn`` runs inside the replica (checkpoint load / init) so weights
+    never ship through the controller; it returns the port's parameters
+    (torch tensors, for example from
+    :func:`ray_tpu_torch.models.convert.params_from_numpy`). ``device``
+    goes to the engine: the card unless the caller asks for the CPU, as every
+    entry point of the port (a replica that should hold the card asks for it
+    with ``ray_actor_options={"num_gpus": 1}``). Request payload::
+
+        {"prompt_ids": [...], "max_new_tokens": n, "temperature": t,
+         "seed": s}
+
+    Responses stream ``{"token": id, "index": i, "decode_tps": rate}``
+    dicts (call the handle with ``stream=True``); the final item adds
+    ``finish_reason`` ("stop" | "length_cap") and ``ttft_s``.
+    ``decode_tps`` is THIS request's decode rate. Sampled requests without
+    an explicit ``seed`` draw a fresh one per request.
+
+    The replica runs with ``max_concurrency`` sized to the engine so
+    concurrent streams batch INSIDE one engine instead of queueing at the
+    actor mailbox; ``get_engine_stats`` feeds slot occupancy and queue depth
+    to the controller for KV-occupancy-aware routing.
+    """
+    import random as _random
+
+    from ray_tpu_torch import serve
+
+    knobs = _get_config()
+    n_slots = int(slots if slots is not None else knobs.serve_llm_slots)
+    q_limit = int(max_queue if max_queue is not None
+                  else knobs.serve_admission_queue_limit)
+    # Streams park threads in the replica: enough actor threads for a full
+    # slot set plus a shed-depth of waiters plus control-plane calls.
+    deployment_kwargs.setdefault(
+        "max_concurrency", n_slots + max(q_limit, 4) + 4)
+
+    @serve.deployment(name=name, **deployment_kwargs)
+    class LLMServer:
+        def __init__(self):
+            # Engine choice re-reads the knobs HERE (in the replica): the
+            # paged engine is the default; serve_kv_paged_enabled=0 falls
+            # back to the slotted engine, serve_disaggregation_enabled=1
+            # splits prefill from decode over a KV handoff lane.
+            eng_knobs = _get_config()
+            eng_kw = {}
+            if bool(eng_knobs.serve_disaggregation_enabled):
+                cls = DisaggregatedLLMEngine
+            elif bool(eng_knobs.serve_kv_paged_enabled):
+                cls = PagedLLMEngine
+                if draft_params_fn is not None:
+                    # Draft weights load in-replica like the target's —
+                    # speculation turns on when serve_spec_tokens > 0.
+                    eng_kw["draft_params"] = draft_params_fn()
+                    eng_kw["draft_config"] = draft_config
+            else:
+                cls = LLMEngine
+            self.engine = cls(params_fn(), config, device=device,
+                              slots=n_slots, chunk=chunk, max_queue=q_limit,
+                              name=name, **eng_kw)
+            self.engine.warmup()
+
+        def __call__(self, payload):
+            if "prompt_ids" in payload:
+                prompt = payload["prompt_ids"]  # empty list → engine raises
+            else:
+                prompt = [1] * int(payload.get("prompt_len", 8))
+            n = int(payload.get("max_new_tokens", max_new_tokens_default))
+            temp = float(payload.get("temperature", 0.0))
+            seed = payload.get("seed")
+            if seed is None:
+                seed = _random.getrandbits(31)
+            outcome: dict = {}  # per-request, not the shared engine attr
+            stream = self.engine.stream(
+                prompt, max_new_tokens=n, temperature=temp, seed=int(seed),
+                result=outcome)
+            prev: Optional[dict] = None
+            for i, tok in enumerate(stream):
+                if prev is not None:
+                    yield prev
+                prev = {"token": tok, "index": i,
+                        "decode_tps": round(outcome.get("decode_tps", 0.0), 1)}
+            if prev is not None:
+                prev["finish_reason"] = outcome.get("finish_reason", "stop")
+                if "ttft_s" in outcome:
+                    # Measured submit→first-token latency, on the engine's
+                    # own clock.
+                    prev["ttft_s"] = outcome["ttft_s"]
+                yield prev
+
+        def get_engine_stats(self):
+            return self.engine.stats()
+
+        # -- drain migration (controller-driven, cluster KV tier) -------------
+        def kv_migrate_out(self, lane_name: str) -> int:
+            fn = getattr(self.engine, "kv_migrate_out", None)
+            return int(fn(lane_name)) if fn is not None else 0
+
+        def kv_migrate_in(self, lane_name: str) -> int:
+            fn = getattr(self.engine, "kv_migrate_in", None)
+            return int(fn(lane_name)) if fn is not None else 0
+
+    return LLMServer

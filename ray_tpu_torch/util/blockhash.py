@@ -41,3 +41,12 @@ def block_hashes(tokens: Sequence[int], block_tokens: int,
         digests.append(prev)
     return digests
 
+
+
+def prefix_head_hash(tokens: Sequence[int], block_tokens: int,
+                     blocks: int) -> Optional[bytes]:
+    """Digest of the prompt's leading ``blocks`` full blocks (fewer if the
+    prompt is shorter) — the serve router's affinity key. None when the
+    prompt has no full block (nothing stable to key on)."""
+    digests = block_hashes(tokens, block_tokens, max_blocks=blocks)
+    return digests[-1] if digests else None

@@ -3,9 +3,11 @@ nothing of JAX and nothing of the JAX package ``ray_tpu``.
 
 Every ``.py`` file is walked with ``ast`` (imports inside functions count
 too), and the runtime, serving and training entry modules are imported in a
-fresh interpreter with ``jax`` blocked from import. The same walk holds the
-port's device rule: no function of the port takes a ``device`` that
-defaults to the CPU (entry points run on the card unless asked otherwise).
+fresh interpreter with ``jax`` blocked from import (the Serve stack's
+ingress modules too: they import aiohttp and grpcio only when a proxy
+starts). The same walk holds the port's device rule: no function of the
+port takes a ``device`` that defaults to the CPU (entry points run on the
+card unless asked otherwise).
 """
 
 import ast
@@ -125,6 +127,9 @@ def test_serving_imports_with_jax_blocked():
         "import ray_tpu_torch.util.tracing, ray_tpu_torch.util.flightrec\n"
         "import ray_tpu_torch.core.metrics_export\n"
         "import ray_tpu_torch.core.serialization\n"
+        "import ray_tpu_torch.serve, ray_tpu_torch.serve.proxy\n"
+        "import ray_tpu_torch.serve.grpc_proxy, ray_tpu_torch.serve.proxy_state\n"
+        "import ray_tpu_torch.utils.eventloop\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ray_tpu')]\n"
         "assert not bad, bad\n"

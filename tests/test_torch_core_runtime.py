@@ -152,6 +152,41 @@ def test_second_gpu_actor_pends_until_the_first_is_killed():
         ray_tpu_torch.shutdown()
 
 
+def test_killed_pending_actor_is_never_built_and_holds_nothing():
+    """A GPU actor killed while it waits for the card is never constructed
+    once the card frees, and its queued creation takes no grant (the JAX
+    runtime builds it and keeps the grant)."""
+    built = []
+    ray_tpu_torch.init(resources={"CPU": 4, "GPU": 1})
+    try:
+        @ray_tpu_torch.remote(num_gpus=1)
+        class Card:
+            def __init__(self, tag):
+                built.append(tag)
+
+            def ping(self):
+                return "up"
+
+        first = Card.remote("first")
+        assert ray_tpu_torch.get(first.ping.remote(), timeout=10) == "up"
+        second = Card.remote("second")
+        time.sleep(0.2)
+        assert _rt().gcs.get_actor(second.actor_id).state == "PENDING"
+        ray_tpu_torch.kill(second)
+        ray_tpu_torch.kill(first)
+        deadline = time.monotonic() + 10
+        while (ray_tpu_torch.available_resources().get("GPU") != 1.0
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        assert ray_tpu_torch.available_resources().get("GPU") == 1.0
+        assert built == ["first"]
+        third = Card.remote("third")
+        assert ray_tpu_torch.get(third.ping.remote(), timeout=10) == "up"
+        assert built == ["first", "third"]
+    finally:
+        ray_tpu_torch.shutdown()
+
+
 def test_parked_gpu_work_runs_once_a_card_node_joins():
     """The autoscaler's seam: with ``autoscaling_enabled`` infeasible work
     parks as a pending demand instead of failing, and runs after a node

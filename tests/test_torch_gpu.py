@@ -695,3 +695,91 @@ def test_warm_engine_steps_on_the_card_record_no_violation(cuda):
         jitcheck.clear_violations()
         if not was:
             jitcheck.uninstall()
+
+
+# -- the Serve stack on the card ------------------------------------------------
+
+
+def _serve_streams(handle, prompts, n):
+    """Greedy token streams of ``prompts`` through streaming handle calls,
+    one thread each; the replica key each landed on."""
+    import threading
+
+    outs, keys, errs = [None] * len(prompts), [None] * len(prompts), []
+
+    def client(i):
+        try:
+            gen = handle.options(stream=True).remote(
+                {"prompt_ids": prompts[i], "max_new_tokens": n})
+            keys[i] = gen._replica_key
+            outs[i] = [item["token"] for item in gen]
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert not errs, errs
+    return outs, keys
+
+
+@pytest.mark.gpu
+def test_llm_deployment_on_the_card_counts_k4_by_route(runtime):
+    """``serve.run(llm_deployment(...))`` with ``num_gpus=1`` in bf16: the
+    replica holds the card, and K4's launches by route are n_layers x its
+    engine's prefills (wgmma) and decode steps (split)."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.llm import llm_deployment
+
+    cfg, params = _disagg_model(torch.bfloat16)
+    lm = llm_deployment(cfg, lambda: params, name="gpu-serve", slots=2,
+                        chunk=4, ray_actor_options={"num_gpus": 1})
+    try:
+        handle = serve.run(lm.bind())
+        stats = handle.options(method_name="get_engine_stats")
+        st0 = stats.remote().result(timeout_s=300)
+        assert runtime.available_resources().get("GPU", 0) == \
+            runtime.cluster_resources()["GPU"] - 1
+        wgmma0, split0 = pa.prefill_launches, pa.decode_launches
+        outs, _ = _serve_streams(handle, SPEC_PROMPTS, 12)
+        st1 = stats.remote().result(timeout_s=60)
+        assert all(len(o) == 12 and all(0 <= t < cfg.vocab_size for t in o)
+                   for o in outs)
+        d_pref = st1["prefill_forwards"] - st0["prefill_forwards"]
+        d_dec = st1["decode_forwards"] - st0["decode_forwards"]
+        assert d_pref > 0 and d_dec > 0
+        assert pa.prefill_launches - wgmma0 == cfg.n_layers * d_pref
+        assert pa.decode_launches - split0 == cfg.n_layers * d_dec
+        assert st1["kv_blocks_active"] == 0
+    finally:
+        serve.shutdown()
+
+
+@pytest.mark.gpu
+def test_two_half_gpu_replicas_match_the_direct_engine(runtime):
+    """Two ``num_gpus=0.5`` replicas on one card, f32: both answer, and
+    every greedy stream equals a direct engine's on the kernel."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.llm import llm_deployment
+
+    cfg, params = _disagg_model()
+    direct = PagedLLMEngine(params, cfg, name="gpu-serve-direct", slots=2,
+                            chunk=4)
+    prompts = SPEC_PROMPTS * 3
+    want = [direct.generate(p, max_new_tokens=12) for p in SPEC_PROMPTS]
+    lm = llm_deployment(cfg, lambda: params, name="gpu-serve-2", slots=2,
+                        chunk=4, num_replicas=2,
+                        ray_actor_options={"num_gpus": 0.5})
+    try:
+        handle = serve.run(lm.bind())
+        outs, keys = _serve_streams(handle, prompts, 12)
+        assert outs == want * 3
+        assert len(set(keys)) == 2
+        assert runtime.available_resources().get("GPU", 0) == \
+            runtime.cluster_resources()["GPU"] - 1
+    finally:
+        serve.shutdown()
