@@ -135,7 +135,43 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    ``shutdown()`` no replica, controller or proxy thread, no arena and no
    listening socket is left.
 
-In phases 5, 8, 9, 10, 11 and 12 a greedy stream that departs from its reference must
+13. cluster — the multi-process cluster on the card: after a check that two
+   node arenas (``object_store_memory``, 2 GiB each; a cut is printed)
+   fit in /dev/shm, ``Cluster`` starts a GCS process and two node daemons
+   (``python -m ray_tpu_torch.core.*``): node A ``{CPU: 8, GPU: 1}``, node
+   B ``{CPU: 4}``; ``init(address=...)`` must see ``GPU`` 1 and no
+   ``TPU``. Phase 4's engine (``gpt2_small``, full width, bf16, its seed)
+   in a ``num_gpus=1, max_concurrency=8`` actor in a worker process answers
+   phase 4's 8 requests as streaming calls: the engine, reported from the
+   worker, is the ``PagedLLMEngine`` on the card with the CUDA kernel; K4's
+   launches, set to 0 and read in the worker, are n_layers x its prefills
+   (wgmma) and decode steps (split), and the driver's own counters stay 0;
+   blocks drain; decode tokens/s, TTFT and a no-op call's round trip
+   beside phase 11's. A second ``num_gpus=1`` actor pends; SIGKILL of the
+   engine actor's process: its next call raises ``ActorDiedError``, its
+   card memory is back within 10 s (``nvidia-smi`` where it lists this
+   process's pid, else the card's free memory less this process's own),
+   and the pending actor comes up; through it, at 2 layers in f32, the
+   greedy streams equal a direct engine's on the kernel and
+   ``Generator``'s. A ``num_gpus=1`` task on node A returns phase 10's
+   1024-token K/V gather: ``get`` in the driver and in a task pinned to
+   node B (the chunked pull of ``core/object_transfer.py``) give the
+   worker's bytes (sha256), the pull and ``put``/``get`` timed beside
+   phase 11's. ``serve.run(llm_deployment(gpt2_small, ...))`` on the
+   cluster (the controller and replicas in worker processes; the
+   deployment's class gains reads of its own process's counters): one
+   ``num_gpus=1`` replica on phase 4's requests, then two ``num_gpus=0.5``
+   replicas of 8 slots in two processes on the requests twice over — both
+   serve, the prefix pair lands on one, each replica's K4 launches, read in
+   its own process, equal n_layers x its own forwards, a third half-card
+   replica waits as a ``{GPU: 0.5}`` demand and is never built; decode
+   tokens/s, tokens over wall, TTFT and ms of wall a forward beside phase
+   12's. After ``serve.shutdown()``, ``shutdown()`` and
+   ``cluster.shutdown()`` no GCS, daemon or worker process of the phase is
+   alive, no ``raytpu-*`` arena of theirs is left, and no other process
+   holds the card.
+
+In phases 5 and 8-13 a greedy stream that departs from its reference must
 do so at a near tie: the plain path's top-2 logit gap there under 1e-3.
 
 It prints the kernels line ``{"kernels": [...]}`` and, last, the line
@@ -145,6 +181,7 @@ It prints the kernels line ``{"kernels": [...]}`` and, last, the line
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -1770,21 +1807,44 @@ RUNTIME_NOOP_CALLS = 200              # round trips timed for the per-call cost
 RUNTIME_KV_TOKENS = 1024              # phase 10's handoff prompt: 64 blocks
 
 
+def _process_age_s():
+    """Seconds since this process started (``/proc``)."""
+    with open("/proc/self/stat") as f:
+        start = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        up = float(f.read().split()[0])
+    return up - start / os.sysconf("SC_CLK_TCK")
+
+
 class _EngineActor:
     """The paged engine hosted in an actor: built from ``cfg`` and a weight
     seed on the card and warmed, answering ``.remote()`` calls from the
     actor's threads (the engine's request threads)."""
 
     def __init__(self, cfg, seed, name, **kw):
+        t0 = time.perf_counter()
+        age = _process_age_s()
         import torch
         from ray_tpu_torch.models import transformer
         from ray_tpu_torch.serve.llm import PagedLLMEngine
 
+        t1 = time.perf_counter()
+        if DEVICE == "cuda":
+            torch.cuda.init()
+        t2 = time.perf_counter()
         params = transformer.init_params(
             cfg, torch.Generator().manual_seed(seed), device=DEVICE)
+        t3 = time.perf_counter()
         self.eng = PagedLLMEngine(params, cfg, device=DEVICE, name=name,
                                   **kw)
+        t4 = time.perf_counter()
         self.eng.warmup()
+        # Where a cold process's set-up goes (a warm one imports nothing).
+        self.setup_s = {"process_age": age, "init_at": time.time() - (
+                            time.perf_counter() - t0), "imports": t1 - t0,
+                        "cuda_init": t2 - t1,
+                        "params": t3 - t2, "engine": t4 - t3,
+                        "warmup": time.perf_counter() - t4}
 
     def stream(self, prompt, max_new_tokens, temperature, seed):
         """The request's tokens, then its result dict (TTFT, finish)."""
@@ -1810,9 +1870,11 @@ class _EngineActor:
 
         e = self.eng
         return {"attention_kernel": e._pg.attention_kernel,
+                "engine": type(e).__name__,
                 "device": str(e.device), "slots": e.slots, "chunk": e.chunk,
                 "pool_blocks": e.kv.num_blocks,
-                "params": transformer.param_count(e.params)}
+                "params": transformer.param_count(e.params),
+                "pid": os.getpid(), "setup_s": self.setup_s}
 
     def stats(self):
         return self.eng.stats()
@@ -1820,6 +1882,10 @@ class _EngineActor:
     def launches(self):
         """The kernels' launch counters as this actor reads them."""
         return Counts().read()
+
+    def reset_launches(self):
+        """The kernels' launch counters of this actor's process set to 0."""
+        Counts().reset()
 
     def decode_counters(self):
         return self.eng.decode_tokens, self.eng.decode_seconds
@@ -2586,6 +2652,657 @@ def _serve_identity(torch, np, rt, serve, card):
     return out
 
 
+# -- phase 13 ----------------------------------------------------------------
+CLUSTER_NODE_A = {"CPU": 8, "GPU": 1}  # the card's node
+CLUSTER_NODE_B = {"CPU": 4}           # no card: the cross-node pull's target
+CLUSTER_ARENA = 2 * 2**30             # object_store_memory's default, a node
+CLUSTER_MIN_ARENA = 256 * 2**20       # the K/V object and its pull fit
+CLUSTER_FREED_S = 10.0                # a SIGKILLed worker's card comes back
+
+
+def _smi_pids():
+    """The pids ``nvidia-smi`` lists as holding a context on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi --query-compute-apps failed: {out.stderr.strip()}")
+    return {int(w) for w in out.stdout.split() if w.strip().isdigit()}
+
+
+def _held_by_others(torch, base):
+    """Device memory held beyond ``base`` (``(free, reserved)`` read at the
+    start) by other processes: the card's fall in free memory less what
+    this process's own allocator took meanwhile."""
+    free = torch.cuda.mem_get_info()[0]
+    return (base[0] - free) - (torch.cuda.memory_reserved() - base[1])
+
+
+def _alive(pid):
+    """Whether ``pid`` is a live process (a zombie counts as gone)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _kv_bytes(k, v):
+    """The sha256 of two tensors' raw bytes, as the host holds them."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in (k, v):
+        h.update(t.detach().to("cpu").contiguous().reshape(-1)
+                 .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _kv_task(cfg, seed, prompt):
+    """A ``num_gpus=1`` task in a worker process: phase 4's engine from its
+    seed, the prefill of ``prompt`` and the gather of its blocks (phase
+    10's handoff gather); returns the bf16 tensors on the card, the sha256
+    of their bytes, their device and the worker's pid."""
+    import torch
+
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.serve.llm import PagedLLMEngine
+
+    params = transformer.init_params(
+        cfg, torch.Generator().manual_seed(seed), device=DEVICE)
+    eng = PagedLLMEngine(params, cfg, device=DEVICE, name="cluster-kv")
+    k, v, _, _ = eng.prefill_to_blocks(prompt, seed=0)
+    return k, v, _kv_bytes(k, v), str(k.device), os.getpid()
+
+
+def _pull_task(boxed):
+    """A task pinned to the node without the card: ``get`` of the K/V
+    object made on the other node (the chunked pull of
+    ``core/object_transfer.py`` into this node's arena), timed; returns
+    the sha256 of the bytes it got, the ms, its node and its pid."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.runtime import get_runtime
+
+    t0 = time.perf_counter()
+    k, v, _digest, _dev, _pid = rt.get(boxed[0], timeout=600)
+    ms = (time.perf_counter() - t0) * 1e3
+    return (_kv_bytes(k, v), ms, get_runtime().current_node_id.hex(),
+            os.getpid())
+
+
+def _echo_task(value):
+    """A task that returns its argument: its result is a new object in its
+    node's arena."""
+    return value
+
+
+def _counted_server(base):
+    """``llm_deployment``'s server class with reads of its own process: K4's
+    launch counters (and their reset), the engine's decode counters, and
+    what the engine is and where it runs."""
+
+    class CountedLLMServer(base):
+        def launches(self):
+            return Counts().read()
+
+        def reset_launches(self):
+            Counts().reset()
+
+        def decode_counters(self):
+            return self.engine.decode_tokens, self.engine.decode_seconds
+
+        def engine_info(self):
+            e = self.engine
+            return {"engine": type(e).__name__, "device": str(e.device),
+                    "attention_kernel": e._pg.attention_kernel,
+                    "slots": e.slots, "pool_blocks": e.kv.num_blocks,
+                    "pid": os.getpid()}
+
+    return CountedLLMServer
+
+
+def _cluster_serve_up(rt_mod, serve, dep, name, n):
+    """``serve.run`` of ``dep`` with ``_counted_server``'s class, then wait
+    until ``n`` replicas are ALIVE; a replica that died fails the run with
+    its own death cause. Returns (handle, replica actor handles, their
+    ``engine_info``)."""
+    from ray_tpu_torch.core.runtime import get_runtime
+    from ray_tpu_torch.serve.controller import get_or_create_controller
+
+    dep = dep.options(func_or_class=_counted_server(dep.func_or_class))
+    handle = serve.run(dep.bind())
+    ctrl = get_or_create_controller()
+    gcs = get_runtime().gcs
+    deadline = time.monotonic() + 600
+    while True:
+        _v, table = rt_mod.get(ctrl.get_snapshot.remote(-1, 0.0))
+        reps = table.get(name, {}).get("replicas", [])
+        infos = [gcs.get_actor(r.actor_id) for r in reps]
+        dead = [i.death_cause for i in infos
+                if i is not None and i.state == "DEAD"]
+        if dead:
+            fail(f"cluster: {name}: a replica died: {dead[0]}")
+        states = [i.state if i is not None else None for i in infos]
+        if len(reps) == n and states == ["ALIVE"] * n:
+            break
+        if time.monotonic() > deadline:
+            fail(f"cluster: {name}: replicas {states} after 600 s")
+        time.sleep(0.05)
+    infos = [rt_mod.get(r.handle_request.remote("engine_info"), timeout=60)
+             for r in reps]
+    for info in infos:
+        if (info["engine"] != "PagedLLMEngine"
+                or info["attention_kernel"] != "cuda"
+                or torch_device_type(info["device"]) != DEVICE):
+            fail(f"cluster: {name}: a replica's engine is {info}")
+    return handle, reps, infos
+
+
+def torch_device_type(device):
+    return device.split(":", 1)[0]
+
+
+def _replica_run(rt_mod, torch, cfg, handle, reps, reqs, label):
+    """``reqs`` through streaming handle calls with each replica's K4
+    counters set to 0 just before (in its own process) and read just
+    after; K4 must equal n_layers x that replica's prefills (wgmma) and
+    decode steps (split). Returns the summary and its per-replica parts."""
+    def each(method):
+        return [rt_mod.get(r.handle_request.remote(method), timeout=60)
+                for r in reps]
+
+    st0 = each("get_engine_stats")
+    dec0 = each("decode_counters")
+    each("reset_launches")
+    results, wall = _serve(torch, _HandleStreams(handle), reqs, label)
+    launches = each("launches")
+    st1 = each("get_engine_stats")
+    dec1 = each("decode_counters")
+    _check_streams(reqs, results, cfg.vocab_size)
+    per = []
+    for i in range(len(reps)):
+        d_pref, d_dec, want = _k4_by_route(cfg, [st0[i]], [st1[i]])
+        got = {r: launches[i][f"paged_attention/{r}"] for r in want}
+        if got != want:
+            fail(f"cluster: {label}: replica {i}: K4 launches by route "
+                 f"{got}, wanted {want} = {cfg.n_layers} layers x "
+                 f"(prefills {d_pref}, decode steps {d_dec}) of its own")
+        if st1[i]["kv_blocks_active"]:
+            fail(f"cluster: {label}: replica {i}: blocks pinned after the "
+                 f"run")
+        dt = dec1[i][1] - dec0[i][1]
+        per.append({"prefill_forwards": d_pref, "decode_forwards": d_dec,
+                    "launches": got,
+                    "decode_tokens_per_s": (dec1[i][0] - dec0[i][0]) / dt
+                    if dt > 0 else 0.0,
+                    "kv_hit_tokens": st1[i]["kv_hit_tokens"]
+                    - st0[i]["kv_hit_tokens"]})
+    total = {r: sum(p["launches"][r] for p in per) for r in ("wgmma", "split")}
+    if not all(total.values()):
+        fail(f"cluster: {label}: K4 launches by route {total}: both routes "
+             f"must run")
+    forwards = sum(p["prefill_forwards"] + p["decode_forwards"] for p in per)
+    summary = _serve_summary(
+        None, reqs, results, wall,
+        rate=sum(p["decode_tokens_per_s"] for p in per))
+    summary.update(launches=total, replicas=per, forwards=forwards,
+                   ms_wall_per_forward=wall * 1e3 / forwards)
+    return summary, results
+
+
+def phase_cluster(torch, np, card, counts, runtime_summary, serve_summary):
+    """The multi-process cluster on the card: a GCS, two node daemons (one
+    with the card) and their worker processes; phase 4's engine in a
+    worker-process actor and through two Serve deployments; the 2-layer
+    f32 identity across processes; the K/V across nodes; a SIGKILLed GPU
+    worker's card and grant returned; nothing left after teardown."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.core.cluster import Cluster
+    from ray_tpu_torch.core.runtime import get_runtime
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.serve.controller import get_or_create_controller
+    from ray_tpu_torch.serve.llm import llm_deployment
+
+    me = os.getpid()
+    summary = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    base = (free0, torch.cuda.memory_reserved())
+    smi0 = _smi_pids()
+    smi_sees = me in smi0
+    log(f"[cluster] nvidia-smi lists {sorted(smi0)} as holding the card "
+        f"(this process {me}: "
+        f"{'listed' if smi_sees else 'not listed, a PID namespace it cannot see'}"
+        f"); device memory free {free0} bytes")
+
+    # 1. The cluster: its arenas must fit in /dev/shm first.
+    st = os.statvfs("/dev/shm")
+    shm_free = st.f_bavail * st.f_frsize
+    arena = CLUSTER_ARENA
+    if 2 * arena > 0.8 * shm_free:
+        arena = int(0.8 * shm_free / 2) // 2**20 * 2**20
+        if arena < CLUSTER_MIN_ARENA:
+            fail(f"cluster: /dev/shm has {shm_free} bytes free: two arenas "
+                 f"of {CLUSTER_MIN_ARENA} bytes do not fit")
+        log(f"[cluster] CUT: a node's arena {arena} bytes (default "
+            f"{CLUSTER_ARENA}): two arenas must fit in /dev/shm's "
+            f"{shm_free} free bytes")
+    t0 = time.perf_counter()
+    cluster = Cluster(num_nodes=0, system_config=(
+        {"object_store_memory": arena} if arena != CLUSTER_ARENA else None))
+    node_a = cluster.add_node(CLUSTER_NODE_A)
+    node_b = cluster.add_node(CLUSTER_NODE_B)
+    rt.init(address=cluster.gcs_address)
+    res = rt.cluster_resources()
+    if (res.get("GPU") != 1.0 or any(k.startswith("TPU") for k in res)
+            or res.get("CPU") != CLUSTER_NODE_A["CPU"]
+            + CLUSTER_NODE_B["CPU"]):
+        fail(f"cluster: cluster_resources() {res}, wanted GPU 1, CPU 12 and "
+             f"no TPU")
+    arenas = [h.store_name for h in (node_a, node_b)]
+    if not all(arenas) or not all(
+            os.path.exists(f"/dev/shm/{n}") for n in arenas):
+        fail(f"cluster: the nodes' arenas {arenas} are not in /dev/shm")
+    summary.update(resources=res, arena_bytes=arena, arenas=arenas,
+                   shm_free_bytes=shm_free,
+                   start_s=time.perf_counter() - t0)
+    log(f"[cluster] a GCS and two node daemons up in "
+        f"{summary['start_s']:.1f} s: node A {CLUSTER_NODE_A}, node B "
+        f"{CLUSTER_NODE_B}; init(address=...) sees {res}; arenas {arenas} "
+        f"({arena} bytes each; /dev/shm had {shm_free} free)")
+    procs = {cluster.gcs_proc.pid, node_a.proc.pid, node_b.proc.pid}
+
+    # 2. Phase 4's engine in a worker-process actor on node A.
+    cfg = transformer.gpt2_small()
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    submitted = time.time()
+    a = rt.remote(num_gpus=1, max_concurrency=8)(_EngineActor).remote(
+        cfg, 0, "cluster-actor")
+    info = rt.get(a.info.remote(), timeout=600)
+    info["setup_s"]["to_init"] = info["setup_s"].pop("init_at") - submitted
+    procs.add(info["pid"])
+    if (info["engine"] != "PagedLLMEngine"
+            or torch_device_type(info["device"]) != DEVICE
+            or info["attention_kernel"] != "cuda" or info["pid"] == me):
+        fail(f"cluster: the engine actor is {info}")
+    if rt.available_resources().get("GPU", 0) != 0.0:
+        fail(f"cluster: the engine actor does not hold the card: "
+             f"{rt.available_resources()}")
+    held = _held_by_others(torch, base)
+    log(f"[cluster] engine actor (num_gpus=1, max_concurrency=8) in worker "
+        f"process {info['pid']}: {info['engine']} gpt2_small "
+        f"({info['params']} params, {cfg.dtype}) on {info['device']}, "
+        f"attention {info['attention_kernel']}; set-up + warmup "
+        f"{time.perf_counter() - t0:.1f} s in a cold process ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in info["setup_s"].items())
+        + f" s); it holds {held} bytes of the card")
+    reqs = _requests(np)
+    proxy = _ActorStreams(rt, a)
+    st0 = rt.get(a.stats.remote())
+    dec0 = rt.get(a.decode_counters.remote())
+    rt.get(a.reset_launches.remote())
+    counts.reset()
+    results, wall = _serve(torch, proxy, reqs, "cluster")
+    launches = rt.get(a.launches.remote())
+    st1 = rt.get(a.stats.remote())
+    dec1 = rt.get(a.decode_counters.remote())
+    _check_streams(reqs, results, cfg.vocab_size)
+    d_pref = int(st1["prefill_forwards"] - st0["prefill_forwards"])
+    d_dec = int(st1["decode_forwards"] - st0["decode_forwards"])
+    want = {"wgmma": L * d_pref, "split": L * d_dec}
+    got = {r: launches[f"paged_attention/{r}"] for r in want}
+    if got != want or not all(got.values()):
+        fail(f"cluster: K4 launches by route {got} (read in the worker), "
+             f"wanted {want} = {L} layers x (prefills {d_pref}, decode "
+             f"steps {d_dec})")
+    if rt.get(a.active_blocks.remote()):
+        fail("cluster: blocks still pinned after the run")
+    if any(counts.read().values()):
+        fail(f"cluster: the driver's own counters moved: {counts.read()}")
+    rate = (dec1[0] - dec0[0]) / (dec1[1] - dec0[1])
+    actor = _serve_summary(None, reqs, results, wall, rate=rate)
+    actor.update(prefill_forwards=d_pref, decode_forwards=d_dec,
+                 launches=got, pid=info["pid"], setup_s=info["setup_s"],
+                 held_bytes=held)
+    actor["noop_round_trip_us"] = _noop_round_trip_us(rt, a)
+    summary["actor"] = actor
+    log(f"[cluster] {len(reqs)} requests as streaming .remote() calls into "
+        f"the worker, {actor['tokens']} tokens in {wall:.2f} s: decode "
+        f"{rate:.1f} tokens/s (phase 11's in-process actor "
+        f"{runtime_summary['decode_tokens_per_s']:.1f}), TTFT median "
+        f"{actor['ttft_ms_median']:.1f} ms (phase 11 "
+        f"{runtime_summary['ttft_ms_median']:.1f}), max "
+        f"{actor['ttft_ms_max']:.1f} ms (phase 11 "
+        f"{runtime_summary['ttft_ms_max']:.1f}); a no-op call's round trip "
+        f"{actor['noop_round_trip_us']:.1f} us (mean of "
+        f"{RUNTIME_NOOP_CALLS}; phase 11's eight-thread actor "
+        f"{runtime_summary['noop_round_trip_us']:.1f}, one-thread "
+        f"{runtime_summary['noop_round_trip_us_one_thread']:.1f})  [{card}]")
+    log(f"[cluster] K4 in worker {info['pid']}: wgmma {got['wgmma']} = {L} x "
+        f"{d_pref} prefills, split {got['split']} = {L} x {d_dec} decode "
+        f"steps (read in the worker; the driver's counters stayed 0); "
+        f"blocks pinned after: 0")
+
+    # 6 (first, as it frees the card for 3). A second num_gpus=1 actor
+    # pends; SIGKILL the engine actor's process: its next call raises, its
+    # card memory and grant come back, and the pending actor comes up.
+    f32 = transformer.gpt2_small(n_layers=2, dtype=torch.float32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b = rt.remote(num_gpus=1)(_EngineActor).remote(f32, 13, "cluster-f32")
+    b_info = b.info.remote()
+    ready, _ = rt.wait([b_info], timeout=2.0)
+    if ready or get_runtime().gcs.get_actor(b.actor_id).state == "ALIVE":
+        fail("cluster: a second num_gpus=1 actor came up while the engine "
+             "actor held the card")
+    if smi_sees and info["pid"] not in _smi_pids():
+        fail(f"cluster: nvidia-smi does not list the engine actor's process "
+             f"{info['pid']}")
+    os.kill(info["pid"], 9)
+    t_kill = time.perf_counter()
+    try:
+        rt.get(a.noop.remote(), timeout=120)
+    except rt.ActorDiedError as e:
+        died = f"{type(e).__name__}: {e}"
+    else:
+        fail("cluster: a call on the SIGKILLed engine actor returned")
+    # The card's memory held by other processes, sampled for
+    # CLUSTER_FREED_S: it must fall to what the pending actor alone holds
+    # once it is up (it may start building as soon as the grant is back).
+    samples = []
+    while time.perf_counter() - t_kill < CLUSTER_FREED_S:
+        gone = not smi_sees or info["pid"] not in _smi_pids()
+        samples.append((time.perf_counter() - t_kill, gone,
+                        _held_by_others(torch, base)))
+        if rt.wait([b_info], timeout=0.1)[0]:
+            break
+    b_up = rt.get(b_info, timeout=600)
+    held_b = _held_by_others(torch, base)
+    freed = [t for t, gone, used in samples
+             if gone and used <= max(held_b, 0) + held / 4]
+    if not freed:
+        fail(f"cluster: {CLUSTER_FREED_S:.0f} s after the SIGKILL the card "
+             f"still held the worker: nvidia-smi {sorted(_smi_pids())}, "
+             f"least device memory held {min(u for _t, _g, u in samples)} "
+             f"bytes (the engine actor held {held}, the pending actor "
+             f"holds {held_b} once up)")
+    freed_s = freed[0]
+    summary["kill"] = {"pid": info["pid"], "error": died,
+                       "card_freed_s": freed_s, "smi_lists_pids": smi_sees,
+                       "held_bytes": held, "pending_held_bytes": held_b,
+                       "pending_up_pid": b_up["pid"]}
+    log(f"[cluster] SIGKILL of worker {info['pid']}: the next call raised "
+        f"{died[:80]}; its card memory came back "
+        f"{'and nvidia-smi dropped it ' if smi_sees else ''}in "
+        f"{freed_s:.2f} s; the pending num_gpus=1 actor came up in worker "
+        f"{b_up['pid']} on the freed grant")
+
+    # 3. Identity across processes at 2 layers in f32.
+    summary["f32_identity"] = _runtime_identity(torch, np, rt, b, f32)
+    rt.kill(b)
+
+    # 4. The object plane across nodes.
+    summary["object_plane"] = _cluster_object_plane(
+        torch, np, rt, card, node_a, node_b, runtime_summary, procs)
+
+    # 5. Serve on the cluster.
+    def params_fn():
+        return transformer.init_params(
+            cfg, torch.Generator().manual_seed(0), device=DEVICE)
+
+    t0 = time.perf_counter()
+    handle, reps, infos = _cluster_serve_up(
+        rt, serve, llm_deployment(cfg, params_fn, name="cluster-1",
+                                  ray_actor_options={"num_gpus": 1}),
+        "cluster-1", 1)
+    procs.update(i["pid"] for i in infos)
+    log(f"[cluster] serve.run(llm_deployment(gpt2_small, num_gpus=1)) on the "
+        f"cluster: {infos[0]['engine']} on {infos[0]['device']}, attention "
+        f"{infos[0]['attention_kernel']}, in worker {infos[0]['pid']}; up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    one, _ = _replica_run(rt, torch, cfg, handle, reps, _requests(np),
+                          "cluster one replica")
+    summary["one_replica"] = one
+    p12 = serve_summary["one_replica"]
+    log(f"[cluster] one replica: {one['tokens']} tokens in "
+        f"{one['wall_s']:.2f} s: decode {one['decode_tokens_per_s']:.1f} "
+        f"tokens/s (phase 12 {p12['decode_tokens_per_s']:.1f}), TTFT median "
+        f"{one['ttft_ms_median']:.1f} ms (phase 12 "
+        f"{p12['ttft_ms_median']:.1f}), max {one['ttft_ms_max']:.1f} ms "
+        f"(phase 12 {p12['ttft_ms_max']:.1f}); "
+        f"{one['ms_wall_per_forward']:.1f} ms of wall a forward  [{card}]")
+    log(f"[cluster] K4 in the replica's process: wgmma "
+        f"{one['launches']['wgmma']}, split {one['launches']['split']} = "
+        f"{L} x its prefills and decode steps")
+    _cluster_retire(rt, serve, "cluster-1")
+
+    t0 = time.perf_counter()
+    handle2, reps2, infos2 = _cluster_serve_up(
+        rt, serve, llm_deployment(
+            cfg, params_fn, name="cluster-2", slots=SERVE_TWO_SLOTS,
+            num_replicas=2, ray_actor_options={"num_gpus": 0.5}),
+        "cluster-2", 2)
+    pids2 = [i["pid"] for i in infos2]
+    procs.update(pids2)
+    if len(set(pids2)) != 2:
+        fail(f"cluster: the two half-card replicas share a process: {pids2}")
+    log(f"[cluster] two replicas of num_gpus=0.5 ({SERVE_TWO_SLOTS} slots "
+        f"each) in workers {pids2}; up in {time.perf_counter() - t0:.1f} s")
+    reqs2 = _doubled_requests(np)
+    two, results2 = _replica_run(rt, torch, cfg, handle2, reps2, reqs2,
+                                 "cluster two replicas")
+    keys = [r.actor_id.hex() for r in reps2]
+    served = [sum(1 for r in reqs2 if results2[r["name"]]["replica"] == k)
+              for k in keys]
+    if not all(served):
+        fail(f"cluster: two replicas: requests by replica {served}")
+    pair = {results2[n]["replica"] for n in ("prefix-a", "prefix-b")}
+    if len(pair) != 1:
+        fail("cluster: two replicas: the requests sharing a 256-token "
+             "prefix landed on both replicas")
+    host = keys.index(next(iter(pair)))
+    if two["replicas"][host]["kv_hit_tokens"] < 256:
+        fail(f"cluster: two replicas: the prefix pair's replica hit "
+             f"{two['replicas'][host]['kv_hit_tokens']:.0f} tokens")
+    two["requests_by_replica"] = served
+    summary["two_replicas"] = two
+    p12two = serve_summary["two_replicas"]
+    rates = [p["decode_tokens_per_s"] for p in two["replicas"]]
+    log(f"[cluster] {len(reqs2)} requests over two replica processes "
+        f"({served[0]} + {served[1]}), {two['tokens']} tokens in "
+        f"{two['wall_s']:.2f} s: decode {rates[0]:.1f} + {rates[1]:.1f} = "
+        f"{sum(rates):.1f} tokens/s ({sum(rates) / one['decode_tokens_per_s']:.2f}"
+        f"x one replica on the cluster; phase 12 in one interpreter "
+        f"{p12two['decode_tokens_per_s']:.1f}), tokens over wall "
+        f"{two['tokens_per_s_wall']:.1f} (one replica "
+        f"{one['tokens_per_s_wall']:.1f}; phase 12 "
+        f"{p12two['tokens_per_s_wall']:.1f}), TTFT median "
+        f"{two['ttft_ms_median']:.1f} ms, max {two['ttft_ms_max']:.1f} ms; "
+        f"{two['ms_wall_per_forward']:.1f} ms of wall a forward over both "
+        f"(one {one['ms_wall_per_forward']:.1f})  [{card}]")
+    log(f"[cluster] K4 by replica, each read in its own process: "
+        + ", ".join(f"wgmma {p['launches']['wgmma']} = {L} x "
+                    f"{p['prefill_forwards']}, split {p['launches']['split']}"
+                    f" = {L} x {p['decode_forwards']}"
+                    for p in two["replicas"])
+        + f"; the prefix pair on replica {host}")
+
+    # A third half-card replica on top stays pending and is never built.
+    ctrl = get_or_create_controller()
+    rt.get(ctrl.set_target_replicas.remote("cluster-2", 3))
+    deadline = time.monotonic() + 10
+    while True:
+        listed = rt.get(ctrl.list_deployments.remote())["cluster-2"]
+        demands = _gcs_call(cluster, "pending_resource_demands")
+        if (listed["num_replicas"] == 3 and any(
+                d.get("GPU") == 0.5 for d in demands)) or \
+                time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    smi_now = _smi_pids() if smi_sees else set()
+    if (listed["num_replicas"] != 3
+            or rt.available_resources().get("GPU", 0) != 0.0
+            or not any(d.get("GPU") == 0.5 for d in demands)
+            or (smi_sees and len(smi_now - {me}) != 2)):
+        fail(f"cluster: a third num_gpus=0.5 replica: deployment {listed}, "
+             f"free {rt.available_resources()}, waiting demands {demands}, "
+             f"nvidia-smi {sorted(smi_now)}")
+    for r in reps2:
+        if rt.get(r.handle_request.remote("engine_info"),
+                  timeout=60)["pid"] not in pids2:
+            fail("cluster: a replica moved after the third was asked for")
+    rt.get(ctrl.set_target_replicas.remote("cluster-2", 2))
+    log("[cluster] a third num_gpus=0.5 replica asked for on top: the "
+        "deployment counts 3, no GPU is free, the GCS holds its {GPU: 0.5} "
+        "demand waiting"
+        + (", and nvidia-smi lists only the two replicas beside this "
+           "process" if smi_sees else "") + " (never built)")
+    _cluster_retire(rt, serve, "cluster-2")
+
+    # 7. Tear down.
+    for i in range(2):
+        procs.update(cluster.worker_pids(i))
+    serve.shutdown()
+    rt.shutdown()
+    cluster.shutdown()
+    deadline = time.monotonic() + 15
+    while any(_alive(p) for p in procs) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    left = sorted(p for p in procs if _alive(p))
+    shm_left = [n for n in arenas if os.path.exists(f"/dev/shm/{n}")]
+    smi_left = sorted(_smi_pids() - {me}) if smi_sees else []
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_after = _held_by_others(torch, base)
+    if left or shm_left or smi_left or held_after > 256 * 2**20:
+        fail(f"cluster: after serve.shutdown(), shutdown() and "
+             f"cluster.shutdown(): processes {left}, arenas {shm_left}, "
+             f"nvidia-smi {smi_left}, device memory still held "
+             f"{held_after} bytes")
+    summary["processes"] = len(procs)
+    log(f"[cluster] serve.shutdown(), shutdown(), cluster.shutdown(): none "
+        f"of the {len(procs)} GCS, daemon and worker processes is alive, "
+        f"no raytpu-* arena of theirs is left, and only this process holds "
+        f"the card (other processes hold {held_after} bytes of device "
+        f"memory beyond the level before the cluster)")
+    return summary
+
+
+def _gcs_call(cluster, method, *args):
+    """One call of the cluster's GCS, on a connection of its own."""
+    from ray_tpu_torch.core.rpc import RpcClient
+
+    client = RpcClient(cluster.gcs_address)
+    try:
+        return client.call(method, *args, timeout=60)
+    finally:
+        client.close()
+
+
+def _cluster_retire(rt_mod, serve, name):
+    """Delete deployment ``name`` and wait until its replicas have given
+    the card back."""
+    serve.delete(name)
+    deadline = time.monotonic() + 120
+    while rt_mod.available_resources().get("GPU", 0) != 1.0:
+        if time.monotonic() > deadline:
+            fail(f"cluster: {name}'s replicas still hold the card after "
+                 f"delete: {rt_mod.available_resources()}")
+        time.sleep(0.05)
+
+
+def _cluster_object_plane(torch, np, rt, card, node_a, node_b,
+                          runtime_summary, procs, reps=5):
+    """Phase 10's 1024-token K/V gather from a ``num_gpus=1`` task in a
+    worker on node A: ``get`` in the driver and in a task pinned to node B
+    (the pull through ``core/object_transfer.py``) give the bytes the
+    worker made; ``put``/``get`` of the K/V in the driver timed beside a
+    pinned ``copy_``."""
+    from ray_tpu_torch.core.runtime import get_runtime
+    from ray_tpu_torch.models import transformer
+
+    cfg = transformer.gpt2_small()
+    prompt = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, RUNTIME_KV_TOKENS).tolist()
+    t0 = time.perf_counter()
+    ref = rt.remote(num_gpus=1)(_kv_task).remote(cfg, 0, prompt)
+    k, v, digest, dev, pid = rt.get(ref, timeout=600)
+    task_s = time.perf_counter() - t0
+    procs.add(pid)
+    nbytes = k.nbytes + v.nbytes
+    if (torch_device_type(dev) != DEVICE or k.device.type != "cpu"
+            or k.dtype != torch.bfloat16 or _kv_bytes(k, v) != digest):
+        fail(f"cluster: get of the task's K/V: {k.dtype} on {k.device} "
+             f"(made on {dev}), bytes equal "
+             f"{_kv_bytes(k, v) == digest}")
+    local = get_runtime().current_node_id
+    strategy = rt.NodeAffinitySchedulingStrategy(node_id=node_b.node_id,
+                                                 soft=False)
+    pulled = []
+    for i in range(reps):
+        # A fresh object each time (node B keeps what it pulled): the
+        # task's own, then the same tuple put again from the driver.
+        r = ref if i == 0 else rt.put((k, v, digest, dev, pid))
+        d_b, ms_b, node, pid_b = rt.get(
+            rt.remote(scheduling_strategy=strategy)(_pull_task).remote([r]),
+            timeout=600)
+        procs.add(pid_b)
+        if d_b != digest or node != node_b.node_id.hex():
+            fail(f"cluster: the task on node B ({node}) got other bytes "
+                 f"than the worker made: {d_b == digest}")
+        pulled.append(ms_b)
+        del r
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    kc, vc = k.to(DEVICE), v.to(DEVICE)
+    flat = torch.cat([kc.reshape(-1).view(torch.uint8),
+                      vc.reshape(-1).view(torch.uint8)])
+    on_local = rt.NodeAffinitySchedulingStrategy(node_id=local, soft=False)
+    times = {"put": [], "get": [], "pinned_d2h": []}
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = rt.put((kc, vc))
+        t1 = time.perf_counter()
+        pinned.copy_(flat)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        # The driver keeps what it put in its own cache: ``get`` is timed on
+        # a copy a task made in this node's arena, once it is sealed.
+        echoed = rt.remote(scheduling_strategy=on_local)(_echo_task).remote(r)
+        rt.wait([echoed], timeout=600)
+        t3 = time.perf_counter()
+        kk, vv = rt.get(echoed)
+        t4 = time.perf_counter()
+        times["put"].append((t1 - t0) * 1e3)
+        times["pinned_d2h"].append((t2 - t1) * 1e3)
+        times["get"].append((t4 - t3) * 1e3)
+        if _kv_bytes(kk, vv) != digest:
+            fail("cluster: put/get of the K/V is not bit for bit")
+        del r, echoed, kk, vv
+    ms = {n: _median(t[1:]) for n, t in times.items()}
+    ms["pull_node_b"] = _median(pulled)
+    rate = {n: nbytes / (ms[n] * 1e-3) / 1e9 for n in ms}
+    p11 = runtime_summary["object_plane"]["ms"]
+    log(f"[cluster] a num_gpus=1 task in worker {pid} returned the "
+        f"{RUNTIME_KV_TOKENS}-token K/V gather ({nbytes} bytes, bf16, made "
+        f"on {dev}) in {task_s:.1f} s with its engine's set-up; get in the "
+        f"driver (node {'A' if local == node_a.node_id else 'B'}) and in a "
+        f"task pinned to node B gave the worker's bytes (sha256). Median of "
+        f"{reps}: pull to node B {ms['pull_node_b']:.2f} ms = "
+        f"{rate['pull_node_b']:.2f} GB/s; put {ms['put']:.2f} ms (phase 11 "
+        f"{p11['put']:.2f}), get from this node's arena {ms['get']:.2f} ms "
+        f"(phase 11 {p11['get']:.2f}), pinned copy_ {ms['pinned_d2h']:.2f} "
+        f"ms (phase 11 {p11['pinned_d2h']:.2f})  [{card}]")
+    return {"bytes": nbytes, "ms": ms, "gb_per_s": rate, "reps": reps,
+            "task_s": task_s,
+            "driver_node": "A" if local == node_a.node_id else "B"}
+
+
 def _leaf_names(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -2635,6 +3352,8 @@ def main() -> None:
     done(11)
     serving = phase_serve(torch, np, card, count, counts, engine, runtime)
     done(12)
+    cluster = phase_cluster(torch, np, card, counts, runtime, serving)
+    done(13)
 
     def bf16_case(label):
         return next(c for c in cases
@@ -2670,6 +3389,11 @@ def main() -> None:
             r: serving["one_replica"]["launches"][r]
             + serving["two_replicas"]["launches"][r]
             for r in ("wgmma", "split")},
+        "cluster_launches_by_route": {
+            r: cluster["actor"]["launches"][r]
+            + cluster["one_replica"]["launches"][r]
+            + cluster["two_replicas"]["launches"][r]
+            for r in ("wgmma", "split")},
     }]
     for name, (replaces, _) in FLASH.items():
         mine = [c for c in flash_cases if c["kernel"] == name]
@@ -2692,7 +3416,8 @@ def main() -> None:
          "flash_cases": flash_cases,
          "engine": engine, "end_to_end": e2e, "train": train,
          "train_end_to_end": train_e2e, "slotted": slotted, "spec": spec,
-         "disagg": disagg, "runtime": runtime, "serve": serving},
+         "disagg": disagg, "runtime": runtime, "serve": serving,
+         "cluster": cluster},
         indent=1))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,8 +7,8 @@ wrappers; ``python/ray/runtime_context.py``). Semantics match the reference:
 ``kill`` terminates actors, named actors resolve through the GCS.
 
 The port's copy of ``ray_tpu/api.py``: the in-process runtime, with the card
-(``GPU``) as the accelerator resource. Connecting to a multiprocess cluster
-(``init(address=...)``) waits for the cluster slice.
+(``GPU``) as the accelerator resource, or a driver attached to a
+multiprocess cluster (``init(address=...)``, ``ray_tpu_torch.core.cluster``).
 """
 
 from __future__ import annotations
@@ -39,19 +39,38 @@ def init(
     labels: Dict[str, str] | None = None,
     ignore_reinit_error: bool = True,
 ):
-    """Start the runtime: a head node + N virtual nodes in-process (the
+    """Start the runtime.
+
+    Without ``address``: a head node + N virtual nodes in-process (the
     single-process runtime). ``resources`` are per node; ``num_gpus`` sets
     ``GPU`` (``num_tpus`` is its alias), else the cards present are
-    detected. ``address`` (connecting to a multiprocess cluster) is not
-    ported yet."""
+    detected. With ``address="host:port"``: connect this process as a
+    driver to a running multiprocess cluster's GCS (see
+    ``ray_tpu_torch.core.cluster``).
+    """
     if _runtime_mod._global_runtime is not None:
         if ignore_reinit_error:
             return _runtime_mod._global_runtime
         raise RuntimeError("ray_tpu_torch.init() already called")
     if address is not None:
-        raise NotImplementedError(
-            "init(address=...) connects to a multiprocess cluster, which "
-            "the port does not have yet: it waits for the cluster slice")
+        # Cluster shape is fixed by the running daemons; reject options that
+        # would silently be ignored.
+        ignored = {
+            "resources": resources, "num_cpus": num_cpus,
+            "num_gpus": num_gpus, "num_tpus": num_tpus, "labels": labels,
+            "system_config": system_config,
+        }
+        bad = [k for k, v in ignored.items() if v is not None]
+        if num_nodes != 1:
+            bad.append("num_nodes")
+        if bad:
+            raise ValueError(
+                f"init(address=...) connects to an existing cluster; "
+                f"{bad} cannot apply (configure the daemons instead)"
+            )
+        from ray_tpu_torch.core.cluster import connect
+
+        return connect(address, namespace=namespace)
     res = dict(resources or {})
     if num_cpus is not None:
         res["CPU"] = float(num_cpus)

@@ -76,6 +76,30 @@ class Config:
     # Task-argument reads that run concurrently: a task with several ref
     # arguments materializes them on a pool of this many threads.
     get_fanout = _Flag(8)
+    # Objects at or below this size ride inline in RPC replies instead of
+    # the node's shared-memory store (the multiprocess cluster).
+    max_inline_object_size = _Flag(100 * 1024)
+    # GCS snapshots are mirrored to this many node daemons per tick, so a
+    # fresh head can restore after losing its disk. 0 disables mirroring.
+    gcs_snapshot_mirrors = _Flag(2)
+    # Node-to-node transfer: objects above pull_chunk_size move as a
+    # pipeline of chunk frames, at most pull_chunk_concurrency in flight,
+    # with all in-flight pulled bytes capped by pull_memory_budget.
+    pull_chunk_size = _Flag(8 * 1024 * 1024)
+    # Remote fetches at or below this ride whole in one reply frame; above
+    # it the chunked pull lands straight in the local arena and registers
+    # this node as a new replica.
+    whole_frame_fetch_max = _Flag(1 * 1024 * 1024)
+    # Chunks of one pull in flight at once (the transfer pipeline depth).
+    pull_chunk_concurrency = _Flag(4)
+    # Total bytes of in-flight pulled chunks across all concurrent pulls.
+    pull_memory_budget = _Flag(512 * 1024 * 1024)
+    # Chunked pulls of objects at or above this size stripe their chunks
+    # across every replica location at once.
+    stripe_min_size = _Flag(16 * 1024 * 1024)
+    # Waiters blocked in get() subscribe to the GCS object-location channel
+    # and wake on seal instead of sleeping through a poll backoff.
+    location_sub_enabled = _Flag(True)
 
     # -- scheduling -----------------------------------------------------------
     # Hybrid policy: below this utilization a node scores 0 (nodes tie and
@@ -83,16 +107,79 @@ class Config:
     scheduler_spread_threshold = _Flag(0.5)
     # Top-k fraction of the tied best nodes to pick among at random.
     scheduler_top_k_fraction = _Flag(0.2)
+    # Seconds a leased worker stays bound to a scheduling key while idle
+    # before it is returned to its node (multiprocess cluster).
+    idle_lease_ttl_s = _Flag(1.0)
+    # Most worker processes in one node daemon's pool.
+    max_workers_per_node = _Flag(8)
+    # Workers spawned into the idle pool at daemon start, capped by the
+    # node's CPU count.
+    prestart_workers_per_node = _Flag(4)
+    # Atomic gang placement: multi-bundle PACK/STRICT_PACK placement groups
+    # are planned as one all-or-nothing reservation over capacity blocks,
+    # packed into one slice where one has room. 0 keeps the per-bundle
+    # two-phase path.
+    gang_scheduling_enabled = _Flag(True)
+    # Node topology labels: "auto" honors daemon-supplied topo.pod /
+    # topo.slice / topo.tier labels; "off" makes the gang planner
+    # topology-blind.
+    topology_labels = _Flag("auto")
     # Preemption classes: preempt_gangs may revoke placement groups of
     # strictly lower gang_priority. 0 disables preemption.
     gang_preemption_enabled = _Flag(True)
+    # Simulated-cluster harness (core/sim_cluster.py): hosts per synthetic
+    # slice, slices per synthetic pod, and the stub daemons' heartbeat
+    # period (keep it well under the health-check death bound).
+    sim_hosts_per_slice = _Flag(16)
+    sim_slices_per_pod = _Flag(4)
+    sim_heartbeat_period_s = _Flag(0.5)
+    # Memory monitor: above this node memory-usage fraction the daemon
+    # kills the newest busy task worker. >= 1.0 disables it.
+    memory_monitor_threshold = _Flag(0.95)
+    # Seconds between memory-monitor sweeps.
+    memory_monitor_period_s = _Flag(1.0)
+    # Health-check period, and missed heartbeats before a node is dead.
+    health_check_period_s = _Flag(1.0)
+    health_check_failure_threshold = _Flag(5)
+    # A node (or component) whose last report is older than this many
+    # periods, but younger than the death bound, is classified stalled.
+    health_stall_factor = _Flag(2.5)
     # Default task retries (max_retries when the caller gives none).
     default_max_retries = _Flag(3)
+    # Streaming generators: items a producer may run ahead of its consumer
+    # before it blocks.
+    streaming_backpressure_items = _Flag(64)
 
     # -- control store --------------------------------------------------------
     # Lock domains of the GCS internal KV: keys hash-partition across this
     # many independent shards. 1 = one dict under one lock.
     gcs_shards = _Flag(8)
+    # Batched leases: a submitter asks its node for up to lease_batch_max
+    # workers in one RPC (a capacity block) instead of one at a time.
+    lease_batch_enabled = _Flag(True)
+    lease_batch_max = _Flag(16)
+    # Bound on concurrent lease-request threads of one process.
+    lease_requester_threads = _Flag(16)
+    # The GCS takes task events and metric reports on a bounded queue,
+    # drained by its own thread; past gcs_ingest_queue_max it drops (and
+    # counts) the oldest.
+    gcs_ingest_async_enabled = _Flag(True)
+    gcs_ingest_queue_max = _Flag(4096)
+
+    # -- RPC ------------------------------------------------------------------
+    # TCP connect timeout of every RpcClient.
+    rpc_connect_timeout_s = _Flag(10.0)
+    # An untimed get() logs a warning after waiting this long for a seal.
+    get_timeout_warn_s = _Flag(30.0)
+    # Frame-coalescing window in microseconds for non-urgent lone frames
+    # on a hot connection; 0 (the default) never delays a frame.
+    rpc_coalesce_window_us = _Flag(0.0)
+    # Caps on one coalesced sendmsg batch: frames, and payload bytes.
+    rpc_max_batch_frames = _Flag(64)
+    rpc_max_batch_bytes = _Flag(1 * 1024 * 1024)
+    # Entries kept in each process's task-spec template caches (encoder and
+    # store); eviction only costs a re-send of the template.
+    spec_cache_size = _Flag(4096)
 
     # KV-cache slots per continuous-batching engine: sequences that decode
     # together in one batched dispatch.
@@ -178,6 +265,8 @@ class Config:
     # Head-based sampling probability in [0, 1], decided once at a trace
     # root and carried in the context.
     trace_sample_rate = _Flag(1.0)
+    # RPC-level spans (client call, server handle) under a sampled trace.
+    trace_rpc_enabled = _Flag(False)
     # Per-process flight recorder (util.flightrec): a bounded mmap'd event
     # ring under the session dir. Off = every record site costs one check.
     flightrec_enabled = _Flag(True)

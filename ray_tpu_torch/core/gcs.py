@@ -10,35 +10,23 @@ socket RPC (see ray_tpu.core.rpc / ray_tpu.core.gcs_server in the JAX
 package).
 
 The port's copy of ``ray_tpu/core/gcs.py``, the in-process half. The KV-tier
-prefix directory (``prefix_*``) comes with the KV tier, the socket-served
-tables with the multiprocess cluster.
+prefix directory (``prefix_*``) comes with the KV tier; the socket-served
+tables are ``core/gcs_server.py``.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-import zlib
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from ray_tpu_torch.core.ids import ActorID, JobID, NodeID
 from ray_tpu_torch.core.resources import ResourceSet
+from ray_tpu_torch.core.gcs_shards import shard_index  # noqa: F401 — re-exported
 from ray_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("gcs")
-
-
-def shard_index(key: bytes | str, n: int) -> int:
-    """Stable shard route for ``key`` among ``n`` shards (``zlib.crc32``,
-    not ``hash()``: string hashing is seeded per process, and a route must
-    be the same in every process and across restarts). The JAX package's
-    ``core/gcs_shards.shard_index``."""
-    if n <= 1:
-        return 0
-    if isinstance(key, str):
-        key = key.encode()
-    return zlib.crc32(key) % n
 
 
 @dataclass
@@ -265,6 +253,26 @@ class GlobalControlStore:
                 out.extend(k for k in shard.get(namespace, {})
                            if k.startswith(prefix))
         return out
+
+    def kv_dump(self) -> Dict[str, Dict[str, bytes]]:
+        """Merged ``{namespace: {key: value}}`` view across every shard —
+        the (shard-count-independent) snapshot format."""
+        merged: Dict[str, Dict[str, bytes]] = {}
+        for i, shard in enumerate(self._kv_shards):
+            with self._kv_locks[i]:
+                for ns, kv in shard.items():
+                    merged.setdefault(ns, {}).update(kv)
+        return merged
+
+    def kv_load(self, data: Dict[str, Dict[str, bytes]]) -> None:
+        """Restore a :meth:`kv_dump` blob, re-routing every key to the
+        CURRENT shard count (a restart may change ``gcs_shards``)."""
+        for shard, lock in zip(self._kv_shards, self._kv_locks):
+            with lock:
+                shard.clear()
+        for ns, kv in dict(data or {}).items():
+            for key, value in kv.items():
+                self.kv_put(key, value, namespace=ns)
 
     def kv_shard_count(self) -> int:
         return len(self._kv_shards)

@@ -229,6 +229,43 @@ def observe_task_phases(phases: Dict[str, float],
 
 
 # ---------------------------------------------------------------------------
+# Default collectors: mirror existing ad-hoc stats into gauges at export time
+# ---------------------------------------------------------------------------
+
+_default_collectors_installed = False
+
+
+def _collect_rpc_send_stats() -> None:
+    from ray_tpu_torch.core import rpc
+
+    mirror_stats_gauge(
+        "ray_tpu_rpc_send",
+        "RPC frame-send counters (frames/syscalls/bytes/batches + "
+        "frames_per_syscall)", rpc.send_stats())
+
+
+def _collect_pull_stats() -> None:
+    from ray_tpu_torch.core import object_transfer
+
+    mirror_stats_gauge(
+        "ray_tpu_object_pull",
+        "Object-plane pull counters (bytes/chunks/reassigned "
+        "ranges/failed sources)", object_transfer.pull_stats())
+
+
+def ensure_default_collectors() -> None:
+    """Install the process-wide collectors exactly once. (The JAX package's
+    third, the collective byte counters, comes with the collectives.)"""
+    global _default_collectors_installed
+    with _metrics_lock:
+        if _default_collectors_installed:
+            return
+        _default_collectors_installed = True
+    um.register_collector(_collect_rpc_send_stats)
+    um.register_collector(_collect_pull_stats)
+
+
+# ---------------------------------------------------------------------------
 # The exporter thread
 # ---------------------------------------------------------------------------
 
@@ -236,8 +273,9 @@ def observe_task_phases(phases: Dict[str, float],
 class MetricsExporter:
     """Ships this process's registry to the GCS every export interval.
 
-    ``report`` is ``callable(node_id, component, pid, snapshot)`` — a direct
-    aggregator call for the in-process runtime. Failures are swallowed and
+    ``report`` is ``callable(node_id, component, pid, snapshot)`` — an RPC
+    notify for a cluster's processes, a direct aggregator call for the GCS
+    and the in-process runtime. Failures are swallowed and
     retried next tick: reports are stateless (each carries the full
     snapshot), so a missed tick costs nothing but freshness.
     """
@@ -255,6 +293,7 @@ class MetricsExporter:
     def start(self) -> "MetricsExporter":
         if not metrics_enabled():
             return self
+        ensure_default_collectors()
         self._thread = threading.Thread(
             target=self._loop, name=f"metrics-export-{self._component}",
             daemon=True)

@@ -107,6 +107,9 @@ def _load() -> ctypes.CDLL:
         lib.rt_store_close.argtypes = [ctypes.c_void_p]
         lib.rt_store_destroy.restype = ctypes.c_int
         lib.rt_store_destroy.argtypes = [ctypes.c_char_p]
+        lib.rt_store_prefault.restype = None
+        lib.rt_store_prefault.argtypes = [ctypes.c_void_p, ctypes.c_uint64,
+                                          ctypes.c_uint32, ctypes.c_uint64]
         _lib = lib
         return lib
 
@@ -188,6 +191,34 @@ class NativeObjectStore:
         self._lib.rt_store_seal(self._handle, oid)
         self._lib.rt_store_release(self._handle, oid)
 
+    def create(self, object_id: bytes, size: int) -> Optional[memoryview]:
+        """Allocate an UNSEALED object and return a writable view into shm —
+        the incremental-write half of ``put`` (plasma Create/Seal split):
+        chunked transfers land network chunks straight in the arena with no
+        assembly buffer. Call :meth:`seal` when fully written (the object is
+        invisible to ``get`` until then), then :meth:`release`."""
+        self._require_handle()
+        oid = _pad_id(object_id)
+        ptr = self._lib.rt_store_create_object(self._handle, oid, size)
+        if not ptr:
+            return None
+        buf = (ctypes.c_char * size).from_address(ptr)
+        return memoryview(buf).cast("B")
+
+    def seal(self, object_id: bytes) -> None:
+        self._require_handle()
+        oid = _pad_id(object_id)
+        self._lib.rt_store_seal(self._handle, oid)
+        self._lib.rt_store_release(self._handle, oid)
+
+    def abort(self, object_id: bytes) -> None:
+        """Drop a created-but-unsealed object (failed transfer)."""
+        if not self._handle:
+            return
+        oid = _pad_id(object_id)
+        self._lib.rt_store_release(self._handle, oid)
+        self._lib.rt_store_delete(self._handle, oid)
+
     def get(self, object_id: bytes) -> Optional[memoryview]:
         """Zero-copy view into shm; call ``release`` when done."""
         self._require_handle()
@@ -258,3 +289,15 @@ class NativeObjectStore:
             self.close()
         except Exception:  # noqa: BLE001 — interpreter teardown
             log_swallowed(logger, "native store close")
+
+    def prefault(self, chunk_bytes: int = 64 * 1024 * 1024,
+                 sleep_us: int = 2000, max_bytes: int = 0) -> None:
+        """Touch arena pages (content-preserving) so puts don't pay
+        first-fault page population; run from a background thread — ctypes
+        releases the GIL for the call's duration. The native side drops the
+        thread to SCHED_IDLE so this never competes with real work.
+        ``max_bytes`` caps how much of the arena is touched (0 = all) so a
+        large arena on a small host doesn't balloon RSS at boot."""
+        self._require_handle()
+        self._lib.rt_store_prefault(self._handle, chunk_bytes, sleep_us,
+                                    max_bytes)

@@ -13,8 +13,8 @@ resources).
 
 The port's copy of ``ray_tpu/core/placement_group.py``, the in-process
 manager; a STRICT_PACK group over ``{"GPU": k}`` bundles claims k cards of
-one node. ``DistributedPlacementGroup`` (the GCS-backed handle of the
-multiprocess runtime) comes with the cluster.
+one node. ``DistributedPlacementGroup`` is the GCS-backed handle of the
+multiprocess cluster.
 """
 
 from __future__ import annotations
@@ -382,6 +382,48 @@ def _manager() -> PlacementGroupManager:
     return rt._pg_manager
 
 
+class DistributedPlacementGroup(PlacementGroup):
+    """PG handle backed by the GCS server (multiprocess runtime); creation
+    is synchronous-on-reserve there, so ``ready`` reduces to a table check."""
+
+    def _info(self) -> dict:
+        info = get_runtime().get_placement_group(self._id)
+        if info is None:
+            raise PlacementGroupError(f"placement group {self._id} not found")
+        return info
+
+    def ready(self, timeout: float | None = None) -> bool:
+        """Block until the group is CREATED (e.g. re-placed after a node
+        death set it RESCHEDULING), matching the base handle's
+        ready_event.wait semantics."""
+        import time as _time
+
+        deadline = None if timeout is None else _time.time() + timeout
+        while True:
+            if self._info()["state"] == "CREATED":
+                return True
+            if deadline is not None and _time.time() >= deadline:
+                return False
+            _time.sleep(0.1)
+
+    def wait(self, timeout: float | None = None) -> bool:
+        return self.ready(timeout)
+
+    @property
+    def bundle_specs(self) -> List[Dict[str, float]]:
+        return [dict(b["resources"]) for b in self._info()["bundles"]]
+
+    @property
+    def bundle_count(self) -> int:
+        return len(self._info()["bundles"])
+
+    def bundle_node_ids(self) -> List[Optional[NodeID]]:
+        return [b["node_id"] for b in self._info()["bundles"]]
+
+    def __reduce__(self):
+        return (DistributedPlacementGroup, (self._id,))
+
+
 def placement_group(
     bundles: List[Dict[str, float]],
     strategy: str = "PACK",
@@ -398,12 +440,22 @@ def placement_group(
         raise ValueError(f"invalid strategy {strategy}")
     if not bundles:
         raise ValueError("bundles must be non-empty")
+    rt = get_runtime()
+    if hasattr(rt, "create_placement_group"):  # multiprocess CoreWorker
+        pg_id = PlacementGroupID.from_random()
+        rt.create_placement_group(pg_id, bundles, strategy, name,
+                                  gang_priority=gang_priority)
+        return DistributedPlacementGroup(pg_id)
     state = _manager().create(bundles, strategy, name,
                               gang_priority=gang_priority)
     return PlacementGroup(state.pg_id)
 
 
 def remove_placement_group(pg: PlacementGroup) -> None:
+    rt = get_runtime()
+    if hasattr(rt, "remove_placement_group"):
+        rt.remove_placement_group(pg.id)
+        return
     _manager().remove(pg.id)
 
 

@@ -23,12 +23,12 @@ from __future__ import annotations
 import contextlib
 import io
 import pickle
+import sys
 import threading
 from dataclasses import dataclass
 
 import cloudpickle
 import numpy as np
-import torch
 
 # Serialize-time ObjectRef collection (nested-ref borrow protocol): while a
 # collection scope is open on this thread, ObjectRef.__reduce__ records every
@@ -59,9 +59,19 @@ def collecting_refs():
 _RAW = {1: np.uint8, 2: np.int16, 4: np.int32, 8: np.int64}
 
 
-def _rebuild_tensor(raw: np.ndarray, dtype_name: str, shape) -> torch.Tensor:
+def _is_tensor(obj) -> bool:
+    """Whether ``obj`` is a ``torch.Tensor``, without importing torch: a
+    process that has not imported torch holds no tensor, so the worker,
+    daemon and GCS processes pay torch's import only when one arrives."""
+    torch = sys.modules.get("torch")
+    return torch is not None and isinstance(obj, torch.Tensor)
+
+
+def _rebuild_tensor(raw: np.ndarray, dtype_name: str, shape):
     # The buffer may be a read-only view of the blob: copy once, then
     # reinterpret the bytes as the tensor's own dtype.
+    import torch
+
     return torch.from_numpy(np.array(raw)).view(
         getattr(torch, dtype_name)).reshape(shape)
 
@@ -72,7 +82,9 @@ class _HostTensor:
 
     __slots__ = ("raw", "dtype_name", "shape")
 
-    def __init__(self, t: torch.Tensor):
+    def __init__(self, t):
+        import torch
+
         t = t.detach().to("cpu").contiguous()
         self.raw = t.reshape(-1).view(torch.uint8).numpy().view(
             _RAW.get(t.element_size(), np.uint8))
@@ -85,7 +97,7 @@ class _HostTensor:
 
 def _host_reduce(obj):
     """The reduction of ``obj`` if it is a tensor, else NotImplemented."""
-    if isinstance(obj, torch.Tensor):
+    if _is_tensor(obj):
         return _HostTensor(obj).__reduce__()
     return NotImplemented
 
@@ -176,7 +188,7 @@ class _FastPickler(pickle.Pickler):
     to the host as :class:`_HostTensor`."""
 
     def reducer_override(self, obj):
-        if isinstance(obj, torch.Tensor):
+        if _is_tensor(obj):
             return _host_reduce(obj)
         if isinstance(obj, type) or callable(obj):
             mod = getattr(obj, "__module__", None)
@@ -195,7 +207,7 @@ class _CloudPickler(cloudpickle.Pickler):
     """cloudpickle, with tensors going to the host as in the fast path."""
 
     def reducer_override(self, obj):
-        if isinstance(obj, torch.Tensor):
+        if _is_tensor(obj):
             return _host_reduce(obj)
         return super().reducer_override(obj)
 
@@ -251,3 +263,110 @@ def dumps_inband(obj) -> bytes:
 
 def loads_inband(blob):
     return pickle.loads(blob)
+
+
+# -- reading a spec without importing what its arguments need ---------------
+#
+# The GCS and the node daemons decode an actor's creation spec for its
+# options, and re-encode it, but never touch its arguments. An argument
+# holding a torch object (a dtype, a device, a config with a dtype, a
+# tensor) would make them import torch, and whatever module defines it,
+# only to carry it on. ``loads_deferred`` leaves every global of a module
+# this process has not imported as a placeholder that re-encodes to the
+# same object: the process that unpickles it next (the worker) imports it.
+
+
+def _load_global(module: str, name: str):
+    """The global ``module.name`` (``name`` may be dotted), imported."""
+    import importlib
+
+    obj = importlib.import_module(module)
+    for part in name.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def _new_object(cls, args, kwargs):
+    """``cls.__new__(cls, *args, **kwargs)``: what pickle's NEWOBJ does."""
+    return cls.__new__(cls, *args, **kwargs)
+
+
+class _Deferred:
+    """A global this process has not imported, a call of one, or an object
+    built from one (``__new__`` then ``__setstate__``), kept as data and
+    re-encoded as the same global, call or object."""
+
+    __slots__ = ("kind", "parts", "state")
+
+    def __new__(cls, *args, **kwargs):
+        if isinstance(cls, _Deferred):   # NEWOBJ / NEWOBJ_EX on a deferred class
+            return _Deferred._make("new", (cls, args, kwargs))
+        return object.__new__(cls)
+
+    @staticmethod
+    def _make(kind, parts):
+        d = object.__new__(_Deferred)
+        d.kind, d.parts, d.state = kind, parts, None
+        return d
+
+    def __call__(self, *args):
+        return _Deferred._make("call", (self, args))
+
+    def __setstate__(self, state):
+        self.state = state
+
+    def __reduce__(self):
+        if self.kind == "global":
+            return (_load_global, self.parts)
+        out = self.parts if self.kind == "call" else (_new_object, self.parts)
+        return out + (self.state,) if self.state is not None else out
+
+
+def _load_global_or_defer(module: str, name: str):
+    """``_load_global`` as a deferring reader runs it (for a placeholder
+    another deferring process re-encoded)."""
+    return _DeferringUnpickler.resolve(module, name)
+
+
+def _new_object_or_defer(cls, args, kwargs):
+    if isinstance(cls, _Deferred):
+        return _Deferred._make("new", (cls, args, kwargs))
+    return _new_object(cls, args, kwargs)
+
+
+class _DeferringUnpickler(pickle._Unpickler):
+    # This module's own reconstructors, as a deferring reader calls them: a
+    # tensor stays a call of _rebuild_tensor (which imports torch), and a
+    # placeholder re-encoded by another deferring process stays one.
+    _OWN = {"_rebuild_tensor": None, "_load_global": _load_global_or_defer,
+            "_new_object": _new_object_or_defer}
+
+    @classmethod
+    def resolve(cls, module, name):
+        if module == __name__ and name in cls._OWN:
+            own = cls._OWN[name]
+            if own is not None:
+                return own
+        elif module in sys.modules:
+            return _load_global(module, name)
+        return _Deferred._make("global", (module, name))
+
+    def find_class(self, module, name):
+        if module == __name__ or module not in sys.modules:
+            return self.resolve(module, name)
+        return super().find_class(module, name)
+
+
+def loads_deferred(blob):
+    """:func:`loads`, except that a global of a module this process has not
+    imported (torch, a model config's module, a tensor's rebuild) stays a
+    placeholder that :func:`dumps` re-encodes unchanged. For a process that
+    carries an object on without using the parts it has not imported (a
+    spec's arguments in the GCS or a node daemon); where a placeholder
+    cannot stand in, the plain :func:`loads`."""
+    ser = SerializedObject.from_bytes(blob)
+    try:
+        return _DeferringUnpickler(io.BytesIO(ser.header),
+                                   buffers=ser.buffers).load()
+    except Exception:  # noqa: BLE001 — an object a placeholder cannot build
+        return deserialize(ser)

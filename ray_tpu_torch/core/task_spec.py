@@ -7,9 +7,8 @@ strategy, actor-creation payload). We keep it a plain picklable dataclass so
 the same IR flows through the in-process scheduler today and socket RPC in the
 multiprocess runtime.
 
-The port's copy of ``ray_tpu/core/task_spec.py``. The cached wire encoding
-of the JAX module (``SpecEncoder``/``SpecTemplateStore``) belongs to the
-socket RPC and comes with the multiprocess cluster.
+The port's copy of ``ray_tpu/core/task_spec.py``, with the cached wire
+encoding of the multiprocess cluster (``SpecEncoder``/``SpecTemplateStore``).
 """
 
 from __future__ import annotations
@@ -216,3 +215,183 @@ class TaskSpec:
 
 def _make_task_spec(task_id, job_id, task_type_value, *rest) -> TaskSpec:
     return TaskSpec(task_id, job_id, TaskType(task_type_value), *rest)
+
+
+# ---------------------------------------------------------------------------
+# Cached spec encoding — the wire fast path for steady-state remote calls.
+#
+# A TaskSpec splits into an INVARIANT template (function descriptor, options/
+# resource spec, actor identity, owner address — identical for every call
+# through one callable) and a small VARIANT part (task id, arguments,
+# sequence numbers, trace context). The template is pickled once, content-
+# addressed by digest, and shipped to each peer connection once; steady-state
+# calls then carry ``(digest, var_bytes)`` — only the arguments are pickled
+# per call. Content addressing makes invalidation automatic: a changed
+# resource spec or a different actor handle produces different template
+# bytes, hence a different digest, hence a fresh cache entry.
+# ---------------------------------------------------------------------------
+
+
+class SpecCacheMiss(Exception):
+    """A peer referenced a spec template digest this process doesn't hold
+    (bounded-cache eviction or a restarted server). The caller re-sends the
+    full template and retries — see CoreWorker's run_task/run_actor_task
+    submission paths."""
+
+
+def spec_template_fields(spec: TaskSpec) -> tuple:
+    """The invariant-per-callable portion of a spec (see module comment)."""
+    return (spec.job_id, spec.task_type.value, spec.function_id,
+            spec.function_name, spec.options, spec.actor_id,
+            spec.actor_method, spec.actor_creation_class_id, spec.caller_id,
+            spec.concurrency_group, spec.owner_addr)
+
+
+def spec_var_fields(spec: TaskSpec) -> tuple:
+    """The per-call portion of a spec."""
+    return (spec.task_id, spec.args, spec.kwargs, spec.sequence_number,
+            spec.window_min, spec.attempt_number, spec.trace_ctx,
+            spec.submit_ts)
+
+
+def assemble_spec(tfields: tuple, vfields: tuple) -> TaskSpec:
+    (job_id, ttype, function_id, function_name, options, actor_id,
+     actor_method, acc_id, caller_id, cgroup, owner_addr) = tfields
+    (task_id, args, kwargs, seq, window_min, attempt, trace_ctx,
+     submit_ts) = vfields
+    return TaskSpec(
+        task_id=task_id, job_id=job_id, task_type=TaskType(ttype),
+        function_id=function_id, function_name=function_name, args=args,
+        kwargs=kwargs, options=options, actor_id=actor_id,
+        actor_method=actor_method, actor_creation_class_id=acc_id,
+        sequence_number=seq, caller_id=caller_id, window_min=window_min,
+        concurrency_group=cgroup, attempt_number=attempt,
+        owner_addr=owner_addr, trace_ctx=trace_ctx, submit_ts=submit_ts)
+
+
+class SpecEncoder:
+    """Client-side template memoizer.
+
+    ``encode_template`` returns ``(digest, template_bytes)`` for a spec,
+    re-pickling only when the callable changes. The memo key includes the
+    IDENTITY of the options object — callables that resolve their options
+    once (plain ``handle.method.remote()`` / ``fn.remote()`` calls) hit the
+    memo; per-call ``.options(...)`` overrides re-encode (and naturally get
+    their own digest). The cached options reference keeps the object alive,
+    so an ``id()`` can never be recycled while its entry is live.
+
+    ``wire_hits``/``wire_misses`` count steady-state sends that skipped the
+    template versus sends that had to ship it (the spec-cache hit rate
+    reported by benches/core_perf.py).
+    """
+
+    def __init__(self, cap: Optional[int] = None):
+        import threading
+        from collections import OrderedDict
+
+        if cap is None:
+            from ray_tpu_torch.core.config import config
+
+            cap = config().spec_cache_size
+        self._cap = max(2, int(cap))
+        self._cache: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._lock = threading.Lock()
+        self.encode_hits = 0
+        self.encode_misses = 0
+        self.wire_hits = 0
+        self.wire_misses = 0
+
+    def encode_template(self, spec: TaskSpec) -> tuple:
+        key = (id(spec.options), spec.task_type.value, spec.function_id,
+               spec.function_name, spec.actor_id, spec.actor_method,
+               spec.caller_id, spec.concurrency_group, spec.owner_addr)
+        with self._lock:
+            ent = self._cache.get(key)
+            if ent is not None and ent[0] is spec.options:
+                self._cache.move_to_end(key)
+                self.encode_hits += 1
+                return ent[1], ent[2]
+        import hashlib
+
+        from ray_tpu_torch.core import serialization
+
+        blob = serialization.dumps_inband(spec_template_fields(spec))
+        digest = hashlib.blake2b(blob, digest_size=16).digest()
+        with self._lock:
+            self.encode_misses += 1
+            self._cache[key] = (spec.options, digest, blob)
+            while len(self._cache) > self._cap:
+                self._cache.popitem(last=False)
+        return digest, blob
+
+    def encode_vars(self, spec: TaskSpec) -> bytes:
+        from ray_tpu_torch.core import serialization
+
+        return serialization.dumps_inband(spec_var_fields(spec))
+
+    def stats(self) -> dict:
+        sent = self.wire_hits + self.wire_misses
+        return {
+            "encode_hits": self.encode_hits,
+            "encode_misses": self.encode_misses,
+            "wire_hits": self.wire_hits,
+            "wire_misses": self.wire_misses,
+            "hit_rate": self.wire_hits / sent if sent else 0.0,
+        }
+
+
+class SpecTemplateStore:
+    """Server-side bounded digest → decoded-template store. Registration
+    happens on the connection loop (ordered before any request that uses
+    the digest); lookups happen on pool threads."""
+
+    def __init__(self, cap: Optional[int] = None):
+        import threading
+        from collections import OrderedDict
+
+        if cap is None:
+            from ray_tpu_torch.core.config import config
+
+            cap = config().spec_cache_size
+        self._cap = max(2, int(cap))
+        self._store: "OrderedDict[bytes, tuple]" = OrderedDict()
+        self._lock = threading.Lock()
+
+    _POISON = "poisoned-template"
+
+    def register(self, digest: bytes, blob: bytes) -> None:
+        from ray_tpu_torch.core import serialization
+
+        try:
+            entry = serialization.loads_inband(blob)
+        except BaseException as e:  # noqa: BLE001 — version skew / missing
+            # import on this side. Store the FAILURE: decode must raise the
+            # real deserialization error, not SpecCacheMiss — a miss makes
+            # the client forget + re-send the same poisoned blob forever.
+            entry = (self._POISON, f"{type(e).__name__}: {e}")
+        with self._lock:
+            self._store[digest] = entry
+            self._store.move_to_end(digest)
+            while len(self._store) > self._cap:
+                self._store.popitem(last=False)
+
+    def decode(self, payload) -> TaskSpec:
+        """``payload``: legacy full-spec bytes, or ``(digest, var_bytes)``.
+        Raises :class:`SpecCacheMiss` for an unknown digest."""
+        from ray_tpu_torch.core import serialization
+
+        if isinstance(payload, (bytes, bytearray, memoryview)):
+            return serialization.loads(payload)
+        digest, var_bytes = payload
+        with self._lock:
+            tfields = self._store.get(digest)
+            if tfields is not None:
+                self._store.move_to_end(digest)
+        if tfields is None:
+            raise SpecCacheMiss(digest.hex())
+        if isinstance(tfields, tuple) and len(tfields) == 2 \
+                and tfields[0] is self._POISON:
+            raise RuntimeError(
+                f"task-spec template {digest.hex()} failed to deserialize "
+                f"on the worker: {tfields[1]}")
+        return assemble_spec(tfields, serialization.loads_inband(var_bytes))

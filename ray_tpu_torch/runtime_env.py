@@ -10,7 +10,8 @@ workers (they require spawning an isolated interpreter, which the in-process
 node model doesn't do — the reference builds them in a per-node agent).
 
 The port's copy of ``ray_tpu/runtime_env.py`` (the in-process part the
-runtime applies; process-backed workers come with the cluster).
+runtime applies, and the rule by which a cluster's node daemon gives a task
+a dedicated worker process).
 """
 
 from __future__ import annotations
@@ -28,6 +29,17 @@ _SUPPORTED = {"env_vars", "working_dir", "py_modules", "pip", "conda", "containe
 # a separate interpreter/namespace); the multiprocess daemon builds all
 # three (venv / conda prefix / container wrap — node_daemon.py).
 _DEFERRED = {"pip", "conda", "container"}
+
+# Fields that force a FRESH, dedicated worker process on the multiprocess
+# runtime (env at spawn / isolated interpreter). ONE definition — the
+# submit paths and the daemon all consult this.
+_DEDICATED = {"env_vars", "pip", "conda", "container"}
+
+
+def needs_dedicated_worker(env: Optional[Dict[str, Any]]) -> bool:
+    """Whether this runtime env requires a fresh worker process (rather
+    than a pooled vanilla one)."""
+    return bool(env) and any(env.get(k) for k in _DEDICATED)
 
 
 class RuntimeEnv(dict):

@@ -1,0 +1,382 @@
+"""JAX's ``tests/test_multiprocess.py`` on the port, first half: tasks,
+objects, actors, cancellation, leases and placement groups over a real
+``ray_tpu_torch`` Cluster (a GCS process, node-daemon processes and worker
+processes). The second half is ``test_torch_cluster_faults.py``; the two
+collectives tests wait for the port's collectives."""
+
+import os
+import signal
+import time
+
+import numpy as np
+import pytest
+
+import ray_tpu_torch
+from ray_tpu_torch.core.cluster import Cluster, connect
+from ray_tpu_torch.core import runtime as runtime_mod
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread_per_process():
+    """Every process a Cluster starts inherits the environment: one torch
+    thread each, so parallel test workers do not oversubscribe the host."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        yield
+
+
+@pytest.fixture(scope="module")
+def mp_cluster():
+    cluster = Cluster(num_nodes=2, resources_per_node={"CPU": 2})
+    yield cluster
+    cluster.shutdown()
+
+
+@pytest.fixture
+def driver(mp_cluster):
+    core = connect(mp_cluster.gcs_address)
+    yield core
+    core.shutdown()
+    runtime_mod._global_runtime = None
+
+
+def _wait_for(predicate, timeout=60.0, interval=0.2):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if predicate():
+            return True
+        time.sleep(interval)
+    return False
+
+
+# ====================== tasks / objects ======================
+
+
+def test_task_roundtrip_and_chaining(driver):
+    @ray_tpu_torch.remote
+    def add(a, b=0):
+        return a + b
+
+    ref = add.remote(1, b=2)
+    assert ray_tpu_torch.get(ref, timeout=60) == 3
+    # Chained: the ref flows to another process as a dependency.
+    assert ray_tpu_torch.get(add.remote(ref, b=10), timeout=60) == 13
+
+
+def test_multiple_returns_and_wait(driver):
+    @ray_tpu_torch.remote(num_returns=2)
+    def two():
+        return 1, 2
+
+    r1, r2 = two.remote()
+    ready, not_ready = ray_tpu_torch.wait([r1, r2], num_returns=2, timeout=60)
+    assert len(ready) == 2 and not not_ready
+    assert ray_tpu_torch.get([r1, r2]) == [1, 2]
+
+
+def test_error_propagation_across_processes(driver):
+    @ray_tpu_torch.remote(max_retries=0)
+    def boom():
+        raise ValueError("remote kaboom")
+
+    ref = boom.remote()
+    with pytest.raises(ValueError, match="remote kaboom"):
+        ray_tpu_torch.get(ref, timeout=60)
+
+    # Dependency failure propagates to downstream tasks.
+    @ray_tpu_torch.remote(max_retries=0)
+    def use(x):
+        return x
+
+    with pytest.raises(ValueError, match="remote kaboom"):
+        ray_tpu_torch.get(use.remote(ref), timeout=60)
+
+
+def test_large_object_shm_plane(driver, mp_cluster):
+    """Large puts ride the C++ shm arena and cross process boundaries."""
+    arr = np.arange(500_000, dtype=np.float64)  # ~4 MB
+    ref = ray_tpu_torch.put(arr)
+    out = ray_tpu_torch.get(ref, timeout=60)
+    np.testing.assert_array_equal(out, arr)
+
+    @ray_tpu_torch.remote
+    def total(a):
+        return float(a.sum())
+
+    assert ray_tpu_torch.get(total.remote(ref), timeout=60) == float(arr.sum())
+    # The arena actually holds bytes (zero-copy plane, not the heap shelf).
+    stats = [driver._daemons.get(h.address).call("stats", timeout=10)
+             for h in mp_cluster.nodes]
+    assert any(s["shm_bytes"] > 0 for s in stats)
+
+
+def test_parallel_execution_across_processes(driver):
+    """Distinct worker processes with overlapping execution windows — the
+    multiprocess runtime escapes the GIL (>1 task truly concurrent)."""
+
+    @ray_tpu_torch.remote
+    def window(sec):
+        t0 = time.time()
+        time.sleep(sec)
+        return os.getpid(), t0, time.time()
+
+    # Prewarm until 4 DISTINCT workers answer one batch: 1s windows force 4
+    # concurrent leases (lease reuse would let fewer warm workers serve
+    # trivial tasks back-to-back), and on a loaded 1-core box interpreter
+    # boots take many seconds, so keep batching until the pool is actually
+    # 4 wide.
+    deadline = time.time() + 120
+    while True:
+        warm = ray_tpu_torch.get([window.remote(1.0) for _ in range(4)], timeout=120)
+        if len({pid for pid, _, _ in warm}) >= 4 or time.time() > deadline:
+            break
+    # 4s windows: wide enough that submission stagger on a loaded one-core
+    # CI box cannot break the all-overlap assertion.
+    rs = ray_tpu_torch.get([window.remote(4.0) for _ in range(4)], timeout=120)
+    assert len({pid for pid, _, _ in rs}) >= 2
+    latest_start = max(t0 for _, t0, _ in rs)
+    earliest_end = min(t1 for _, _, t1 in rs)
+    assert latest_start < earliest_end, "executions did not overlap"
+
+
+def test_nested_tasks(driver):
+    @ray_tpu_torch.remote
+    def inner(x):
+        return x * 2
+
+    @ray_tpu_torch.remote
+    def outer(x):
+        return ray_tpu_torch.get(inner.remote(x), timeout=60) + 1
+
+    assert ray_tpu_torch.get(outer.remote(10), timeout=120) == 21
+
+
+# ====================== actors ======================
+
+
+def test_actor_ordering_and_state(driver):
+    @ray_tpu_torch.remote
+    class Counter:
+        def __init__(self):
+            self.n = 0
+
+        def incr(self, k=1):
+            self.n += k
+            return self.n
+
+    c = Counter.remote()
+    assert ray_tpu_torch.get([c.incr.remote() for _ in range(10)], timeout=120) == \
+        list(range(1, 11))
+
+
+def test_serial_actor_strict_order_under_burst(driver):
+    """A serial actor EXECUTES per-caller calls strictly in sequence order
+    even when a deep pipelined burst lands coalesced (many requests in one
+    socket read, all racing the admission cv). Regression for the
+    admitted-but-overtaken race: next_seq used to advance before the
+    method ran, so an admitted handler could lose the actor lock to its
+    successor — ~10-call bursts rarely tripped it; coalesced 300-call
+    bursts did constantly."""
+
+    @ray_tpu_torch.remote
+    class Counter:
+        def __init__(self):
+            self.n = 0
+
+        def incr(self):
+            self.n += 1
+            return self.n
+
+    c = Counter.remote()
+    out = ray_tpu_torch.get([c.incr.remote() for _ in range(300)], timeout=300)
+    assert out == list(range(1, 301)), f"out-of-order prefix: {out[:8]}"
+
+
+def test_named_actor_lookup(driver):
+    @ray_tpu_torch.remote
+    class KV:
+        def __init__(self):
+            self.d = {}
+
+        def put(self, k, v):
+            self.d[k] = v
+            return True
+
+        def get(self, k):
+            return self.d.get(k)
+
+    a = KV.options(name="kv-store").remote()
+    assert ray_tpu_torch.get(a.put.remote("x", 42), timeout=60)
+    b = ray_tpu_torch.get_actor("kv-store")
+    assert ray_tpu_torch.get(b.get.remote("x"), timeout=60) == 42
+
+
+def test_actor_task_error(driver):
+    @ray_tpu_torch.remote
+    class Fragile:
+        def ok(self):
+            return "fine"
+
+        def bad(self):
+            raise RuntimeError("actor method failed")
+
+    a = Fragile.remote()
+    assert ray_tpu_torch.get(a.ok.remote(), timeout=60) == "fine"
+    with pytest.raises(RuntimeError, match="actor method failed"):
+        ray_tpu_torch.get(a.bad.remote(), timeout=60)
+    # Actor survives a method exception.
+    assert ray_tpu_torch.get(a.ok.remote(), timeout=60) == "fine"
+
+
+def test_kill_actor(driver):
+    @ray_tpu_torch.remote
+    class Victim:
+        def ping(self):
+            return "pong"
+
+    a = Victim.remote()
+    assert ray_tpu_torch.get(a.ping.remote(), timeout=60) == "pong"
+    ray_tpu_torch.kill(a)
+    assert _wait_for(
+        lambda: driver.gcs.get_actor(a.actor_id).state == "DEAD", timeout=30
+    )
+
+
+def test_kill_actor_with_restart(driver):
+    """kill(no_restart=False) runs the restart ladder on the multiprocess
+    runtime: the daemon keeps the actor binding so its reaper reports the
+    death and the GCS reschedules (and releases the old lifetime lease)."""
+    @ray_tpu_torch.remote(max_restarts=2)
+    class Phoenix0:
+        def pid(self):
+            return os.getpid()
+
+    a = Phoenix0.remote()
+    p1 = ray_tpu_torch.get(a.pid.remote(), timeout=60)
+    ray_tpu_torch.kill(a, no_restart=False)
+    p2 = ray_tpu_torch.get(a.pid.remote(), timeout=120)
+    assert p2 != p1
+
+
+def test_cancel_sticks_after_task_completes(driver):
+    """cancel() marks the pending task; a late real result must not race
+    the cancellation error back to a value (get stays deterministic)."""
+    @ray_tpu_torch.remote
+    def slowish():
+        time.sleep(2.0)
+        return 42
+
+    ref = slowish.remote()
+    time.sleep(0.3)  # in flight
+    ray_tpu_torch.cancel(ref)
+    with pytest.raises(ray_tpu_torch.TaskCancelledError):
+        ray_tpu_torch.get(ref, timeout=30)
+    time.sleep(2.5)  # the worker finishes the task anyway
+    with pytest.raises(ray_tpu_torch.TaskCancelledError):
+        ray_tpu_torch.get(ref, timeout=30)
+
+
+def test_lease_for_removed_pg_fails_fast(driver):
+    """A lease against a removed placement group raises promptly instead of
+    spinning out the full scheduling timeout."""
+    from ray_tpu_torch.core.placement_group import (
+        placement_group,
+        remove_placement_group,
+    )
+    from ray_tpu_torch.core.task_spec import PlacementGroupSchedulingStrategy
+
+    pg = placement_group([{"CPU": 1}], strategy="PACK")
+    assert pg.ready(timeout=60)
+    remove_placement_group(pg)
+
+    @ray_tpu_torch.remote(scheduling_strategy=PlacementGroupSchedulingStrategy(
+        placement_group=pg))
+    def where():
+        return "ran"
+
+    start = time.time()
+    with pytest.raises(Exception, match="does not exist"):
+        ray_tpu_torch.get(where.remote(), timeout=60)
+    assert time.time() - start < 30.0
+
+
+# ====================== fault tolerance (kill -9) ======================
+
+
+def test_task_retry_on_worker_kill(driver, mp_cluster):
+    @ray_tpu_torch.remote(max_retries=3)
+    def slow():
+        time.sleep(3.0)
+        return os.getpid()
+
+    ref = slow.remote()
+    time.sleep(1.0)
+    killed = 0
+    for i in range(len(mp_cluster.nodes)):
+        for pid in mp_cluster.worker_pids(i):
+            try:
+                os.kill(pid, signal.SIGKILL)
+                killed += 1
+            except ProcessLookupError:
+                pass
+    assert killed > 0
+    # The task is retried on a fresh worker and completes.
+    assert isinstance(ray_tpu_torch.get(ref, timeout=150), int)
+
+
+def test_actor_restart_on_worker_kill(driver, mp_cluster):
+    @ray_tpu_torch.remote(max_restarts=2)
+    class Phoenix:
+        def pid(self):
+            return os.getpid()
+
+    a = Phoenix.remote()
+    p1 = ray_tpu_torch.get(a.pid.remote(), timeout=60)
+    os.kill(p1, signal.SIGKILL)
+    p2 = ray_tpu_torch.get(a.pid.remote(), timeout=120)
+    assert p2 != p1
+
+
+def test_actor_no_restart_budget_dies(driver):
+    @ray_tpu_torch.remote(max_restarts=0)
+    class OneShot:
+        def pid(self):
+            return os.getpid()
+
+    a = OneShot.remote()
+    p1 = ray_tpu_torch.get(a.pid.remote(), timeout=60)
+    os.kill(p1, signal.SIGKILL)
+    with pytest.raises(ray_tpu_torch.ActorError):
+        ray_tpu_torch.get(a.pid.remote(), timeout=120)
+
+
+# ====================== placement groups ======================
+
+
+def test_placement_group_strict_spread(driver, mp_cluster):
+    from ray_tpu_torch.core.placement_group import (
+        placement_group,
+        remove_placement_group,
+    )
+    from ray_tpu_torch.core.task_spec import PlacementGroupSchedulingStrategy
+
+    pg = placement_group([{"CPU": 1}, {"CPU": 1}], strategy="STRICT_SPREAD")
+    assert pg.ready(timeout=30)
+    nodes = pg.bundle_node_ids()
+    assert len(set(nodes)) == 2  # bundles on distinct node daemons
+
+    @ray_tpu_torch.remote(num_cpus=1)
+    def where():
+        return os.getpid()
+
+    refs = [
+        where.options(scheduling_strategy=PlacementGroupSchedulingStrategy(
+            placement_group=pg, placement_group_bundle_index=i)).remote()
+        for i in range(2)
+    ]
+    pids = ray_tpu_torch.get(refs, timeout=120)
+    assert len(set(pids)) == 2
+    remove_placement_group(pg)
+
+
+# ====================== GCS restart / persistence ======================

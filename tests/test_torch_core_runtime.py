@@ -212,8 +212,11 @@ def test_parked_gpu_work_runs_once_a_card_node_joins():
 
 
 def test_init_with_address_waits_for_the_cluster_slice():
-    with pytest.raises(NotImplementedError, match="cluster slice"):
-        ray_tpu_torch.init(address="127.0.0.1:6379")
+    # init(address=...) attaches to a running cluster (tests/
+    # test_torch_cluster_*.py); options only a new runtime could apply are
+    # refused before anything connects.
+    with pytest.raises(ValueError, match="existing cluster"):
+        ray_tpu_torch.init(address="127.0.0.1:6379", num_gpus=1)
     assert not ray_tpu_torch.is_initialized()
 
 

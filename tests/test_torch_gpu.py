@@ -24,7 +24,14 @@ CUDA tensor goes through ``put``/``get`` bit for bit below and above the
 arena threshold; the paged engine hosted in a ``num_gpus=1`` actor gives the
 direct engine's greedy streams on the kernel (2 layers, f32); and warm
 engine steps on the card record no steady-state violation.
+
+The multi-process cluster on the card: the paged engine in a worker
+process's ``num_gpus=1`` actor gives the in-process engine's greedy streams
+(2 layers, f32), and a SIGKILLed GPU worker's card memory and grant come
+back.
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -776,6 +783,13 @@ def test_two_half_gpu_replicas_match_the_direct_engine(runtime):
                         ray_actor_options={"num_gpus": 0.5})
     try:
         handle = serve.run(lm.bind())
+        # serve.run returns once both replicas exist; the router takes a
+        # replica only once it passes readiness. One request at a time until
+        # both have answered, so the burst below meets both.
+        seen, deadline = set(), time.monotonic() + 120
+        while len(seen) < 2:
+            assert time.monotonic() < deadline, seen
+            seen.update(_serve_streams(handle, SPEC_PROMPTS[:1], 1)[1])
         outs, keys = _serve_streams(handle, prompts, 12)
         assert outs == want * 3
         assert len(set(keys)) == 2
@@ -783,3 +797,89 @@ def test_two_half_gpu_replicas_match_the_direct_engine(runtime):
             runtime.cluster_resources()["GPU"] - 1
     finally:
         serve.shutdown()
+
+
+@pytest.fixture
+def gpu_cluster(cuda):
+    import ray_tpu_torch
+    from ray_tpu_torch.core.cluster import Cluster
+
+    cluster = Cluster(num_nodes=1, resources_per_node={"CPU": 2, "GPU": 1})
+    ray_tpu_torch.init(address=cluster.gcs_address)
+    yield ray_tpu_torch
+    ray_tpu_torch.shutdown()
+    cluster.shutdown()
+
+
+@pytest.mark.gpu
+def test_engine_in_a_worker_process_matches_the_in_process_engine(
+        gpu_cluster):
+    import os
+
+    rt = gpu_cluster
+
+    class Host:  # defined here: workers get it by value
+        def __init__(self, seed):
+            from ray_tpu_torch.models import transformer as tr
+            from ray_tpu_torch.serve.llm import PagedLLMEngine as Engine
+
+            cfg = tr.tiny(d_model=128, n_heads=2, max_seq_len=128)
+            self.eng = Engine(tr.init_params(cfg, seed, device="cuda"), cfg,
+                              attention_kernel="cuda", name="gpu-worker",
+                              **DISAGG_KW)
+
+        def generate(self, prompt, n):
+            return self.eng.generate(prompt, max_new_tokens=n)
+
+        def where(self):
+            from ray_tpu_torch.ops import paged_attention as kernel
+
+            return (os.getpid(), self.eng.device.type,
+                    self.eng._pg.attention_kernel, kernel.launches)
+
+    cfg, params = _disagg_model()
+    direct = PagedLLMEngine(params, cfg, attention_kernel="cuda",
+                            name="gpu-direct", **DISAGG_KW)
+    want = [direct.generate(p, max_new_tokens=20) for p in SPEC_PROMPTS]
+    host = rt.remote(num_gpus=1)(Host).remote(3)
+    got = rt.get([host.generate.remote(p, 20) for p in SPEC_PROMPTS],
+                 timeout=300)
+    pid, device, kernel, launches = rt.get(host.where.remote())
+    assert got == want
+    assert pid != os.getpid() and device == "cuda" and kernel == "cuda"
+    assert launches > 0
+    assert rt.available_resources().get("GPU", 0) == 0.0
+
+
+@pytest.mark.gpu
+def test_sigkilled_gpu_worker_gives_its_card_back(gpu_cluster):
+    import os
+    import signal
+
+    rt = gpu_cluster
+
+    class Holder:
+        def __init__(self):
+            self.buf = torch.empty(1 << 30, dtype=torch.uint8,
+                                   device="cuda")
+
+        def pid(self):
+            return os.getpid()
+
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    a = rt.remote(num_gpus=1)(Holder).remote()
+    pid = rt.get(a.pid.remote(), timeout=300)
+    assert free0 - torch.cuda.mem_get_info()[0] >= 1 << 30
+    b = rt.remote(num_gpus=1)(Holder).remote()
+    ready, _ = rt.wait([b.pid.remote()], timeout=2.0)
+    assert not ready  # pending: the first holds the card
+    os.kill(pid, signal.SIGKILL)
+    with pytest.raises(rt.ActorError):
+        rt.get(a.pid.remote(), timeout=120)
+    assert rt.get(b.pid.remote(), timeout=300) != pid
+    rt.kill(b)
+    deadline = time.monotonic() + 30
+    while free0 - torch.cuda.mem_get_info()[0] > 256 << 20:
+        assert time.monotonic() < deadline, "the card's memory did not return"
+        time.sleep(0.1)

@@ -192,8 +192,9 @@ def test_serve_knobs_match_the_jax_defaults(monkeypatch):
     port = config()
     names = [n for n, v in vars(Config).items()
              if type(v).__name__ == "_Flag"]
-    assert len(names) == 41   # 18 serve knobs, 9 of the transport and
-    #                           observability modules, 14 of the runtime
+    assert len(names) == 75   # 18 serve knobs, 9 of the transport and
+    #                           observability modules, 14 of the runtime,
+    #                           34 of the multi-process cluster
     for n in names:
         if n == "object_spilling_dir":  # by design: "" = under TMPDIR
             assert port.object_spilling_dir == ""
