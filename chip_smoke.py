@@ -170,8 +170,26 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    ``cluster.shutdown()`` no GCS, daemon or worker process of the phase is
    alive, no ``raytpu-*`` arena of theirs is left, and no other process
    holds the card.
+14. KV tier — on phase 13's cluster, after its measured runs and before
+   its teardown: two ``num_gpus=0.5`` engine actors (phase 4's engine,
+   ``block_tokens=16``, ``max_len=1024``) with
+   ``RAY_TPU_KV_TIER_ENABLED=1`` in their ``runtime_env`` alone, started
+   together. P serves a 1008-token prompt and 16 greedy tokens and spills
+   its 1024-token chain: 64 blocks, 37,748,736 bytes of bf16 K/V in the
+   object store, the entries in the GCS prefix directory; the spilling
+   step's wall time beside the median step; the payload's same-node
+   ``get`` and its pull to node B (sha256 equal to P's). F serves the same
+   prompt cold: a 992-token store hit (the probe's cap) whose K4 prefill
+   runs at T = 16; its TTFT beside a fresh prefill's (F's local cache and
+   the chain's directory entries cleared), the fetch and the insert timed
+   in F, and the pull plus the insert printed as the hit's cost across
+   nodes. A drain migration P -> F over a named ``KVHandoffLane``; F's next
+   turn on P's session hits migrated tokens. P is killed: F's fetch of a
+   chain only P published misses and drops its entry (the directory loses
+   one). K4's launches by route, read in each actor's process, equal
+   n_layers x its prefills and decode steps.
 
-In phases 5 and 8-13 a greedy stream that departs from its reference must
+In phases 5 and 8-14 a greedy stream that departs from its reference must
 do so at a near tie: the plain path's top-2 logit gap there under 1e-3.
 
 It prints the kernels line ``{"kernels": [...]}`` and, last, the line
@@ -183,6 +201,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1874,10 +1893,107 @@ class _EngineActor:
                 "device": str(e.device), "slots": e.slots, "chunk": e.chunk,
                 "pool_blocks": e.kv.num_blocks,
                 "params": transformer.param_count(e.params),
+                "kv_tier": getattr(e, "_tier", None) is not None,
                 "pid": os.getpid(), "setup_s": self.setup_s}
 
     def stats(self):
         return self.eng.stats()
+
+    # -- phase 14's reads and levers (the KV tier) ---------------------------
+    def instrument(self):
+        """From now on record each prefill's bucket (the T of its K4
+        prefill), each scheduler step's wall time, with the blocks its
+        ``_post_step`` spilled and how long that took, and each tier
+        fetch's (and its publisher ping's) and insert's wall time."""
+        eng = self.eng
+        self.buckets, self.steps, self._post = [], [], (0, 0.0)
+        self.fetches, self.inserts, self.pings = [], [], []
+        prefill_fn, step, post_step = (eng._pg.prefill_fn, eng._step,
+                                       eng._post_step)
+        fetch, insert = eng._tier.fetch, eng._tier_insert_blocks
+        backend = eng._tier._resolve()
+        alive = backend._publisher_alive
+
+        def timed_alive(*args):
+            t0 = time.perf_counter()
+            try:
+                return alive(*args)
+            finally:
+                self.pings.append(time.perf_counter() - t0)
+
+        def recorded_prefill_fn(bucket):
+            self.buckets.append(int(bucket))
+            return prefill_fn(bucket)
+
+        def timed_fetch(*args):
+            t0 = time.perf_counter()
+            try:
+                return fetch(*args)
+            finally:
+                self.fetches.append(time.perf_counter() - t0)
+
+        def timed_insert(*args):
+            t0 = time.perf_counter()
+            try:
+                return insert(*args)
+            finally:
+                self.inserts.append(time.perf_counter() - t0)
+
+        def timed_post_step():
+            spilled = sum(entry[2] for entry in eng._tier_spill_q)
+            t0 = time.perf_counter()
+            post_step()
+            self._post = (spilled, time.perf_counter() - t0)
+
+        def timed_step():
+            self._post = (0, 0.0)
+            t0 = time.perf_counter()
+            try:
+                step()
+            finally:
+                self.steps.append((time.perf_counter() - t0, *self._post))
+
+        eng._pg.prefill_fn = recorded_prefill_fn
+        eng._post_step = timed_post_step
+        eng._step = timed_step
+        eng._tier.fetch = timed_fetch
+        eng._tier_insert_blocks = timed_insert
+        backend._publisher_alive = timed_alive
+
+    def records(self):
+        """What was recorded since the last call: prefill buckets, steps
+        (seconds, blocks spilled, seconds of the spill), and the seconds of
+        each tier fetch, of the publisher ping inside it, and of each
+        insert."""
+        out = {"buckets": self.buckets, "steps": self.steps,
+               "fetches": self.fetches, "inserts": self.inserts,
+               "pings": self.pings}
+        self.buckets, self.steps = [], []
+        self.fetches, self.inserts, self.pings = [], [], []
+        return out
+
+    def clear_local(self):
+        """Drop the engine's local prefix cache (a fresh pool)."""
+        with self.eng._step_lock:
+            self.eng._reset_device_state()
+
+    def set_min_spill(self, blocks):
+        self.eng._tier_min_spill = int(blocks)
+
+    def pinned_payload_digest(self, head_hex):
+        """sha256 of the K/V of the payload this process published under
+        ``head_hex``, read through the pin its tier client holds."""
+        import ray_tpu_torch as rt
+
+        ref = self.eng._tier._backend._pins[bytes.fromhex(head_hex)]
+        payload = rt.get(ref, timeout=60)
+        return _kv_bytes(payload["k"], payload["v"])
+
+    def kv_migrate_in(self, lane):
+        return self.eng.kv_migrate_in(lane)
+
+    def kv_migrate_out(self, lane):
+        return self.eng.kv_migrate_out(lane)
 
     def launches(self):
         """The kernels' launch counters as this actor reads them."""
@@ -3163,6 +3279,9 @@ def phase_cluster(torch, np, card, counts, runtime_summary, serve_summary):
            "process" if smi_sees else "") + " (never built)")
     _cluster_retire(rt, serve, "cluster-2")
 
+    # Phase 14, the KV tier, runs on this cluster before its teardown.
+    summary["tier"] = phase_tier(torch, np, rt, card, node_b, procs)
+
     # 7. Tear down.
     for i in range(2):
         procs.update(cluster.worker_pids(i))
@@ -3303,6 +3422,313 @@ def _cluster_object_plane(torch, np, rt, card, node_a, node_b,
             "driver_node": "A" if local == node_a.node_id else "B"}
 
 
+# -- phase 14, the cluster KV tier ---------------------------------------------
+TIER_ENV = {"env_vars": {"RAY_TPU_KV_TIER_ENABLED": "1"}}
+TIER_PROMPT = 1008                    # + 16 new = 1024 tokens: 64 full blocks
+TIER_NEW = 16
+TIER_BLOCKS = 64
+TIER_PROBE_TOKENS = 992               # the probe's cap: (1008 - 1) // 16 blocks
+TIER_SESSION = 496                    # migration: turn 2 = 496 + 16 + 16 tokens
+TIER_ONLY_P = 200                     # self-heal: a chain only P publishes
+
+
+def _payload_pull_task(boxed):
+    """A task pinned to the node without the card: ``get`` of a spilled
+    KV-tier payload (the pull into this node's arena), timed; returns the
+    sha256 of its K/V, the ms, its node and its pid."""
+    import torch  # noqa: F401 — the payload's tensors need it: not timed
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.runtime import get_runtime
+
+    t0 = time.perf_counter()
+    payload = rt.get(boxed[0], timeout=600)
+    ms = (time.perf_counter() - t0) * 1e3
+    return (_kv_bytes(payload["k"], payload["v"]), ms,
+            get_runtime().current_node_id.hex(), os.getpid())
+
+
+def _step_stall(records, blocks):
+    """The wall time of the step that spilled ``blocks`` blocks beside the
+    median of the steps that spilled nothing."""
+    steps = records["steps"]
+    spills = [(dt, post) for dt, n, post in steps if n == blocks]
+    rest = [dt for dt, n, _ in steps if not n]
+    if len(spills) != 1 or len(rest) < 5:
+        fail(f"tier: {len(spills)} of {len(steps)} steps spilled {blocks} "
+             f"blocks and {len(rest)} spilled none; wanted 1 and >= 5")
+    dt, post = spills[0]
+    return {"spill_step_ms": dt * 1e3, "spill_ms": post * 1e3,
+            "median_step_ms": _median(rest) * 1e3, "steps": len(steps)}
+
+
+def phase_tier(torch, np, rt, card, node_b, procs):
+    """The cluster KV tier on phase 13's cluster: two half-card engine
+    actors with the tier on in their processes alone; P spills a 64-block
+    chain, F hits the store for 992 tokens and prefills 16, beside a fresh
+    prefill, the payload's same-node get and its pull to node B; a drain
+    migration P -> F over a named lane; P dies and F's fetch of P's other
+    chain self-heals the directory; K4 by route in each actor's process."""
+    from ray_tpu_torch.core.config import config
+    from ray_tpu_torch.core.ids import ObjectID
+    from ray_tpu_torch.core.object_ref import ObjectRef
+    from ray_tpu_torch.core.runtime import get_runtime
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.util import blockhash
+
+    t_phase = time.perf_counter()
+    cfg = transformer.gpt2_small()
+    L, bt = cfg.n_layers, 16
+    core = get_runtime()
+    gcs = core.gcs
+    summary = {}
+    rng = np.random.default_rng(14)
+
+    def prompt(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    # 1. Two half-card engine actors, the tier on in their env alone,
+    # started together (their cold set-ups overlap).
+    t0 = time.perf_counter()
+    host = rt.remote(num_gpus=0.5, max_concurrency=8,
+                     runtime_env=TIER_ENV)(_EngineActor)
+    p, f = host.remote(cfg, 0, "tier-p"), host.remote(cfg, 0, "tier-f")
+    p_info, f_info = rt.get([p.info.remote(), f.info.remote()], timeout=600)
+    procs.update((p_info["pid"], f_info["pid"]))
+    for name, info in (("P", p_info), ("F", f_info)):
+        if (not info["kv_tier"] or info["attention_kernel"] != "cuda"
+                or torch_device_type(info["device"]) != DEVICE):
+            fail(f"tier: actor {name} is {info}")
+    if config().kv_tier_enabled:
+        fail("tier: the driver's own config has the tier on")
+    summary["setup_s"] = time.perf_counter() - t0
+    log(f"[tier] two num_gpus=0.5 engine actors with "
+        f"RAY_TPU_KV_TIER_ENABLED=1 in their env: P in worker "
+        f"{p_info['pid']}, F in worker {f_info['pid']} (gpt2_small, bf16, "
+        f"bt {bt}, max_len {cfg.max_seq_len}); up in "
+        f"{summary['setup_s']:.1f} s")
+    for a in (p, f):
+        rt.get(a.instrument.remote())
+        rt.get(a.reset_launches.remote())
+    st0 = {"p": rt.get(p.stats.remote()), "f": rt.get(f.stats.remote())}
+
+    def whole(actor, toks, n=TIER_NEW):
+        got, out = rt.get(actor.generate_whole.remote(toks, n, 0.0, 0),
+                          timeout=600)
+        if len(got) != n or out.get("finish_reason") != "stop":
+            fail(f"tier: {len(got)} tokens ({out}), wanted {n}")
+        return got, out["ttft_s"] * 1e3
+
+    def hits(actor, src):
+        return (rt.get(actor.stats.remote())[f"kv_tier_hits_{src}"])
+
+    params = transformer.init_params(
+        cfg, torch.Generator().manual_seed(0), device=DEVICE)
+
+    # 2. Spill: P serves the 1008-token prompt; its 1024-token chain (64
+    # full blocks) is published.
+    x = prompt(TIER_PROMPT)
+    px, p_ttft = whole(p, x)
+    spilled = rt.get(p.stats.remote())["kv_tier_spilled_blocks"]
+    digests = blockhash.block_hashes(x + px, bt, max_blocks=TIER_BLOCKS)
+    m = gcs.prefix_match(digests)
+    entries = gcs.prefix_stats()["prefix_dir_entries"]
+    if spilled != TIER_BLOCKS or m is None or m[0] != TIER_BLOCKS - 1 \
+            or m[1]["blocks"] != TIER_BLOCKS or entries < TIER_BLOCKS:
+        fail(f"tier: P's spill: kv_tier_spilled_blocks {spilled}, the "
+             f"directory's match {m and (m[0], m[1]['blocks'])}, "
+             f"{entries} entries; wanted {TIER_BLOCKS} blocks")
+    ref = ObjectRef(ObjectID(m[1]["meta"]), owner_hint=m[1]["hint"] or None)
+    gets = []
+    for _ in range(3):
+        with core._cache_lock:
+            core._cache.pop(ref.id, None)
+        t0 = time.perf_counter()
+        payload = rt.get(ref, timeout=600)
+        gets.append((time.perf_counter() - t0) * 1e3)
+    k, v = payload["k"], payload["v"]
+    nbytes = k.nbytes + v.nbytes
+    digest = _kv_bytes(k, v)
+    want_shape = (L, TIER_BLOCKS, bt, cfg.n_heads, cfg.head_dim)
+    if (k.dtype != torch.bfloat16 or tuple(k.shape) != want_shape
+            or nbytes != 2 * 2 * math.prod(want_shape)
+            or k.device.type != "cpu" or payload["tokens"] != x + px
+            or digest != rt.get(p.pinned_payload_digest.remote(
+                digests[-1].hex()), timeout=120)):
+        fail(f"tier: the payload is {k.dtype} {tuple(k.shape)} on "
+             f"{k.device}, tokens equal {payload['tokens'] == x + px}; "
+             f"wanted bf16 {want_shape} on the host, P's own bytes")
+    del payload, k, v
+    on_b = rt.NodeAffinitySchedulingStrategy(node_id=node_b.node_id,
+                                             soft=False)
+    d_b, pull_ms, node, pid_b = rt.get(rt.remote(scheduling_strategy=on_b)(
+        _payload_pull_task).remote([ref]), timeout=600)
+    procs.add(pid_b)
+    if d_b != digest or node != node_b.node_id.hex():
+        fail(f"tier: the pull to node B ({node}) got other bytes: "
+             f"{d_b == digest}")
+    del ref
+    # The spill's stall: another 1008-token prompt's 64-block spill while a
+    # neighbour request decodes in the same steps.
+    rt.get(p.records.remote())
+    neighbour = p.generate_whole.remote(prompt(64), 112, 0.0, 0)
+    time.sleep(0.05)
+    x2 = prompt(TIER_PROMPT)
+    px2, _ = whole(p, x2)
+    rt.get(neighbour, timeout=600)
+    stall = _step_stall(rt.get(p.records.remote()), TIER_BLOCKS)
+    summary.update(spill={"blocks": spilled, "bytes": nbytes,
+                          "directory_entries": entries, **stall},
+                   get_ms=gets, pull_node_b_ms=pull_ms)
+    log(f"[tier] P served {TIER_PROMPT} + {TIER_NEW} tokens (TTFT "
+        f"{p_ttft:.1f} ms) and spilled its {TIER_BLOCKS}-block chain: "
+        f"{nbytes} bytes of bf16 K/V, the GCS directory {entries} entries "
+        f"(one a block). With a neighbour decoding, the step that spilled "
+        f"another {TIER_BLOCKS}-block chain took {stall['spill_step_ms']:.1f}"
+        f" ms (the extract and put {stall['spill_ms']:.1f} ms) against the "
+        f"median step {stall['median_step_ms']:.1f} ms of "
+        f"{stall['steps']}  [{card}]")
+    log(f"[tier] the payload: get in the driver from node A's arena "
+        + ", ".join(f"{g:.2f}" for g in gets) + f" ms; pull to node B "
+        f"{pull_ms:.2f} ms (sha256 equal to P's)  [{card}]")
+
+    # 3. Store hits: F serves the same prompt cold, then P's other
+    # 1008-token prompt.
+    store0 = hits(f, "store")
+    hit_runs, ties = [], []
+    for toks, want in ((x, px), (x2, px2)):
+        before = hits(f, "store")
+        got, ttft = whole(f, toks)
+        rec = rt.get(f.records.remote())
+        got_hit = hits(f, "store") - before
+        if (got_hit != TIER_PROBE_TOKENS or rec["buckets"] != [16]
+                or len(rec["fetches"]) != 1 or len(rec["inserts"]) != 1):
+            fail(f"tier: F's store hit {got_hit} tokens with prefill "
+                 f"buckets {rec['buckets']}, {len(rec['fetches'])} fetches "
+                 f"and {len(rec['inserts'])} inserts; wanted "
+                 f"{TIER_PROBE_TOKENS}, [16] and one each")
+        hit_runs.append({"ttft_ms": ttft, "fetch_ms": rec["fetches"][0] * 1e3,
+                         "ping_ms": rec["pings"][0] * 1e3,
+                         "insert_ms": rec["inserts"][0] * 1e3})
+        ties += _same_greedy(torch, params, cfg, toks, want,
+                             {"F store hit": got}, "tier")
+    hit_ttft, fetch_ms, insert_ms = (hit_runs[0]["ttft_ms"],
+                                     hit_runs[0]["fetch_ms"],
+                                     hit_runs[0]["insert_ms"])
+
+    # 4. A fresh prefill of the same prompt: F's local cache and the
+    # chain's directory entries cleared.
+    rt.get(f.clear_local.remote())
+    dropped = sum(bool(gcs.prefix_drop(d)) for d in digests)
+    fx2, fresh_ttft = whole(f, x)
+    rec = rt.get(f.records.remote())
+    if (hits(f, "store") - store0 != 2 * TIER_PROBE_TOKENS
+            or rec["buckets"] != [1024]):
+        fail(f"tier: the fresh prefill hit the store or ran buckets "
+             f"{rec['buckets']}")
+    ties += _same_greedy(torch, params, cfg, x, px, {"F fresh": fx2}, "tier")
+    across = hit_ttft - fetch_ms + pull_ms
+    summary.update(hit_ttft_ms=hit_ttft, fresh_ttft_ms=fresh_ttft,
+                   hits=hit_runs, fetch_ms=fetch_ms, insert_ms=insert_ms,
+                   pull_plus_insert_ms=pull_ms + insert_ms,
+                   across_nodes_hit_ttft_ms_estimate=across,
+                   dropped_entries=dropped)
+    log(f"[tier] F's store hits on P's two {TIER_PROMPT}-token prompts: "
+        + "; ".join(f"TTFT {h['ttft_ms']:.1f} ms (fetch {h['fetch_ms']:.1f}, "
+                    f"of it the publisher ping {h['ping_ms']:.2f}; insert "
+                    f"{h['insert_ms']:.1f})" for h in hit_runs)
+        + f"  [{card}]")
+    log(f"[tier] F's TTFT on the {TIER_PROMPT}-token prompt: store hit "
+        f"{hit_ttft:.1f} ms ({TIER_PROBE_TOKENS} tokens fetched and "
+        f"inserted, the K4 prefill at T=16) against a fresh prefill "
+        f"{fresh_ttft:.1f} ms (local cache and {dropped} directory entries "
+        f"cleared; T=1024): fresh / hit = {fresh_ttft / hit_ttft:.2f}. In "
+        f"the hit F's fetch (a same-node get) took {fetch_ms:.1f} ms and "
+        f"the insert {insert_ms:.1f} ms; across nodes the pull "
+        f"{pull_ms:.1f} ms + the insert = {pull_ms + insert_ms:.1f} ms, a "
+        f"hit TTFT of about {across:.1f} ms  [{card}]")
+
+    # 5. Drain migration P -> F over a named lane.
+    s = prompt(TIER_SESSION)
+    ps, _ = whole(p, s)
+    lane = f"kvtier-{os.getpid()}"
+    fin = f.kv_migrate_in.remote(lane)
+    sent = rt.get(p.kv_migrate_out.remote(lane), timeout=120)
+    imported = rt.get(fin, timeout=120)
+    if sent < 1 or imported != sent:
+        fail(f"tier: migration sent {sent} chains, imported {imported}")
+    turn2 = s + ps + prompt(TIER_NEW)
+    mig0 = hits(f, "migrated")
+    f2, _ = whole(f, turn2)
+    migrated = hits(f, "migrated") - mig0
+    p2, _ = whole(p, turn2)
+    if migrated <= 0:
+        fail("tier: F's turn on P's session hit no migrated tokens")
+    ties += _same_greedy(torch, params, cfg, turn2, p2,
+                         {"F after migration": f2}, "tier")
+    summary["migration"] = {"sent": sent, "imported": imported,
+                            "hits_migrated": migrated}
+    log(f"[tier] drain migration over lane {lane}: P sent {sent} chains, F "
+        f"imported {imported}; F's next turn on P's session "
+        f"({len(turn2)} tokens) hit {migrated:.0f} migrated tokens, its "
+        f"greedy stream P's continuation")
+
+    # 6. Self-heal: a chain only P published; P dies.
+    y = prompt(TIER_ONLY_P)
+    py, _ = whole(p, y)
+    p_launch = rt.get(p.launches.remote())
+    p_st = rt.get(p.stats.remote())
+    rt.kill(p)
+    deadline = time.monotonic() + 30
+    while _alive(p_info["pid"]):
+        if time.monotonic() > deadline:
+            fail(f"tier: P's worker {p_info['pid']} outlived kill")
+        time.sleep(0.05)
+    rt.get(f.set_min_spill.remote(1 << 30))   # F republishes nothing now
+    n0 = gcs.prefix_stats()["prefix_dir_entries"]
+    store1 = hits(f, "store")
+    fy, _ = whole(f, y)
+    n1 = gcs.prefix_stats()["prefix_dir_entries"]
+    if n1 != n0 - 1 or hits(f, "store") != store1:
+        fail(f"tier: F's fetch of P's chain after P died: the directory "
+             f"went {n0} -> {n1} entries, store hits "
+             f"{hits(f, 'store') - store1}; wanted one entry dropped, no hit")
+    ties += _same_greedy(torch, params, cfg, y, py, {"F self-heal": fy},
+                         "tier")
+    summary["self_heal"] = {"entries_before": n0, "entries_after": n1}
+    log(f"[tier] P killed: F's fetch of the {TIER_ONLY_P}-token chain only "
+        f"P published missed and dropped its entry ({n0} -> {n1}); F "
+        f"prefilled in full, its greedy stream P's")
+
+    # 7. K4 by route in each actor's own process.
+    f_launch = rt.get(f.launches.remote())
+    f_st = rt.get(f.stats.remote())
+    launches = {}
+    for name, st, st1, got in (("P", st0["p"], p_st, p_launch),
+                               ("F", st0["f"], f_st, f_launch)):
+        d_pref = int(st1["prefill_forwards"] - st["prefill_forwards"])
+        d_dec = int(st1["decode_forwards"] - st["decode_forwards"])
+        want = {"wgmma": L * d_pref, "split": L * d_dec}
+        mine = {r: got[f"paged_attention/{r}"] for r in want}
+        if mine != want or not all(mine.values()):
+            fail(f"tier: {name}'s K4 launches by route {mine}, wanted "
+                 f"{want} = {L} layers x (prefills {d_pref}, decode steps "
+                 f"{d_dec}) of its own")
+        launches[name] = mine
+    total = {r: launches["P"][r] + launches["F"][r]
+             for r in ("wgmma", "split")}
+    rt.kill(f)
+    summary.update(launches=total, launches_by_actor=launches, ties=ties,
+                   pids=[p_info["pid"], f_info["pid"]],
+                   phase_s=time.perf_counter() - t_phase)
+    log(f"[tier] K4 read in each actor's process: P wgmma "
+        f"{launches['P']['wgmma']}, split {launches['P']['split']}; F wgmma "
+        f"{launches['F']['wgmma']}, split {launches['F']['split']} = {L} x "
+        f"each one's prefills and decode steps; phase 14 took "
+        f"{summary['phase_s']:.1f} s")
+    return summary
+
+
 def _leaf_names(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -3353,7 +3779,8 @@ def main() -> None:
     serving = phase_serve(torch, np, card, count, counts, engine, runtime)
     done(12)
     cluster = phase_cluster(torch, np, card, counts, runtime, serving)
-    done(13)
+    tier = cluster.pop("tier")
+    done(14)
 
     def bf16_case(label):
         return next(c for c in cases
@@ -3394,6 +3821,7 @@ def main() -> None:
             + cluster["one_replica"]["launches"][r]
             + cluster["two_replicas"]["launches"][r]
             for r in ("wgmma", "split")},
+        "tier_launches_by_route": tier["launches"],
     }]
     for name, (replaces, _) in FLASH.items():
         mine = [c for c in flash_cases if c["kernel"] == name]
@@ -3417,7 +3845,7 @@ def main() -> None:
          "engine": engine, "end_to_end": e2e, "train": train,
          "train_end_to_end": train_e2e, "slotted": slotted, "spec": spec,
          "disagg": disagg, "runtime": runtime, "serve": serving,
-         "cluster": cluster},
+         "cluster": cluster, "tier": tier},
         indent=1))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

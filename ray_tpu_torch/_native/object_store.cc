@@ -13,8 +13,10 @@
 // C ABI only — consumed from Python via ctypes (no pybind11 in the image).
 //
 // The port's copy of ray_tpu/_native/object_store.cc, built by g++ at first
-// use into build/native/ (ray_tpu_torch/core/native_store.py); the JAX
-// package's crash-injection test hook is left out.
+// use into build/native/ (ray_tpu_torch/core/native_store.py). The
+// crash-injection test hook below compiles only with -DRT_STORE_TEST_HOOKS
+// (the tests' own build, and stress_store.cc's); the library the runtime
+// loads never has it.
 
 #include <cerrno>
 #include <cstdint>
@@ -513,5 +515,26 @@ void rt_store_prefault(void* handle, uint64_t chunk_bytes, uint32_t sleep_us,
     if (sleep_us) usleep(sleep_us);
   }
 }
+
+// -- test hook (crash-recovery tests) ---------------------------------------
+// Simulates a peer dying mid-splice: acquires the mutex, trashes the
+// allocator metadata, and returns WITHOUT unlocking. The caller then exits,
+// so the next locker observes EOWNERDEAD with inconsistent metadata and must
+// rebuild from the entry table. Compiled ONLY into a test build — never
+// exported from the library the runtime loads.
+#ifdef RT_STORE_TEST_HOOKS
+int rt_store_test_corrupt_and_hold(void* handle) {
+  Store* s = static_cast<Store*>(handle);
+  int rc = pthread_mutex_lock(&s->hdr->mutex);
+  if (rc == EOWNERDEAD) {
+    rebuild_free_list(s);
+    pthread_mutex_consistent(&s->hdr->mutex);
+  }
+  s->hdr->free_head = -1;  // dangling: no free space reachable
+  s->hdr->bytes_in_use = s->hdr->capacity;
+  s->hdr->num_objects += 17;
+  return 0;
+}
+#endif  // RT_STORE_TEST_HOOKS
 
 }  // extern "C"

@@ -227,12 +227,28 @@ class Config:
     serve_spec_accept_floor = _Flag(0.35)
     # EWMA factor of that acceptance rate (new = (1-a)*old + a*step_rate).
     serve_spec_accept_alpha = _Flag(0.3)
-    # The cluster-wide KV tier. Not ported yet: the paged engine raises when
-    # it is on rather than serve without it.
+    # Cluster-wide KV tier (serve/kv_tier.py): 1 spills retired prefix
+    # chains to the object plane as content-addressed payloads, publishes
+    # them in the GCS prefix directory for cross-replica fetch, and turns
+    # scale-down into drain-by-migration (the victim ships its warm chains
+    # to a survivor over a KVHandoffLane before retiring). 0 (the default)
+    # keeps KV engine-private and downscale sweep-only.
     kv_tier_enabled = _Flag(False)
+    # Minimum FULL blocks a retired chain must hold before the engine
+    # spills it to the store: shorter chains recompute faster than they
+    # fetch, so publishing them only churns the directory.
+    kv_tier_min_spill_blocks = _Flag(1)
+    # Prefix-directory capacity (entries, cluster-wide). Publishing past
+    # the cap evicts the least-recently-matched entries and frees their
+    # spilled objects.
+    kv_tier_dir_max_entries = _Flag(4096)
+    # Prefix-directory entry TTL (seconds) since the last publish or match;
+    # expired entries are swept on directory mutations and their objects
+    # freed. <= 0 disables the TTL (the capacity still holds).
+    kv_tier_dir_ttl_s = _Flag(600.0)
     # Upper bound (seconds) the serve controller waits for a drain
-    # migration before it retires the victim anyway (read only with the
-    # KV tier on).
+    # migration (victim kv_migrate_out + survivor kv_migrate_in) before it
+    # retires the victim anyway; the store tier catches anything unshipped.
     kv_tier_drain_timeout_s = _Flag(10.0)
     # Minimum seconds between SLO-autoscaler evaluations per deployment:
     # the controller ticks at 50 ms, but its signals refresh more slowly.

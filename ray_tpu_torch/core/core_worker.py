@@ -14,8 +14,8 @@ One instance per process, installed as the global runtime so the same
 ``ray_tpu_torch.api`` surface (and nested ``f.remote()`` calls inside tasks)
 works identically in drivers and workers.
 
-The port's copy of ``ray_tpu/core/core_worker.py``. The KV tier's
-prefix-directory client calls (``prefix_*``) come with the KV tier. Objects
+The port's copy of ``ray_tpu/core/core_worker.py``, with the KV tier's
+prefix-directory client calls (``prefix_*``). Objects
 are host bytes here as in the in-process runtime: a CUDA tensor put or
 returned from a task travels as a host copy, and ``get`` gives a CPU tensor.
 """
@@ -136,6 +136,27 @@ class _GcsClientAdapter:
 
     def kv_keys(self, prefix="", namespace="default"):
         return self._client.call("kv_keys", prefix, namespace)
+
+    # -- KV-tier prefix directory ---------------------------------------------
+
+    def prefix_publish(self, digest, meta, token_count, n_blocks, hint=""):
+        return self._client.call("prefix_publish", digest, meta,
+                                 token_count, n_blocks, hint)
+
+    def prefix_match(self, digests):
+        return self._client.call("prefix_match", digests)
+
+    def prefix_release(self, digest):
+        return self._client.call("prefix_release", digest)
+
+    def prefix_drop(self, digest):
+        return self._client.call("prefix_drop", digest)
+
+    def prefix_sweep(self):
+        return self._client.call("prefix_sweep")
+
+    def prefix_stats(self):
+        return self._client.call("prefix_stats")
 
     # -- observability --------------------------------------------------------
 

@@ -9,9 +9,9 @@ transport-agnostic so the multiprocess runtime serves the same tables over
 socket RPC (see ray_tpu.core.rpc / ray_tpu.core.gcs_server in the JAX
 package).
 
-The port's copy of ``ray_tpu/core/gcs.py``, the in-process half. The KV-tier
-prefix directory (``prefix_*``) comes with the KV tier; the socket-served
-tables are ``core/gcs_server.py``.
+The port's copy of ``ray_tpu/core/gcs.py``, the in-process half, with the
+KV tier's prefix directory (``prefix_*``); the socket-served tables are
+``core/gcs_server.py``.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 from ray_tpu_torch.core.ids import ActorID, JobID, NodeID
 from ray_tpu_torch.core.resources import ResourceSet
 from ray_tpu_torch.core.gcs_shards import shard_index  # noqa: F401 — re-exported
-from ray_tpu_torch.utils.logging import get_logger
+from ray_tpu_torch.utils.logging import get_logger, log_swallowed
 
 logger = get_logger("gcs")
 
@@ -135,6 +135,19 @@ class GlobalControlStore:
         from ray_tpu_torch.util.metrics import MetricsAggregator
 
         self.metrics = MetricsAggregator()
+        # Cluster KV-tier prefix directory: chain digest -> spilled-object
+        # locator, sharded like the KV. Bounds come from config at
+        # construction; the serve tier re-reads them per publish so env
+        # overrides in tests apply without a GCS restart.
+        from ray_tpu_torch.core.gcs_shards import ShardedPrefixDirectory
+
+        try:
+            dir_max = int(_config().kv_tier_dir_max_entries)
+            dir_ttl = float(_config().kv_tier_dir_ttl_s)
+        except Exception:  # noqa: BLE001 — config unavailable mid-teardown
+            dir_max, dir_ttl = 4096, 600.0
+        self.prefix_dir = ShardedPrefixDirectory(
+            n_shards, max_entries=dir_max, ttl_s=dir_ttl)
 
     # -- nodes (gcs_node_manager.cc) -----------------------------------------
 
@@ -254,14 +267,25 @@ class GlobalControlStore:
                            if k.startswith(prefix))
         return out
 
+    # Reserved kv_dump namespace carrying the prefix directory through the
+    # GCS snapshot path (never stored in the KV shards themselves).
+    _PREFIX_DIR_NS = "__kv_tier_prefix_dir__"
+
     def kv_dump(self) -> Dict[str, Dict[str, bytes]]:
         """Merged ``{namespace: {key: value}}`` view across every shard —
-        the (shard-count-independent) snapshot format."""
+        the (shard-count-independent) snapshot format. The KV-tier prefix
+        directory rides along under a reserved namespace so GCS snapshot /
+        restore round-trips it for free."""
         merged: Dict[str, Dict[str, bytes]] = {}
         for i, shard in enumerate(self._kv_shards):
             with self._kv_locks[i]:
                 for ns, kv in shard.items():
                     merged.setdefault(ns, {}).update(kv)
+        dir_dump = self.prefix_dir.dump()
+        if dir_dump:
+            import pickle
+
+            merged[self._PREFIX_DIR_NS] = {"directory": pickle.dumps(dir_dump)}
         return merged
 
     def kv_load(self, data: Dict[str, Dict[str, bytes]]) -> None:
@@ -270,12 +294,58 @@ class GlobalControlStore:
         for shard, lock in zip(self._kv_shards, self._kv_locks):
             with lock:
                 shard.clear()
-        for ns, kv in dict(data or {}).items():
+        data = dict(data or {})
+        dir_blob = data.pop(self._PREFIX_DIR_NS, None)
+        if dir_blob is not None and "directory" in dir_blob:
+            import pickle
+
+            try:
+                self.prefix_dir.load(pickle.loads(dir_blob["directory"]))
+            except Exception:  # noqa: BLE001 — a torn snapshot must not
+                logger.exception("prefix directory restore failed")  # block KV
+        else:
+            self.prefix_dir.load({})
+        for ns, kv in data.items():
             for key, value in kv.items():
                 self.kv_put(key, value, namespace=ns)
 
     def kv_shard_count(self) -> int:
         return len(self._kv_shards)
+
+    # -- KV-tier prefix directory (serve/kv_tier.py index) -------------------
+
+    def prefix_publish(self, digest: bytes, meta: bytes, token_count: int,
+                       n_blocks: int, hint: str = "") -> bool:
+        self._prefix_apply_bounds()
+        return self.prefix_dir.publish(digest, meta, token_count, n_blocks,
+                                       hint=hint)
+
+    def prefix_match(self, digests: List[bytes]):
+        return self.prefix_dir.match(list(digests))
+
+    def prefix_release(self, digest: bytes) -> bool:
+        return self.prefix_dir.release(digest)
+
+    def prefix_drop(self, digest: bytes) -> bool:
+        return self.prefix_dir.drop(digest)
+
+    def prefix_sweep(self) -> int:
+        self._prefix_apply_bounds()
+        return self.prefix_dir.sweep()
+
+    def prefix_stats(self) -> Dict[str, int]:
+        return self.prefix_dir.stats()
+
+    def _prefix_apply_bounds(self) -> None:
+        # Directory bounds track live config (tests shrink them via env
+        # overrides long after this store was built).
+        try:
+            from ray_tpu_torch.core.config import config
+
+            self.prefix_dir.max_entries = int(config().kv_tier_dir_max_entries)
+            self.prefix_dir.ttl_s = float(config().kv_tier_dir_ttl_s)
+        except Exception:  # noqa: BLE001 — config unavailable mid-teardown
+            log_swallowed(logger, "prefix directory bounds")
 
     # -- function/code store (gcs_function_manager.h) ------------------------
 

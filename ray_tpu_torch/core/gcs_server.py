@@ -18,9 +18,9 @@ Runs standalone: ``python -m ray_tpu_torch.core.gcs_server --port 0`` prints
 
 The port's copy of ``ray_tpu/core/gcs_server.py``. It reads actor specs
 with ``serialization.loads_deferred``: an argument holding a torch object
-does not make this process import torch. The KV tier's prefix
-directory RPCs (``prefix_*``) come with the KV tier, and the lock-order and
-leak checkers' start-up hooks with those checkers.
+does not make this process import torch. It serves the KV tier's prefix
+directory RPCs (``prefix_*``); the lock-order and leak checkers' start-up
+hooks come with those checkers.
 """
 
 from __future__ import annotations
@@ -1460,6 +1460,28 @@ class GcsService:
 
     def kv_keys(self, prefix="", namespace="default"):
         return self.store.kv_keys(prefix, namespace)
+
+    # KV-tier prefix directory (serve/kv_tier.py cluster index) — thin
+    # delegation like the KV above; directory state rides kv_dump, so the
+    # snapshot/restore path covers it with no extra handler.
+    def prefix_publish(self, digest, meta, token_count, n_blocks, hint=""):
+        return self.store.prefix_publish(digest, meta, token_count,
+                                         n_blocks, hint)
+
+    def prefix_match(self, digests):
+        return self.store.prefix_match(digests)
+
+    def prefix_release(self, digest):
+        return self.store.prefix_release(digest)
+
+    def prefix_drop(self, digest):
+        return self.store.prefix_drop(digest)
+
+    def prefix_sweep(self):
+        return self.store.prefix_sweep()
+
+    def prefix_stats(self):
+        return self.store.prefix_stats()
 
     def export_function(self, function_id: str, payload: bytes) -> None:
         self.store.export_function(function_id, payload)

@@ -11,8 +11,8 @@ and wait lists, so the planes stop contending without changing any RPC
 surface. ``gcs_shards=1`` reproduces the single-table behavior exactly —
 one shard, one lock, identical ordering.
 
-The port's copy of ``ray_tpu/core/gcs_shards.py``. The KV tier's prefix
-directory (``ShardedPrefixDirectory``) comes with the KV tier.
+The port's copy of ``ray_tpu/core/gcs_shards.py``, with the KV tier's
+prefix directory (``ShardedPrefixDirectory``).
 
 Routing uses ``zlib.crc32`` (NOT ``hash()``: Python string hashing is
 per-process seeded, and shard routing must be stable across GCS restarts
@@ -142,6 +142,227 @@ class ShardedObjectDirectory:
                     locs.pop(node_id, None)
                     if not locs:
                         sh.objects.pop(oid, None)
+
+
+class _PrefixShard:
+    __slots__ = ("lock", "entries")
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        # digest bytes -> entry dict, insertion order == LRU order (touched
+        # entries are popped and re-appended, like the paged engine's
+        # cached-block LRU).
+        self.entries: Dict[bytes, Dict[str, Any]] = {}
+
+
+class ShardedPrefixDirectory:
+    """Cluster prefix directory: KV-chain digest -> spilled-object locator.
+
+    The serve KV tier's index (digest = ``prefix_head_hash`` of a chain's
+    full blocks; entry = object locator + token count + replica hint), hash
+    -partitioned by digest with per-shard locks like the tables above. The
+    directory is a bounded CACHE, not an archive: per-shard LRU capacity
+    plus a wall-clock TTL since last touch bound it, and every removal path
+    (release-to-zero, LRU eviction, TTL expiry, explicit drop) reports the
+    entry through ``on_free`` AFTER the shard lock is released so the owner
+    can free the spilled payload without lock-order coupling.
+
+    ``refs`` counts PUBLISHERS (each engine that spilled this chain), not
+    readers — fetchers copy blocks into their own pool and hold nothing.
+    Wall-clock timestamps (``time.time``) make TTLs survive ``dump`` /
+    ``load`` across a GCS restart; restored entries whose publishers died
+    age out by TTL, and a fetch that finds their payload gone drops them
+    eagerly (the self-heal path — no dangling object ids).
+    """
+
+    def __init__(self, num_shards: int, max_entries: int = 4096,
+                 ttl_s: float = 600.0, on_free=None):
+        self._n = max(1, int(num_shards))
+        self.max_entries = int(max_entries)
+        self.ttl_s = float(ttl_s)
+        self._on_free = on_free
+        self._shards = [_PrefixShard() for _ in range(self._n)]
+        self._lock = threading.Lock()  # counters only
+        self._published = 0
+        self._evicted = 0
+        self._expired = 0
+        self._hits = 0
+        self._misses = 0
+
+    def _shard(self, digest: bytes) -> _PrefixShard:
+        return self._shards[shard_index(bytes(digest), self._n)]
+
+    def _per_shard_cap(self) -> int:
+        return max(1, self.max_entries // self._n)
+
+    def _expired_locked(self, entry: Dict[str, Any], now: float) -> bool:
+        return self.ttl_s > 0 and now - entry["t"] > self.ttl_s
+
+    def _reap_locked(self, sh: _PrefixShard, now: float) -> List[tuple]:
+        """Collect TTL-expired + over-capacity entries (oldest first);
+        caller frees them OUTSIDE the shard lock."""
+        freed = []
+        for digest in list(sh.entries):
+            if not self._expired_locked(sh.entries[digest], now):
+                break  # LRU order: first fresh entry ends the expired run
+            freed.append(("expired", digest, sh.entries.pop(digest)))
+        cap = self._per_shard_cap()
+        while len(sh.entries) > cap:
+            digest = next(iter(sh.entries))
+            freed.append(("evicted", digest, sh.entries.pop(digest)))
+        return freed
+
+    def _free(self, freed: List[tuple]) -> None:
+        with self._lock:
+            for reason, _digest, _entry in freed:
+                if reason == "expired":
+                    self._expired += 1
+                elif reason == "evicted":
+                    self._evicted += 1
+        if self._on_free is not None:
+            for _reason, digest, entry in freed:
+                self._on_free(digest, entry)
+
+    def publish(self, digest: bytes, meta: bytes, token_count: int,
+                n_blocks: int, hint: str = "") -> bool:
+        """Insert or re-reference ``digest``. Returns True when the entry
+        is NEW (the caller's payload became the canonical object); False
+        bumps the existing entry's refcount and leaves its meta alone."""
+        digest = bytes(digest)
+        now = time.time()
+        sh = self._shard(digest)
+        with sh.lock:
+            entry = sh.entries.pop(digest, None)
+            if entry is not None and not self._expired_locked(entry, now):
+                entry["refs"] += 1
+                entry["t"] = now
+                sh.entries[digest] = entry  # MRU re-append
+                freed = self._reap_locked(sh, now)
+                created = False
+            else:
+                freed = [("expired", digest, entry)] if entry else []
+                sh.entries[digest] = {
+                    "meta": bytes(meta), "tokens": int(token_count),
+                    "blocks": int(n_blocks), "refs": 1,
+                    "hint": str(hint), "t": now,
+                }
+                freed += self._reap_locked(sh, now)
+                created = True
+        with self._lock:
+            self._published += 1
+        self._free(freed)
+        return created
+
+    def match(self, digests: List[bytes]) -> Optional[Tuple[int, Dict[str, Any]]]:
+        """Longest-prefix match: walk ``digests`` (one per full block of
+        the probe chain, shortest..longest) from the LONGEST down and
+        return ``(index, entry_copy)`` for the first live entry, touching
+        it MRU. None when nothing matches."""
+        now = time.time()
+        for i in range(len(digests) - 1, -1, -1):
+            digest = bytes(digests[i])
+            sh = self._shard(digest)
+            with sh.lock:
+                entry = sh.entries.pop(digest, None)
+                if entry is None:
+                    continue
+                if self._expired_locked(entry, now):
+                    freed = [("expired", digest, entry)]
+                else:
+                    entry["t"] = now
+                    sh.entries[digest] = entry
+                    freed = None
+                    snap = dict(entry)
+            if freed is not None:
+                self._free(freed)
+                continue
+            with self._lock:
+                self._hits += 1
+            return i, snap
+        with self._lock:
+            self._misses += 1
+        return None
+
+    def release(self, digest: bytes) -> bool:
+        """Publisher-side decref; the entry (and its object, via
+        ``on_free``) goes when the last publisher releases. Returns True
+        when this call removed the entry."""
+        digest = bytes(digest)
+        sh = self._shard(digest)
+        with sh.lock:
+            entry = sh.entries.get(digest)
+            if entry is None:
+                return False
+            entry["refs"] -= 1
+            if entry["refs"] > 0:
+                return False
+            sh.entries.pop(digest)
+        self._free([("released", digest, entry)])
+        return True
+
+    def drop(self, digest: bytes) -> bool:
+        """Unconditional removal — the fetch-failure self-heal path (the
+        locator pointed at a freed object; un-index it regardless of
+        refs)."""
+        digest = bytes(digest)
+        sh = self._shard(digest)
+        with sh.lock:
+            entry = sh.entries.pop(digest, None)
+        if entry is None:
+            return False
+        self._free([("dropped", digest, entry)])
+        return True
+
+    def sweep(self, now: Optional[float] = None) -> int:
+        """Full TTL/capacity sweep across every shard; returns the number
+        of entries freed."""
+        now = time.time() if now is None else now
+        total = 0
+        for sh in self._shards:
+            with sh.lock:
+                freed = self._reap_locked(sh, now)
+            self._free(freed)
+            total += len(freed)
+        return total
+
+    def stats(self) -> Dict[str, int]:
+        entries = refs = 0
+        for sh in self._shards:
+            with sh.lock:
+                entries += len(sh.entries)
+                refs += sum(e["refs"] for e in sh.entries.values())
+        with self._lock:
+            return {
+                "prefix_dir_entries": entries,
+                "prefix_dir_refs": refs,
+                "prefix_dir_published": self._published,
+                "prefix_dir_hits": self._hits,
+                "prefix_dir_misses": self._misses,
+                "prefix_dir_evicted": self._evicted,
+                "prefix_dir_expired": self._expired,
+            }
+
+    def dump(self) -> Dict[bytes, Dict[str, Any]]:
+        """Shard-count-independent snapshot (rides the GCS KV snapshot)."""
+        out: Dict[bytes, Dict[str, Any]] = {}
+        for sh in self._shards:
+            with sh.lock:
+                for digest, entry in sh.entries.items():
+                    out[digest] = dict(entry)
+        return out
+
+    def load(self, data: Dict[bytes, Dict[str, Any]]) -> None:
+        """Replace directory contents (restore path); entries re-route by
+        digest so the restored server may run a different shard count."""
+        for sh in self._shards:
+            with sh.lock:
+                sh.entries.clear()
+        # Oldest-touch first so per-shard insertion order stays LRU order.
+        for digest, entry in sorted(data.items(), key=lambda kv: kv[1]["t"]):
+            digest = bytes(digest)
+            sh = self._shard(digest)
+            with sh.lock:
+                sh.entries[digest] = dict(entry)
 
 
 class _PubShard:

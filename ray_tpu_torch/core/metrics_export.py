@@ -185,6 +185,36 @@ def serve_kv_block_occupancy() -> um.Gauge:
                    tag_keys=("deployment", "state"))
 
 
+def serve_kv_tier_hits_total() -> um.Counter:
+    return _metric(um.Counter, "ray_tpu_serve_kv_tier_hits_total",
+                   "Prompt tokens served warm by KV source: local=this "
+                   "engine's prefix cache, store=fetched from the cluster "
+                   "KV tier's spilled objects, migrated=chains shipped in "
+                   "by a draining replica",
+                   tag_keys=("deployment", "source"))
+
+
+def serve_kv_tier_spill_bytes_total() -> um.Counter:
+    return _metric(um.Counter, "ray_tpu_serve_kv_tier_spill_bytes_total",
+                   "KV bytes spilled to the cluster tier's object store "
+                   "(chain publishes from the engine retire path)",
+                   tag_keys=("deployment",))
+
+
+def serve_kv_tier_fetch_bytes_total() -> um.Counter:
+    return _metric(um.Counter, "ray_tpu_serve_kv_tier_fetch_bytes_total",
+                   "KV bytes fetched back from the cluster tier on a "
+                   "directory hit (prefill recompute avoided)",
+                   tag_keys=("deployment",))
+
+
+def serve_kv_spilled_blocks() -> um.Gauge:
+    return _metric(um.Gauge, "ray_tpu_serve_kv_spilled_blocks",
+                   "KV blocks this engine currently has published in the "
+                   "cluster tier (directory entries it holds a ref on)",
+                   tag_keys=("deployment",))
+
+
 def cluster_histogram(name: str, tags: Dict[str, str]) -> Optional[dict]:
     """Cluster-merged cumulative histogram from the GCS aggregator —
     ``{"bounds", "buckets", "sum", "count"}`` summed across every live

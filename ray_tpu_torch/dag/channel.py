@@ -24,7 +24,8 @@ The file is sparse, so a ring larger than the free space of /dev/shm would
 map and then fault (SIGBUS) on the first write past the limit: the creator
 checks the room first (:func:`check_shm_room`) and raises instead.
 ``SocketChannel``, the cross-host edge, needs the runtime's KV for its
-rendezvous and comes with the core runtime (ROADMAP Queue 1).
+rendezvous and comes with the compiled DAG (ROADMAP Queue 1, "the compiled
+DAG").
 """
 
 from __future__ import annotations

@@ -6,9 +6,9 @@ replicas, return the ingress handle. The HTTP proxy starts lazily on the
 run that asks for it (``_start_proxy``), the gRPC ingress likewise.
 
 ``run_pipeline(compiled=True)`` precompiles the chain into resident DAG
-lanes, which need the compiled DAG and the multi-process cluster: it raises
-``NotImplementedError`` until that slice; ``compiled=False`` runs the same
-chain over per-call handles.
+lanes, which need the compiled DAG (ROADMAP Queue 1, "the compiled DAG"):
+it raises ``NotImplementedError`` until that is ported; ``compiled=False``
+runs the same chain over per-call handles.
 """
 
 from __future__ import annotations
@@ -108,8 +108,8 @@ def run_pipeline(
     if compiled:
         raise NotImplementedError(
             "run_pipeline(compiled=True) parks the stage replicas in "
-            "compiled-DAG lanes, which wait for the multi-process cluster "
-            "slice (ROADMAP Queue 1); use compiled=False")
+            "compiled-DAG lanes, which wait for the compiled DAG (ROADMAP "
+            "Queue 1, \"the compiled DAG\"); use compiled=False")
     if not ray_tpu_torch.is_initialized():
         ray_tpu_torch.init()
     controller = get_or_create_controller()

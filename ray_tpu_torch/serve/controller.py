@@ -11,8 +11,10 @@ counts as ``GPU`` in the replica's shape. The JAX controller forwards only
 ``num_cpus``, ``num_tpus`` and ``resources``; copied so, a replica would
 use the card without holding a grant for it.
 
-The cluster KV tier's drain-then-retire paths stay behind
-``kv_tier_enabled``, which the port's paged engine refuses.
+The cluster KV tier's drain-then-retire paths run behind
+``kv_tier_enabled``: a draining victim ships its warm chains to a survivor
+through the engines' ``kv_migrate_out``/``kv_migrate_in`` before it
+retires.
 """
 
 from __future__ import annotations

@@ -4,13 +4,14 @@ Counterpart of ``ray_tpu/serve/dag_pipeline.py``: :class:`KVHandoffLane`
 and the per-call pipeline (:class:`SequentialPipelineHandle`, what
 ``serve.run_pipeline(compiled=False)`` returns). The compiled pipelines of
 that module (``PipelineHandle``, ``build_compiled_pipeline``) park replicas
-in compiled-DAG loops, which wait for the multi-process cluster slice
-(ROADMAP Queue 1).
+in compiled-DAG loops, which wait for the compiled DAG (ROADMAP Queue 1,
+"the compiled DAG").
 """
 
 from __future__ import annotations
 
 import struct
+import time
 from typing import Any, List, Optional, Tuple
 
 import torch
@@ -100,6 +101,27 @@ class KVHandoffLane:
         self.chan = Channel(name=name, capacity=capacity, create=create,
                             slots=slots)
         self.name = self.chan.name
+
+    @classmethod
+    def attach(cls, name: str, timeout: float = 10.0,
+               capacity: int = 8 * 1024 * 1024,
+               slots: Optional[int] = None) -> Optional["KVHandoffLane"]:
+        """Attach to a lane some OTHER endpoint creates, retrying until it
+        appears or ``timeout`` lapses (None on timeout). The KV-tier drain
+        path races lane creation against attachment — the survivor creates,
+        the retiring victim attaches — so the attach side polls instead of
+        requiring create-before-attach ordering. ``capacity``/``slots``
+        must MATCH the creator's (the shm mapping is sized from them; both
+        drain endpoints derive them from the same model config)."""
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                return cls(name=name, capacity=capacity, slots=slots,
+                           create=False)
+            except Exception:  # noqa: BLE001 — shm segment not there yet
+                if time.monotonic() > deadline:
+                    return None
+                time.sleep(0.01)
 
     # -- writer half (prefill engine) -----------------------------------------
     def send(self, meta: dict, k: torch.Tensor, v: torch.Tensor,

@@ -30,8 +30,10 @@ serve metrics of ``core.metrics_export`` (tokens, TTFT by phase, prefix hit
 tokens, pool occupancy, speculation, sheds) in this process's registry.
 
 :func:`llm_deployment` builds the Serve deployment around the engines,
-chosen by the knobs in each replica. Not ported yet (see ROADMAP.md): the
-cluster KV tier (``kv_tier_enabled`` raises).
+chosen by the knobs in each replica. With ``kv_tier_enabled`` the paged
+engine joins the cluster KV tier (``serve/kv_tier.py``): retired prefix
+chains spill to the object store, a local miss probes the GCS prefix
+directory, and a draining replica migrates its chains to a survivor.
 """
 
 from __future__ import annotations
@@ -488,6 +490,13 @@ class LLMEngine:
         except BaseException as err:
             self._fail_inflight(err)
             raise
+        self._post_step()
+
+    def _post_step(self) -> None:
+        """Post-iteration hook, still under _step_lock (the paged engine
+        drains its KV-tier spill queue here — EVERY step runs it, including
+        the one that retires the last request, so spill pins never strand
+        on an idle engine)."""
 
     def _step_inner(self) -> None:
         # 1. Retire: a slot whose next chunk would cross max_len ends as
@@ -743,9 +752,17 @@ class PagedLLMEngine(LLMEngine):
       acceptance EWMA sinks below ``serve_spec_accept_floor``, or whose
       table lacks room for a spec chunk, falls back to one token a step.
 
+    With ``kv_tier_enabled`` the engine joins the cluster KV tier
+    (``serve/kv_tier.py``): a retired chain's full blocks spill to the
+    object store in ``_post_step``, a local miss probes the prefix
+    directory and inserts the fetched blocks instead of recomputing them,
+    and ``kv_migrate_out``/``kv_migrate_in`` ship tracked chains to a
+    survivor over a :class:`~ray_tpu_torch.serve.dag_pipeline.KVHandoffLane`.
+    A chain leaves the card in one extract into pinned host memory and
+    comes back in one insert, whatever its length.
+
     ``device`` defaults to the card; ``device="cpu"`` runs the plain
-    attention version on the CPU. The cluster KV tier (``kv_tier_enabled``)
-    is not ported yet and raises.
+    attention version on the CPU.
     """
 
     def __init__(self, params, config: TransformerConfig, *,
@@ -756,10 +773,6 @@ class PagedLLMEngine(LLMEngine):
                  draft_config: Optional[TransformerConfig] = None,
                  spec_tokens: Optional[int] = None, **kw):
         knobs = _get_config()
-        if knobs.kv_tier_enabled:
-            raise NotImplementedError(
-                "the cluster KV tier (kv_tier_enabled) is not yet ported to "
-                "ray_tpu_torch")
         self.spec_k = int(spec_tokens if spec_tokens is not None
                           else knobs.serve_spec_tokens)
         if self.spec_k > 0 and draft_params is None:
@@ -805,7 +818,47 @@ class PagedLLMEngine(LLMEngine):
                                     np.int32)
         self._slot_blocks: List[List[int]] = [[] for _ in range(self.slots)]
         self._hit_pending = 0  # hit tokens awaiting metric flush (step thread)
+        self._init_tier_state()
         self._init_spec_state()
+
+    def _init_tier_state(self) -> None:
+        # Cluster KV tier (serve/kv_tier.py). All tier state is touched
+        # under the locks noted inline; with the flag off every field stays
+        # empty and every tier branch is dead — exact engine-private
+        # behavior.
+        from ray_tpu_torch.serve.kv_tier import KVTier, kv_tier_enabled
+
+        self._tier = KVTier(self.name) if kv_tier_enabled() else None
+        try:
+            self._tier_min_spill = max(
+                1, int(_get_config().kv_tier_min_spill_blocks))
+        except Exception:  # noqa: BLE001 — config unavailable mid-teardown
+            self._tier_min_spill = 1
+        # Retired chains pinned for spill: (chain, full_ids, n_full,
+        # digests — the chain's full-block hash list).
+        # Appended under _state_lock by the step thread's retire phase,
+        # drained by _post_step — both inside the _step_lock scope.
+        self._tier_spill_q: List[tuple] = []
+        # head digest -> (chain tuple, n_real): the drain-migration export
+        # set (active sessions' chains). Insertion-ordered LRU, bounded.
+        self._tier_chains: "Dict[bytes, tuple]" = {}
+        # Digests of chains that arrived via drain migration (ordered-set
+        # dict, bounded) — attributes their local hits to source=migrated.
+        self._tier_migrated: "Dict[bytes, None]" = {}
+        self._tier_hits_pending = {"local": 0, "store": 0, "migrated": 0}
+        self._tier_hits_total = {"local": 0, "store": 0, "migrated": 0}
+        self._tier_spill_bytes_pending = 0
+        self._tier_fetch_bytes_pending = 0
+
+    _TIER_CHAIN_CAP = 512       # migration export set
+    _TIER_MIGRATED_CAP = 4096   # migrated-digest attribution set
+
+    def _tier_note_chain_locked(self, head: bytes, chain, n_real: int) -> None:
+        # Under _state_lock. LRU re-insert, like the KV manager's cache.
+        self._tier_chains.pop(head, None)
+        self._tier_chains[head] = (tuple(int(t) for t in chain), int(n_real))
+        while len(self._tier_chains) > self._TIER_CHAIN_CAP:
+            self._tier_chains.pop(next(iter(self._tier_chains)))
 
     def _init_spec_state(self) -> None:
         # Speculative-decoding host state, all [S] and owned by the step
@@ -831,10 +884,17 @@ class PagedLLMEngine(LLMEngine):
     def _reset_device_state(self) -> None:
         (self._k_pool, self._v_pool,
          self._last, self._gens) = self._pg.init_state()
-        # Pool contents are gone — the prefix cache resets with it.
+        # Pool contents are gone — the prefix cache resets with it. Queued
+        # spill entries and tracked chains point into the dead pool, so
+        # they go too (their pins die with the replaced manager); chains
+        # ALREADY published to the tier survive — those payloads are host
+        # copies in the object plane, not pool references.
         self.kv = KVBlockManager(self.kv.num_blocks, self.block_tokens)
         self._slot_table[:] = 0
         self._slot_blocks = [[] for _ in range(self.slots)]
+        self._tier_spill_q = []
+        self._tier_chains = {}
+        self._tier_migrated = {}
         self._init_spec_state()
 
     def warmup(self) -> None:
@@ -909,6 +969,14 @@ class PagedLLMEngine(LLMEngine):
             return
         tokens = [int(t) for t in req.prompt]
         full, tail, hit_len = self.kv.lookup(tokens)
+        digests: List[bytes] = []
+        fetched = None          # (payload, from_block, to_block)
+        if self._tier is not None:
+            from ray_tpu_torch.util import blockhash
+
+            cap = len(tokens) - 1
+            digests = blockhash.block_hashes(tokens, bt, max_blocks=cap // bt)
+            fetched = self._tier_probe(digests, len(full), hit_len)
         try:
             # The table must cover every position this sequence can ever
             # write: the prompt plus whole decode chunks until max_new is
@@ -925,6 +993,25 @@ class PagedLLMEngine(LLMEngine):
             self.kv.release(full + ([tail] if tail is not None else []))
             raise
         ids = list(full)
+        local_hit = hit_len
+        if fetched is not None:
+            # Cluster-tier hit past the local cache: write the fetched full
+            # blocks into fresh pool blocks at their chain positions (one
+            # insert) and prefill from there. The store chain supersedes a
+            # local tail hit (full blocks reach further than any partial
+            # tail).
+            payload, b_from, b_to = fetched
+            if tail is not None:
+                self.kv.release([tail])
+                tail = None
+            n_f = b_to - b_from
+            fb, fresh = fresh[:n_f], fresh[n_f:]
+            k_in = payload["k"][:, b_from:b_to]
+            v_in = payload["v"][:, b_from:b_to]
+            self._tier_insert_blocks(k_in, v_in, fb)
+            ids.extend(fb)
+            hit_len = b_to * bt
+            self._tier_fetch_bytes_pending += k_in.nbytes + v_in.nbytes
         if tail is not None:
             dst = fresh.pop(0)
             cf = self._pg.copy_fn()
@@ -973,7 +1060,32 @@ class PagedLLMEngine(LLMEngine):
             if n_full_prompt:
                 self.kv.register_chain(tokens, ids, n_full_prompt)
             self._hit_pending += hit_len
-            if self._spec:
+            if self._tier is not None:
+                # Hit attribution by source: tokens past the local hit came
+                # from the store; local full-block hits on a chain a drain
+                # migration shipped in count as migrated.
+                store_part = hit_len - local_hit if fetched is not None else 0
+                local_part = hit_len - store_part
+                src = "local"
+                if local_part and any(d in self._tier_migrated
+                                      for d in digests[:len(full)]):
+                    src = "migrated"
+                self._tier_hits_pending[src] += local_part
+                self._tier_hits_total[src] += local_part
+                self._tier_hits_pending["store"] += store_part
+                self._tier_hits_total["store"] += store_part
+                if n_full_prompt and digests:
+                    nf = min(len(digests), n_full_prompt // bt)
+                    self._tier_note_chain_locked(
+                        digests[nf - 1], tokens[:nf * bt], nf * bt)
+            if self._spec and fetched is not None:
+                # Store-fetched blocks carry no draft-side KV (like a
+                # disaggregation handoff) — speculation stays off for this
+                # request rather than proposing from garbage draft state.
+                self._spec_on[slot] = False
+                self._spec_ewma[slot] = 0.0
+                self._spec_use_pending[slot] = False
+            elif self._spec:
                 # Fresh speculation state: the draft chain's first forward
                 # re-consumes the last prompt token at real_len - 1, so the
                 # tail starts as that token. The EWMA starts optimistic; the
@@ -983,6 +1095,59 @@ class PagedLLMEngine(LLMEngine):
                 self._spec_use_pending[slot] = False
                 self._spec_ewma[slot] = 1.0
                 self._spec_on[slot] = True
+
+    def _tier_probe(self, digests: List[bytes], n_local_full: int,
+                    hit_len: int):
+        """Probe the cluster directory for a chain longer than the local
+        hit; returns ``(payload, from_block, to_block)`` or None. Runs on
+        the step thread outside _state_lock (the fetch is an object-store
+        pull). A payload of another dtype or block shape than the pool's
+        is refused with a logged error: the request prefills in full."""
+        if len(digests) <= n_local_full:
+            return None      # local cache already covers every full block
+        m = self._tier.match(digests)
+        if m is None:
+            return None
+        j, entry = m
+        if (j + 1) * self.block_tokens <= hit_len:
+            return None      # the local hit reaches at least as far
+        payload = self._tier.fetch(digests[j], entry)
+        if not isinstance(payload, dict):
+            return None
+        k = payload.get("k")
+        if k is None or k.shape[1] < j + 1:
+            return None
+        try:
+            self._tier_check_blocks(k, payload.get("v"))
+        except ValueError as err:
+            logger.error("engine %s: refused a KV-tier payload: %s",
+                         self.name, err)
+            return None
+        return payload, n_local_full, j + 1
+
+    def _post_step(self) -> None:
+        # Drain the spill queue (chains pinned at retire) under _step_lock:
+        # extract the full blocks off the card and publish them to the
+        # cluster tier, then unpin. Best-effort — a tier failure must never
+        # poison serving (the chain stays locally cached either way).
+        if self._tier is None or not self._tier_spill_q:
+            return
+        q, self._tier_spill_q = self._tier_spill_q, []
+        for chain, ids, n_full, digests in q:
+            try:
+                if not self._tier.is_published(digests[-1]):
+                    k, v = self._tier_extract_blocks(ids)
+                    payload = {"k": k, "v": v,
+                               "tokens": list(chain[:n_full
+                                                    * self.block_tokens])}
+                    self._tier.publish_chain(digests, payload,
+                                             n_full * self.block_tokens,
+                                             n_full)
+                    self._tier_spill_bytes_pending += k.nbytes + v.nbytes
+            except Exception:  # noqa: BLE001 — spill is best-effort
+                logger.exception("kv tier spill failed on %s", self.name)
+            finally:
+                self.kv.release(ids)
 
     def _attach_preloaded(self, req: _Request, slot: int) -> None:
         """Disaggregation handoff: the prompt's K/V blocks were already
@@ -1136,6 +1301,26 @@ class PagedLLMEngine(LLMEngine):
         chain = [int(t) for t in req.prompt] + req.out_ids[:req.emitted]
         n_real = min(len(chain), len(ids) * self.block_tokens)
         self.kv.register_chain(chain, ids, n_real)
+        if self._tier is None:
+            return
+        # Refcounted publish from the retire path: pin the chain's FULL
+        # blocks (their content is final) and queue them for the spill
+        # drain in _post_step — LRU eviction can't beat the extract to
+        # them, and the pins drop the moment the payload is off the card.
+        from ray_tpu_torch.util import blockhash
+
+        bt = self.block_tokens
+        n_full = n_real // bt
+        if n_full < self._tier_min_spill:
+            return
+        digests = blockhash.block_hashes(chain, bt, max_blocks=n_full)
+        head = digests[-1]
+        self._tier_note_chain_locked(head, chain[:n_real], n_real)
+        if not self._tier.is_published(head):
+            full_ids = list(ids[:n_full])
+            self.kv.pin(full_ids)
+            self._tier_spill_q.append(
+                (list(chain), full_ids, n_full, digests))
 
     def _discard_request_locked(self, req: _Request) -> None:
         ids, req.blocks = req.blocks, []
@@ -1263,6 +1448,215 @@ class PagedLLMEngine(LLMEngine):
             self._waiting.append(req)
         return req
 
+    # -- drain migration (cluster KV tier) ------------------------------------
+    def kv_export_chains(self) -> List[tuple]:
+        """Snapshot the drain-migration export set — ``(tokens, n_real,
+        head_digest)`` per tracked chain, least-recently-used first. Tracked
+        chains are the active sessions' registered prefixes (noted at
+        admission commit and at retire); shipping them to a survivor is what
+        makes downscale lossless for warm multi-turn state."""
+        with self._state_lock:
+            return [(list(chain), n_real, head)
+                    for head, (chain, n_real) in self._tier_chains.items()]
+
+    def _tier_check_blocks(self, k, v) -> None:
+        """Refuse blocks that are not the pool's: CPU or card tensors of
+        the pool's dtype, ``[L, nb, bt, H, Dh]`` with the pool's L, bt, H
+        and Dh, k and v alike. Nothing is cast: a payload of another model
+        or dtype is an error, not a conversion."""
+        pool = self._k_pool
+        want = (pool.shape[0],) + tuple(pool.shape[2:])
+        for name, t in (("k", k), ("v", v)):
+            if not isinstance(t, torch.Tensor):
+                raise ValueError(f"KV-tier {name} is a {type(t).__name__}, "
+                                 f"not a tensor")
+            got = (t.shape[0],) + tuple(t.shape[2:]) if t.dim() == 5 else None
+            if t.dtype != pool.dtype or got != want:
+                raise ValueError(
+                    f"KV-tier {name} of {t.dtype} {tuple(t.shape)} does not "
+                    f"fit the pool's {pool.dtype} blocks [L, nb, bt, H, Dh] "
+                    f"= [{want[0]}, nb, {', '.join(map(str, want[1:]))}]")
+        if k.shape != v.shape:
+            raise ValueError(f"KV-tier k {tuple(k.shape)} and v "
+                             f"{tuple(v.shape)} differ")
+
+    def _tier_insert_blocks(self, k_in, v_in, ids) -> None:
+        """Write fetched or migrated blocks into pool blocks ``ids`` in ONE
+        insert (``insert_fn`` takes any block count; JAX moves them one at
+        a time only to keep to one compiled program). The callers checked
+        the blocks (``_tier_check_blocks``)."""
+        inf = self._pg.insert_fn(len(ids))
+        self._k_pool, self._v_pool = inf(
+            self._k_pool, self._v_pool, k_in, v_in, np.asarray(ids, np.int32))
+
+    def _tier_extract_blocks(self, ids):
+        """Gather blocks ``ids`` in ONE extract and bring them to the host:
+        from the card into pinned memory (the copy returns once the bytes
+        are there); on the CPU the gather is already a new tensor. The
+        result never holds a CUDA tensor — a payload outlives the card
+        memory it came from."""
+        ef = self._pg.extract_fn(len(ids))
+        k, v = ef(self._k_pool, self._v_pool, np.asarray(ids, np.int32))
+        if k.device.type != "cuda":
+            return k, v
+        hk = torch.empty(k.shape, dtype=k.dtype, pin_memory=True)
+        hv = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        hk.copy_(k)
+        hv.copy_(v)
+        return hk, hv
+
+    def kv_export_chain_payload(self, tokens: Sequence[int],
+                                n_real: int) -> Optional[dict]:
+        """Extract one tracked chain off the card for the migration lane —
+        ``{"k", "v", "tokens", "n_real"}`` covering as much of the chain as
+        the prefix cache still holds (full blocks AND the exact partial
+        tail). None when the chain was evicted since being tracked."""
+        tokens = [int(t) for t in tokens]
+        with self._step_lock:
+            ids, covered = self.kv.pin_chain(tokens, int(n_real))
+            if not ids:
+                return None
+            try:
+                k, v = self._tier_extract_blocks(ids)
+                return {"k": k, "v": v,
+                        "tokens": tokens[:covered], "n_real": covered}
+            finally:
+                self.kv.release(ids)
+
+    def kv_import_chain(self, payload: dict) -> int:
+        """Survivor half of drain migration: write a handed-off chain into
+        the pool and register it as CACHED prefix state, so the migrated
+        session's next turn hits it exactly like a local retire would.
+        Returns the number of tokens now warm (0 if the pool stayed full).
+        Raises ``ValueError`` on blocks of another dtype or shape than the
+        pool's."""
+        tokens = [int(t) for t in payload["tokens"]]
+        n_real = int(payload.get("n_real", len(tokens)))
+        k = payload["k"]
+        v = payload["v"]
+        self._tier_check_blocks(k, v)
+        nb = int(k.shape[1])
+        if nb == 0 or n_real == 0:
+            return 0
+        deadline = time.monotonic() + 2.0
+        while True:
+            try:
+                ids = self.kv.alloc(nb)
+                break
+            except NoFreeBlocks:
+                if time.monotonic() > deadline:
+                    return 0  # pool saturated — the store tier still covers it
+                time.sleep(0.002)  # in-flight retires free blocks
+        with self._step_lock:
+            self._tier_insert_blocks(k, v, ids)
+            # The upload must have landed before the lane slot is acked.
+            _synchronize(self.device)
+        self.kv.register_chain(tokens, ids, n_real)
+        self.kv.release(ids)  # ACTIVE -> CACHED: pure prefix-cache state
+        from ray_tpu_torch.util import blockhash
+
+        digests = blockhash.block_hashes(tokens, self.block_tokens,
+                                         max_blocks=n_real // self.block_tokens)
+        with self._state_lock:
+            for d in digests:
+                self._tier_migrated.pop(d, None)
+                self._tier_migrated[d] = None
+            while len(self._tier_migrated) > self._TIER_MIGRATED_CAP:
+                self._tier_migrated.pop(next(iter(self._tier_migrated)))
+            if digests:
+                self._tier_note_chain_locked(digests[-1], tokens[:n_real],
+                                             n_real)
+        return n_real
+
+    def _tier_lane_params(self) -> tuple:
+        """(capacity, slots) for a drain-migration lane. Both endpoints
+        derive these from the same model config — the shm mapping is sized
+        from them, so creator and attacher MUST agree."""
+        c = self.config
+        block_bytes = (c.n_layers * self.block_tokens * c.n_heads
+                       * c.head_dim * c.dtype.itemsize)
+        # A chain spans at most one sequence's block budget; size the lane
+        # like the disaggregation lane (K+V of a full table row + meta).
+        return 2 * self.blocks_per_seq * block_bytes + 65536, 4
+
+    def kv_migrate_out(self, lane_name: str) -> int:
+        """Victim half of drain-then-retire: attach to the survivor's named
+        handoff lane, ship every tracked chain, send the close pill. Returns
+        chains sent; 0 (never raises) when the survivor's lane never appears
+        or the drain deadline lapses — the store tier is the fallback."""
+        from ray_tpu_torch.serve.dag_pipeline import KVHandoffLane
+        from ray_tpu_torch.util import flightrec
+
+        try:
+            timeout = float(_get_config().kv_tier_drain_timeout_s)
+        except Exception:  # noqa: BLE001 — config unavailable mid-teardown
+            timeout = 10.0
+        deadline = time.monotonic() + timeout
+        cap, slots = self._tier_lane_params()
+        lane = KVHandoffLane.attach(lane_name, timeout=timeout,
+                                    capacity=cap, slots=slots)
+        if lane is None:
+            return 0  # survivor never opened the lane
+        sent = 0
+        try:
+            for tokens, n_real, _head in self.kv_export_chains():
+                if time.monotonic() > deadline:
+                    break
+                payload = self.kv_export_chain_payload(tokens, n_real)
+                if payload is None:
+                    continue  # evicted since tracking — store tier covers it
+                meta = {"tokens": payload["tokens"],
+                        "n_real": payload["n_real"]}
+                try:
+                    lane.send(meta, payload["k"], payload["v"],
+                              timeout=max(0.1, deadline - time.monotonic()))
+                except ValueError:
+                    continue  # larger than the lane — store tier covers it
+                sent += 1
+            lane.close()  # pill: tells the survivor the drain is complete
+        finally:
+            lane.detach()
+        flightrec.record("serve", self.name, f"kv migrate out {sent}")
+        return sent
+
+    def kv_migrate_in(self, lane_name: str) -> int:
+        """Survivor half: CREATE the named handoff lane (the victim retry-
+        attaches), import chains until the victim's close pill or the drain
+        deadline, registering each as warm prefix state and recording its
+        digests for migrated-hit attribution. Returns chains imported."""
+        from ray_tpu_torch.dag.channel import ChannelClosed
+        from ray_tpu_torch.serve.dag_pipeline import KVHandoffLane
+        from ray_tpu_torch.util import flightrec
+
+        try:
+            timeout = float(_get_config().kv_tier_drain_timeout_s)
+        except Exception:  # noqa: BLE001 — config unavailable mid-teardown
+            timeout = 10.0
+        cap, slots = self._tier_lane_params()
+        lane = KVHandoffLane(name=lane_name, capacity=cap, slots=slots)
+        got = 0
+        deadline = time.monotonic() + timeout
+        try:
+            while True:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                try:
+                    meta, k, v, tok = lane.recv(timeout=left)
+                except (ChannelClosed, TimeoutError):
+                    break
+                try:
+                    if self.kv_import_chain(
+                            {"k": k, "v": v, "tokens": meta["tokens"],
+                             "n_real": meta["n_real"]}):
+                        got += 1
+                finally:
+                    lane.ack(tok)  # upload landed — slot back to the victim
+        finally:
+            lane.destroy()
+        flightrec.record("serve", self.name, f"kv migrate in {got}")
+        return got
+
     # -- introspection --------------------------------------------------------
     def stats(self) -> Dict[str, float]:
         """Slot occupancy, queue depth, pool state and prefix-cache counters;
@@ -1276,6 +1670,11 @@ class PagedLLMEngine(LLMEngine):
         for name in ("prefill_forwards", "decode_forwards", "spec_forwards",
                      "draft_prefill_forwards", "draft_forwards"):
             out[name] = float(getattr(self._pg, name))
+        if self._tier is not None:
+            out["kv_tier_spilled_blocks"] = float(self._tier.spilled_blocks())
+            with self._state_lock:
+                for src, n in self._tier_hits_total.items():
+                    out[f"kv_tier_hits_{src}"] = float(n)
         if self._spec:
             prop = self._spec_proposed_total
             acc = self._spec_accepted_total
@@ -1287,6 +1686,15 @@ class PagedLLMEngine(LLMEngine):
     def _observe(self, delivered: int, ttfts: List[tuple]) -> None:
         super()._observe(delivered, ttfts)
         hits, self._hit_pending = self._hit_pending, 0
+        if self._tier is not None:
+            with self._state_lock:
+                tier_hits = dict(self._tier_hits_pending)
+                for src in self._tier_hits_pending:
+                    self._tier_hits_pending[src] = 0
+            spill_b, self._tier_spill_bytes_pending = \
+                self._tier_spill_bytes_pending, 0
+            fetch_b, self._tier_fetch_bytes_pending = \
+                self._tier_fetch_bytes_pending, 0
         if not metrics_export.metrics_enabled():
             if self._spec:
                 self._spec_proposed_pending = 0
@@ -1299,6 +1707,19 @@ class PagedLLMEngine(LLMEngine):
         gauge = metrics_export.serve_kv_block_occupancy()
         for state in ("active", "cached", "free"):
             gauge.set(st[f"kv_blocks_{state}"], {**tags, "state": state})
+        if self._tier is not None:
+            ctr = metrics_export.serve_kv_tier_hits_total()
+            for src, n in tier_hits.items():
+                if n:
+                    ctr.inc(n, {**tags, "source": src})
+            if spill_b:
+                metrics_export.serve_kv_tier_spill_bytes_total().inc(spill_b,
+                                                                     tags)
+            if fetch_b:
+                metrics_export.serve_kv_tier_fetch_bytes_total().inc(fetch_b,
+                                                                     tags)
+            metrics_export.serve_kv_spilled_blocks().set(
+                self._tier.spilled_blocks(), tags)
         if self._spec:
             prop, self._spec_proposed_pending = self._spec_proposed_pending, 0
             acc, self._spec_accepted_pending = self._spec_accepted_pending, 0
@@ -1320,9 +1741,11 @@ class PagedLLMEngine(LLMEngine):
                                  {**tags, "phase": "spec"})
 
     def close(self) -> None:
-        """Release what the engine holds outside itself: nothing without the
-        cluster KV tier (not ported), so a no-op. Idempotent; the engine
-        owns no threads to stop."""
+        """Release this engine's KV-tier publishes — directory refs and
+        object pins drain to zero. Idempotent; the engine owns no threads
+        to stop."""
+        if self._tier is not None:
+            self._tier.close()
 
     def _throwaway_calls(self, prompt_len: int):
         # A throwaway pool: slot 0 on a table of fresh blocks, the plain

@@ -124,9 +124,18 @@ def test_concurrent_senders_coalesce_without_corruption():
                 got.append(_recv_frame(reader))
             done.set()
 
-        threading.Thread(target=read_loop, daemon=True).start()
+        # The batching assertion needs the senders to overlap; on a loaded
+        # host, threads left to themselves often ran their sends one after
+        # another. So they start together on a barrier, and the reader
+        # starts only once they are under way, behind small socket buffers:
+        # the first drainer blocks in sendmsg while the others queue.
+        a.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF, 4096)
+        b.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 4096)
+        start = threading.Barrier(n_threads + 1)
+        reader = threading.Thread(target=read_loop, daemon=True)
 
         def send_many(tid):
+            start.wait(30)
             for i in range(per_thread):
                 m = ("note", 0, "m", (tid, i, "p" * (i % 50)))
                 frame, bufs, raws = _dumps_frame(m)
@@ -137,6 +146,9 @@ def test_concurrent_senders_coalesce_without_corruption():
                    for t in range(n_threads)]
         for t in threads:
             t.start()
+        start.wait(30)
+        time.sleep(0.2)
+        reader.start()
         for t in threads:
             t.join(30)
         assert done.wait(30)

@@ -29,6 +29,11 @@ The multi-process cluster on the card: the paged engine in a worker
 process's ``num_gpus=1`` actor gives the in-process engine's greedy streams
 (2 layers, f32), and a SIGKILLed GPU worker's card memory and grant come
 back.
+
+The cluster KV tier on the card: the tier's one-op extract (into pinned
+host memory) and insert round-trip a bf16 chain bit for bit, and a store
+hit at gpt2_small widths with 2 layers (f32) keeps a fresh prefill's
+greedy stream.
 """
 
 import time
@@ -883,3 +888,67 @@ def test_sigkilled_gpu_worker_gives_its_card_back(gpu_cluster):
     while free0 - torch.cuda.mem_get_info()[0] > 256 << 20:
         assert time.monotonic() < deadline, "the card's memory did not return"
         time.sleep(0.1)
+
+
+# -- the cluster KV tier on the card -------------------------------------------
+
+
+@pytest.mark.gpu
+def test_tier_extract_insert_round_trip_bit_exact_in_bf16(cuda):
+    """The tier's one-op extract takes a bf16 chain off the card into pinned
+    host memory, and its one-op insert writes it back into other pool
+    blocks: bit for bit, into the pool tensors themselves."""
+    cfg = transformer.gpt2_small(n_layers=2)
+    eng = PagedLLMEngine(transformer.init_params(cfg, 3, device="cuda"),
+                         cfg, device="cuda", pool_blocks=129)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for pool in (eng._k_pool, eng._v_pool):
+        pool.copy_(torch.randn(pool.shape, generator=g, device="cuda"))
+    src, dst = [5, 9, 2, 40, 41], [100, 101, 7, 60, 3]
+    k, v = eng._tier_extract_blocks(src)
+    assert k.device.type == "cpu" and k.is_pinned() and v.is_pinned()
+    assert k.dtype == torch.bfloat16 and k.shape[1] == len(src)
+    k_pool, v_pool = eng._k_pool, eng._v_pool
+    eng._tier_insert_blocks(k, v, dst)
+    torch.cuda.synchronize()
+    assert eng._k_pool is k_pool and eng._v_pool is v_pool
+    for s, d in zip(src, dst):
+        assert torch.equal(k_pool[:, d].view(torch.int16),
+                           k_pool[:, s].view(torch.int16))
+        assert torch.equal(v_pool[:, d].view(torch.int16),
+                           v_pool[:, s].view(torch.int16))
+    with pytest.raises(ValueError, match="does not fit"):
+        eng.kv_import_chain({"k": k.float(), "v": v.float(),
+                             "tokens": list(range(80))})
+
+
+@pytest.mark.gpu
+def test_store_hit_keeps_the_fresh_prefill_stream(cuda, monkeypatch):
+    """gpt2_small widths at 2 layers (f32) on the kernel: A spills a chain
+    to the tier, B hits the store for it and prefills only the suffix, and
+    B's greedy stream equals a fresh prefill's on an engine without the
+    tier."""
+    from ray_tpu_torch.serve import kv_tier
+
+    cfg = transformer.gpt2_small(n_layers=2, dtype=torch.float32)
+    params = transformer.init_params(cfg, 11, device="cuda")
+    prompt = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, 300).tolist()
+    fresh = PagedLLMEngine(params, cfg, device="cuda", pool_blocks=129)
+    fresh.warmup()
+    want = fresh.generate(prompt, max_new_tokens=24)
+    monkeypatch.setenv("RAY_TPU_KV_TIER_ENABLED", "1")
+    kv_tier.reset_local_backend()
+    try:
+        a = PagedLLMEngine(params, cfg, device="cuda", pool_blocks=129)
+        b = PagedLLMEngine(params, cfg, device="cuda", pool_blocks=129)
+        a.warmup()
+        b.warmup()
+        assert a.generate(prompt, max_new_tokens=24) == want
+        assert a.stats()["kv_tier_spilled_blocks"] == (300 + 24) // 16
+        assert b.generate(prompt, max_new_tokens=24) == want
+        assert b.stats()["kv_tier_hits_store"] == (299 // 16) * 16
+        a.close()
+        b.close()
+    finally:
+        kv_tier.reset_local_backend()

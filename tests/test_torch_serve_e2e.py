@@ -15,8 +15,10 @@ process.
 Then the port's own rules: a ``num_gpus=1`` deployment with no card never
 runs on the CPU; ``num_gpus`` (and its alias ``num_tpus``) reaches the
 replica as a ``GPU`` grant, and a replica that finds no card left stays
-pending; ``kv_tier_enabled=1`` still refuses the paged engine; nothing is
-left after ``serve.shutdown()`` and ``shutdown()``; and ``start_proxies``
+pending; with ``kv_tier_enabled=1`` the paged engine serves on the tier
+(its replica's engine stats carry the tier counters, and a repeated prompt
+spills); nothing is left after ``serve.shutdown()`` and ``shutdown()``;
+and ``start_proxies``
 serves from a proxy actor on each virtual node until ``drain_proxy``.
 """
 
@@ -382,23 +384,34 @@ def test_gpu_grant_reaches_the_replica_and_a_third_stays_pending(option):
 
 
 def test_kv_tier_still_refuses_the_paged_engine(params):
-    from ray_tpu_torch.core.exceptions import ActorError
-
+    """The paged engine once refused ``kv_tier_enabled``; now a deployment
+    with the tier on serves, its greedy stream equals the tier-off one, and
+    the replica's engine stats carry the tier counters (the 26-token chain
+    of a 16-token prompt spills its full 16-token block at retire)."""
     _jparams, nparams = params
-    ray_tpu_torch.init(resources={"CPU": 4},
-                       system_config={"kv_tier_enabled": True})
-    try:
-        lm = tllm.llm_deployment(
-            ttf.tiny(max_seq_len=64),
-            lambda: params_from_numpy(nparams, "cpu"), name="tier",
-            device="cpu", slots=2, chunk=4)
-        handle = tserve.run(lm.bind())
-        with pytest.raises(ActorError, match="kv_tier_enabled"):
-            list(handle.options(stream=True).remote(
-                {"prompt_ids": PROMPTS[0], "max_new_tokens": 2}))
-    finally:
-        tserve.shutdown()
-        ray_tpu_torch.shutdown()
+    prompt = PROMPTS[3] + [1, 2]          # 16 tokens
+    streams, stats = {}, {}
+    for tier in (False, True):
+        ray_tpu_torch.init(resources={"CPU": 4},
+                           system_config={"kv_tier_enabled": tier})
+        try:
+            lm = tllm.llm_deployment(
+                ttf.tiny(max_seq_len=64),
+                lambda: params_from_numpy(nparams, "cpu"), name="tier",
+                device="cpu", slots=2, chunk=4)
+            handle = tserve.run(lm.bind())
+            streams[tier] = [it["token"] for it in handle.options(
+                stream=True).remote({"prompt_ids": prompt,
+                                     "max_new_tokens": N_NEW})]
+            stats[tier] = handle.options(
+                method_name="get_engine_stats").remote().result()
+        finally:
+            tserve.shutdown()
+            ray_tpu_torch.shutdown()
+    assert streams[True] == streams[False] and len(streams[True]) == N_NEW
+    assert "kv_tier_spilled_blocks" not in stats[False]
+    assert stats[True]["kv_tier_spilled_blocks"] == 1
+    assert stats[True]["kv_tier_hits_store"] == 0
 
 
 def _refused(port):

@@ -192,9 +192,10 @@ def test_serve_knobs_match_the_jax_defaults(monkeypatch):
     port = config()
     names = [n for n, v in vars(Config).items()
              if type(v).__name__ == "_Flag"]
-    assert len(names) == 75   # 18 serve knobs, 9 of the transport and
-    #                           observability modules, 14 of the runtime,
-    #                           34 of the multi-process cluster
+    assert len(names) == 78   # 21 serve knobs (the KV tier's 5 among
+    #                           them), 9 of the transport and observability
+    #                           modules, 14 of the runtime, 34 of the
+    #                           multi-process cluster
     for n in names:
         if n == "object_spilling_dir":  # by design: "" = under TMPDIR
             assert port.object_spilling_dir == ""
@@ -248,18 +249,33 @@ def test_env_spec_tokens_without_a_draft_raises_as_in_jax(monkeypatch):
 
 
 def test_env_kv_tier_raises_not_yet_ported(monkeypatch):
-    """``RAY_TPU_KV_TIER_ENABLED=1`` turns the cluster KV tier on in JAX; the
-    port has no tier yet, so its paged engine refuses rather than serve
-    without it. Off, ``close`` is an idempotent no-op."""
+    """``RAY_TPU_KV_TIER_ENABLED=1`` turns the cluster KV tier on, in JAX
+    and now in the port (whose paged engine once refused it): the engine
+    builds with a tier client, reports the tier's stats, and ``close``
+    releases its publishes and is idempotent. Off, there is no client and
+    ``close`` is a no-op."""
+    from ray_tpu_torch.serve import kv_tier
+
     params = ttf.init_params(ttf.tiny(), 0, device="cpu")
     eng = PagedLLMEngine(params, ttf.tiny(max_seq_len=64), device="cpu",
                          **GEOM)
+    assert eng._tier is None and "kv_tier_spilled_blocks" not in eng.stats()
     eng.close()
     eng.close()
     monkeypatch.setenv("RAY_TPU_KV_TIER_ENABLED", "1")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        PagedLLMEngine(params, ttf.tiny(max_seq_len=64), device="cpu",
-                       **GEOM)
+    kv_tier.reset_local_backend()
+    try:
+        eng = PagedLLMEngine(params, ttf.tiny(max_seq_len=64), device="cpu",
+                             **GEOM)
+        assert isinstance(eng._tier, kv_tier.KVTier)
+        eng.warmup()
+        eng.generate([5, 9] * 8, max_new_tokens=4)
+        assert eng.stats()["kv_tier_spilled_blocks"] >= 2
+        eng.close()
+        eng.close()
+        assert kv_tier._local_backend().stats()["prefix_dir_refs"] == 0
+    finally:
+        kv_tier.reset_local_backend()
 
 
 @pytest.fixture(scope="module")
