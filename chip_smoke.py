@@ -189,6 +189,21 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    one). K4's launches by route, read in each actor's process, equal
    n_layers x its prefills and decode steps.
 
+15. mesh — after phase 7, on the one card: ``make_mesh(MeshSpec(data=-1))``
+   starts a world-1 NCCL group itself and gives the six-axis mesh; phase
+   6's train step through the sharded ``make_train_step`` (parameters and
+   AdamW moments DTensors on the card, the batch placed on ``batch``),
+   once with ``remat_policy="full"`` and once with ``"dots"``: 3 warm-up
+   steps whose losses equal phase 6's within 1e-3 relative, then 10 timed
+   steps with the counts set to 0 just before and read just after (flash
+   2n / n / n a step under both policies), a finite, falling loss, step
+   time, tokens/s and peak memory beside phase 6's, one profiled step;
+   ring attention at seq=1 (f32, B=2, L=1024) equal to
+   ``reference_attention``; a gpt2_small-width Switch FFN (d 768, d_ff
+   3072, 8 experts, 16 x 1024 tokens, f32) on the mesh equal to the plain
+   forward, then 3 AdamW steps with a falling loss; ``entry()``'s forward.
+   The group is destroyed before phase 8.
+
 In phases 5 and 8-14 a greedy stream that departs from its reference must
 do so at a near tie: the plain path's top-2 logit gap there under 1e-3.
 
@@ -1295,6 +1310,238 @@ def phase_train_end_to_end(torch, np, counts):
             {"flash": sf, "dense": sd},
             "bf16_vs_f32_dense": {"flash": {"loss_rel": fl, "grad_rel": fg},
                                   "dense": {"loss_rel": dl, "grad_rel": dg}}}
+
+
+# -- phase 15 ----------------------------------------------------------------
+MESH_LOSS_TOL = 1e-3                 # mesh step vs phase 6: relative, 3 warm-up losses
+MOE_TOKENS = (16, 1024)              # the Switch FFN's batch: phase 6's tokens
+MOE_EXPERTS = 8
+
+
+def _mesh_step_run(torch, np, card, counts, mesh, policy, want_losses):
+    """Phase 6's train step on the mesh under one remat policy."""
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.models import training, transformer
+    from ray_tpu_torch.parallel.sharding import ShardingRules
+
+    rules = ShardingRules()
+    cfg = transformer.gpt2_small(max_seq_len=TRAIN_L, remat=True,
+                                 remat_policy=policy)
+    t0 = time.perf_counter()
+    bundle = training.make_train_step(
+        loss_fn=lambda p, b: transformer.lm_loss(p, b, cfg, mesh=mesh,
+                                                 rules=rules),
+        init_params_fn=lambda seed: transformer.init_params(cfg, seed,
+                                                            device=DEVICE),
+        logical_params=transformer.logical_axes(cfg), mesh=mesh, rules=rules,
+        optimizer=training.adamw(3e-4, weight_decay=0.1),
+        batch_logical=("batch", None))
+    params, opt = bundle.init(0)
+    leaves = list(training._leaves(params))
+    moments = [opt.state[p][k] for p in leaves
+               for k in ("exp_avg", "exp_avg_sq")]
+    if not all(isinstance(t, DTensor) and t.device.type == DEVICE
+               for t in leaves + moments):
+        fail(f"mesh {policy}: parameters and AdamW moments must be DTensors "
+             f"on the card")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.tensor(rng.integers(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_L)), device=DEVICE)}
+    losses, norms = [], []
+    for _ in range(TRAIN_WARMUP):
+        params, opt, m = bundle.step(params, opt, batch)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    warm = [x.item() for x in losses]
+    for a, b in zip(warm, want_losses):
+        if not abs(a - b) <= MESH_LOSS_TOL * abs(b):
+            fail(f"mesh {policy}: warm-up losses {warm} against phase 6's "
+                 f"unsharded step {want_losses} (tolerance {MESH_LOSS_TOL} "
+                 f"relative)")
+    torch.cuda.reset_peak_memory_stats()
+    per_step = []
+    counts.reset()                   # this path's counts: 0 just before
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        before = counts.read()
+        params, opt, m = bundle.step(params, opt, batch)
+        after = counts.read()
+        per_step.append({k: after[k] - before[k] for k in after})
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts.read()          # ... and read just after
+    peak = torch.cuda.max_memory_allocated()
+    losses = [x.item() for x in losses]
+    norms = [x.item() for x in norms]
+    n = cfg.n_layers
+    want = {"flash_forward": 2 * n, "flash_dq": n, "flash_dkv": n,
+            "paged_attention": 0, "paged_attention/wgmma": 0,
+            "paged_attention/split": 0}
+    for i, got in enumerate(per_step):
+        if got != want:
+            fail(f"mesh {policy} step {i}: launches {got}, wanted {want}")
+    if not all(np.isfinite(losses + norms)):
+        fail(f"mesh {policy}: non-finite loss or grad norm: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"mesh {policy}: loss did not fall: {losses}")
+    tokens = TRAIN_B * TRAIN_L * TRAIN_STEPS
+    out = {"remat_policy": policy, "setup_and_warmup_s": setup_s,
+           "wall_s": wall, "step_ms": wall / TRAIN_STEPS * 1e3,
+           "tokens_per_s": tokens / wall, "peak_memory_bytes": peak,
+           "losses": losses, "grad_norms": norms, "launches": launches,
+           "warmup_losses_vs_phase6": [warm, list(want_losses)]}
+
+    def one_step():
+        nonlocal params, opt
+        params, opt, _ = bundle.step(params, opt, batch)
+
+    out["profile"] = _profile_step(torch, one_step, card)
+    log(f"[mesh] {policy}: {out['step_ms']:.1f} ms a step, "
+        f"{out['tokens_per_s']:.0f} tokens/s, peak memory "
+        f"{peak / 2**30:.2f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"warm-up losses within {MESH_LOSS_TOL} of phase 6's; flash "
+        f"{2 * n}/{n}/{n} a step  [{card}]")
+    del params, opt, bundle, moments, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_ring(torch, np, mesh):
+    """Ring attention on the seq=1 mesh at phase 7's width, f32."""
+    from ray_tpu_torch.parallel.ring_attention import (make_ring_attention,
+                                                       reference_attention)
+
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.tensor(rng.standard_normal((2, TRAIN_L, 12, 64)),
+                            dtype=torch.float32, device=DEVICE)
+               for _ in range(3))
+    got = make_ring_attention(mesh, causal=True)(q, k, v).full_tensor()
+    want = reference_attention(q, k, v, causal=True)
+    err = (got - want).abs().max().item()
+    if not err <= TOL["float32"]:
+        fail(f"mesh ring attention: {err:.2e} from reference_attention "
+             f"(tolerance {TOL['float32']})")
+    return err
+
+
+def _mesh_moe(torch, np, card, mesh):
+    """A gpt2_small-width Switch FFN on the mesh (expert=1): its forward
+    equal to the plain one-device one, then 3 AdamW steps on phase 6's
+    token count, f32."""
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.models import training
+    from ray_tpu_torch.ops import moe
+    from ray_tpu_torch.parallel.sharding import ShardingRules
+
+    cfg = moe.MoEConfig(d_model=768, d_ff=3072, num_experts=MOE_EXPERTS)
+    rng = np.random.default_rng(12)
+    x = torch.tensor(rng.standard_normal(MOE_TOKENS + (768,)),
+                     dtype=torch.float32, device=DEVICE)
+    tgt = torch.tensor(rng.standard_normal(MOE_TOKENS + (768,)),
+                       dtype=torch.float32, device=DEVICE)
+    with torch.no_grad():
+        plain, plain_m = moe.moe_ffn(moe.init_params(cfg, 3, device=DEVICE),
+                                     x, cfg)
+    plain_dropped = plain_m["dropped_fraction"].item()
+
+    def loss_fn(p, b):
+        y, m = moe.moe_ffn(p, b["x"], cfg)
+        return ((y - b["tgt"]) ** 2).mean() + 0.01 * m["aux_loss"]
+
+    bundle = training.make_train_step(
+        loss_fn=loss_fn,
+        init_params_fn=lambda seed: moe.init_params(cfg, seed, device=DEVICE),
+        logical_params=moe.logical_axes(cfg), mesh=mesh,
+        rules=ShardingRules(), optimizer=training.adamw(1e-3),
+        batch_logical=None)
+    params, opt = bundle.init(3)
+    with torch.no_grad():
+        xd = training.place_batch({"x": x}, mesh, bundle.batch_sharding,
+                                  x.device)["x"]
+        y, m = moe.moe_ffn(params, xd, cfg)
+        err = (y.full_tensor() - plain).abs().max().item()
+        dropped = m["dropped_fraction"].full_tensor().item()
+    if not isinstance(y, DTensor) or err > TOL["float32"]:
+        fail(f"mesh moe: the mesh forward is {err:.2e} from the plain one "
+             f"(tolerance {TOL['float32']})")
+    if dropped != plain_dropped:
+        fail(f"mesh moe: dropped fraction {dropped} vs plain {plain_dropped}")
+    del y, m, xd, plain
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(3):
+        params, opt, mm = bundle.step(params, opt, {"x": x, "tgt": tgt})
+        losses.append(mm["loss"].item())
+    wall = time.perf_counter() - t0
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"mesh moe: loss did not fall: {losses}")
+    log(f"[mesh] moe d 768 d_ff 3072 E {MOE_EXPERTS}, {MOE_TOKENS[0]} x "
+        f"{MOE_TOKENS[1]} tokens f32: mesh forward {err:.2e} from the plain "
+        f"one, dropped fraction {dropped:.4f}; 3 steps {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} in {wall:.2f} s  [{card}]")
+    del params, opt, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"max_abs_err_vs_plain": err, "dropped_fraction": dropped,
+            "losses": losses, "steps_wall_s": wall,
+            "capacity": cfg.capacity(MOE_TOKENS[0] * MOE_TOKENS[1])}
+
+
+def phase_mesh(torch, np, card, counts, train):
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import MeshSpec, make_mesh, mesh_shape
+
+    if dist.is_initialized():
+        fail("mesh: a process group was already started")
+    t0 = time.perf_counter()
+    mesh = make_mesh(MeshSpec(data=-1), device_type=DEVICE)
+    init_s = time.perf_counter() - t0
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    if dist.get_backend() != backend or dist.get_world_size() != 1:
+        fail(f"mesh: backend {dist.get_backend()} world "
+             f"{dist.get_world_size()}, wanted a world-1 {backend} group")
+    log(f"[mesh] make_mesh(MeshSpec(data=-1)): {mesh_shape(mesh)} on "
+        f"{backend}, world 1, started in {init_s * 1e3:.1f} ms")
+    runs = {}
+    for policy in ("full", "dots"):
+        runs[policy] = _mesh_step_run(torch, np, card, counts, mesh, policy,
+                                      train["losses"][:TRAIN_WARMUP])
+    ring_err = _mesh_ring(torch, np, mesh)
+    log(f"[mesh] ring attention at seq=1, f32 B=2 L={TRAIN_L} H=12 D=64: "
+        f"{ring_err:.2e} from reference_attention")
+    moe_out = _mesh_moe(torch, np, card, mesh)
+    shape = mesh_shape(mesh)
+    dist.destroy_process_group()
+    from ray_tpu_torch import entry
+
+    fn, args = entry.entry()          # the port's twin of __graft_entry__
+    with torch.no_grad():
+        logits = fn(*args)
+    if (tuple(logits.shape) != (1, 512, 50304) or logits.device.type != DEVICE
+            or not torch.isfinite(logits.float()).all()):
+        fail(f"entry(): logits {tuple(logits.shape)} on {logits.device}")
+    del fn, args, logits
+    p6 = train
+    log(f"[mesh] phase 6 unsharded beside: {p6['step_ms']:.1f} ms a step, "
+        f"{p6['tokens_per_s']:.0f} tokens/s, peak "
+        f"{p6['peak_memory_bytes'] / 2**30:.2f} GiB, device busy "
+        f"{p6['profile']['device_busy_ms']:.1f} ms; mesh full/dots device "
+        f"busy {runs['full']['profile']['device_busy_ms']:.1f}/"
+        f"{runs['dots']['profile']['device_busy_ms']:.1f} ms  [{card}]")
+    return {"init_ms": init_s * 1e3, "mesh": shape, "runs": runs,
+            "ring_max_abs_err": ring_err, "moe": moe_out,
+            "launches": {k: runs["full"]["launches"][k]
+                         + runs["dots"]["launches"][k]
+                         for k in runs["full"]["launches"]}}
 
 
 # -- phase 8 -----------------------------------------------------------------
@@ -3767,6 +4014,8 @@ def main() -> None:
     train = phase_train(torch, np, card, counts)
     train_e2e = phase_train_end_to_end(torch, np, counts)
     done(7)
+    mesh = phase_mesh(torch, np, card, counts, train)
+    done(15)
     slotted, plain, params = phase_slotted(torch, np, card, engine)
     done(8)
     spec = phase_spec(torch, np, card, counts, plain, params)
@@ -3830,6 +4079,7 @@ def main() -> None:
             "name": name, "route": "cuda", "design": timed["route"],
             "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": replaces, "launches": train["launches"][name],
+            "mesh_launches": mesh["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
@@ -3843,7 +4093,8 @@ def main() -> None:
          "cases": cases, "paged_threshold": threshold,
          "flash_cases": flash_cases,
          "engine": engine, "end_to_end": e2e, "train": train,
-         "train_end_to_end": train_e2e, "slotted": slotted, "spec": spec,
+         "train_end_to_end": train_e2e, "mesh": mesh, "slotted": slotted,
+         "spec": spec,
          "disagg": disagg, "runtime": runtime, "serve": serving,
          "cluster": cluster, "tier": tier},
         indent=1))

@@ -57,6 +57,12 @@ from ray_tpu_torch.utils.logging import get_logger, log_swallowed
 
 logger = get_logger("gcs_server")
 
+# An actor's lease wait or its start on a daemon past this is logged as a
+# warning (each scheduling step is logged at DEBUG): the trail a creation
+# that never leaves PENDING leaves behind. Above a cold GPU worker's start
+# (11-17 s on the H100's host: torch's import, CUDA, the weights).
+_SLOW_SCHEDULING_S = 30.0
+
 
 class _Lease:
     # client_id ties a task lease to the requesting client process (stable
@@ -157,6 +163,13 @@ class GcsService:
         self._node_addr: Dict[NodeID, str] = {}
         self._heartbeats: Dict[NodeID, float] = {}
         self._dead_nodes: set = set()  # explicitly declared dead
+        # Liveness has its own lock, innermost (taken under self._lock,
+        # never the reverse): a heartbeat runs on its connection's reader
+        # thread and takes only this one, so neither a busy handler pool
+        # nor a long hold of the table lock delays it past the death
+        # threshold (a saturated pool of 128 handlers used to declare live
+        # nodes dead in 5 s).
+        self._hb_lock = threading.Lock()
         # Clients whose death cleanup already ran (on_client_closed): late
         # grants to them are refused instead of leaking. Bounded (uuids
         # never repeat, so old entries are only a leak) and lifted on
@@ -256,8 +269,9 @@ class GcsService:
             self.scheduler.add_node(
                 node_id, NodeResources(ResourceSet(resources), labels=info.labels)
             )
-            self._node_addr[node_id] = address
-            self._heartbeats[node_id] = time.time()
+            with self._hb_lock:
+                self._node_addr[node_id] = address
+                self._heartbeats[node_id] = time.time()
             for actor_id, spec_bytes, worker_addr in (hosted_actors or []):
                 from ray_tpu_torch.core import serialization
 
@@ -292,14 +306,19 @@ class GcsService:
         return {"config": config().to_dict()}
 
     def heartbeat(self, node_id: NodeID) -> str:
-        """'ok' | 'unknown' (re-register — fresh GCS) | 'dead' (exit)."""
-        with self._lock:
+        """'ok' | 'unknown' (re-register — fresh GCS) | 'dead' (exit).
+
+        Runs on the connection's reader thread, under ``_hb_lock`` alone
+        (see ``__init__``)."""
+        with self._hb_lock:
             if node_id in self._dead_nodes:
                 return "dead"
             if node_id not in self._node_addr:
                 return "unknown"
             self._heartbeats[node_id] = time.time()
             return "ok"
+
+    heartbeat._rpc_inline = True  # RpcServer runs it on the reader thread
 
     def _health_loop(self) -> None:
         cfg = config()
@@ -308,7 +327,7 @@ class GcsService:
         while not self._stopped.wait(period):
             now = time.time()
             dead: List[NodeID] = []
-            with self._lock:
+            with self._hb_lock:
                 for node_id, last in list(self._heartbeats.items()):
                     if now - last > period * threshold:
                         dead.append(node_id)
@@ -326,7 +345,7 @@ class GcsService:
         period = cfg.health_check_period_s
         interval = cfg.metrics_export_interval_s
         factor = cfg.health_stall_factor
-        with self._lock:
+        with self._hb_lock:
             node_ages = {nid.hex(): now - last
                          for nid, last in self._heartbeats.items()}
             dead_hexes = {nid.hex() for nid in self._dead_nodes}
@@ -360,9 +379,10 @@ class GcsService:
         with self._lock:
             if node_id not in self._node_addr:
                 return
-            addr = self._node_addr.pop(node_id)
-            self._dead_nodes.add(node_id)
-            self._heartbeats.pop(node_id, None)
+            with self._hb_lock:
+                addr = self._node_addr.pop(node_id)
+                self._dead_nodes.add(node_id)
+                self._heartbeats.pop(node_id, None)
             flightrec.record("health", node_id.hex()[:16], "node dead")
             self.store.mark_node_dead(node_id)
             self.scheduler.remove_node(node_id)
@@ -1205,6 +1225,9 @@ class GcsService:
         if spec_bytes is None or info is None or info.state == "DEAD":
             return
         spec = serialization.loads_deferred(spec_bytes)
+        name = actor_id.hex()[:8]
+        t0 = time.monotonic()
+        logger.debug("actor %s: lease for %s", name, spec.options.resources)
         try:
             lease_id, node_id, node_addr = self.request_lease(
                 spec.options.resources, spec.options.scheduling_strategy,
@@ -1213,20 +1236,30 @@ class GcsService:
         except (TimeoutError, Exception) as e:  # noqa: BLE001
             self._mark_actor_dead(actor_id, f"actor scheduling failed: {e}")
             return
+        waited = time.monotonic() - t0
+        (logger.warning if waited > _SLOW_SCHEDULING_S else logger.debug)(
+            "actor %s: lease %s on node %s after %.2f s", name, lease_id,
+            node_id.hex()[:8], waited)
         # Killed while its lease waited (the port's repair; JAX's GCS builds
         # it anyway and keeps the lease): give the lease back, build nothing.
         if self._actor_killed(actor_id):
             self.release_lease(lease_id)
             return
+        t1 = time.monotonic()
         try:
             worker_addr = self._daemons.get(node_addr).call(
                 "start_actor", spec_bytes, lease_id, timeout=120.0
             )
         except Exception as e:  # noqa: BLE001
             self.release_lease(lease_id)
+            logger.warning("actor %s: start_actor on %s failed after %.2f s: "
+                           "%s", name, node_addr, time.monotonic() - t1, e)
             # Node likely died mid-creation; retry via the failure path.
             self._on_actor_failure(actor_id, f"creation on {node_addr} failed: {e}")
             return
+        built = time.monotonic() - t1
+        (logger.warning if built > _SLOW_SCHEDULING_S else logger.debug)(
+            "actor %s: started in %s after %.2f s", name, worker_addr, built)
         with self._lock:
             killed = self._actor_killed(actor_id)
             if not killed:

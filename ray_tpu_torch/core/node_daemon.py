@@ -54,6 +54,10 @@ from ray_tpu_torch.utils.logging import get_logger, log_swallowed
 
 logger = get_logger("node_daemon")
 
+# An actor's worker or build past this is logged as a warning (each step is
+# logged at DEBUG); the GCS's _SLOW_SCHEDULING_S, for the same trail.
+_SLOW_START_S = 30.0
+
 
 # The root of the checkout this package was imported from: every process of
 # a cluster imports the same ray_tpu_torch, wherever its cwd is.
@@ -258,11 +262,16 @@ class NodeDaemon:
     def _heartbeat_loop(self) -> None:
         period = config().health_check_period_s / 2.0
         while not self._stopped.wait(period):
+            sent = time.monotonic()
             try:
                 status = self._gcs.call("heartbeat", self.node_id, timeout=5.0)
             except (RpcConnectionError, TimeoutError):
-                logger.warning("heartbeat to GCS failed")
+                logger.warning("heartbeat to GCS failed after %.2f s",
+                               time.monotonic() - sent)
                 continue
+            rtt = time.monotonic() - sent
+            if rtt > period:      # a late reply: the GCS is slow to answer
+                logger.warning("heartbeat reply took %.2f s", rtt)
             if status == "dead" or status is False:
                 logger.error("GCS declared this node dead; exiting")
                 self.shutdown()
@@ -1123,6 +1132,8 @@ class NodeDaemon:
         from ray_tpu_torch.runtime_env import needs_dedicated_worker
 
         renv = spec.options.runtime_env
+        name = spec.actor_id.hex()[:8]
+        t0 = time.monotonic()
         try:
             worker = (self._spawn_dedicated(dict(renv))
                       if needs_dedicated_worker(renv)
@@ -1130,6 +1141,10 @@ class NodeDaemon:
         except BaseException as e:  # noqa: BLE001 — lease must not leak
             self._release(lease_id)
             raise WorkerDiedError(f"actor worker spawn failed: {e}") from e
+        waited = time.monotonic() - t0
+        (logger.warning if waited > _SLOW_START_S else logger.debug)(
+            "actor %s: worker %s (%s) after %.2f s", name, worker.worker_id,
+            "dedicated" if needs_dedicated_worker(renv) else "pool", waited)
         # Mark the worker actor-bound BEFORE the (possibly seconds-long)
         # __init__ RPC: a busy worker with actor_id unset reads as a
         # retriable TASK worker to the memory monitor's OOM policy, which
@@ -1154,6 +1169,9 @@ class NodeDaemon:
             worker.actor_id = spec.actor_id  # set before actor_init drops
             worker.actor_init = False
             self._actor_records[spec.actor_id] = (spec_bytes, worker.address)
+        built = time.monotonic() - t0
+        (logger.warning if built > _SLOW_START_S else logger.debug)(
+            "actor %s: built in %.2f s", name, built)
         return worker.address
 
     def kill_actor_worker(self, actor_id: ActorID,

@@ -619,6 +619,10 @@ class RpcServer:
         self.address = f"{host}:{self._sock.getsockname()[1]}"
         self._pool = ThreadPoolExecutor(max_workers=max_workers,
                                         thread_name_prefix=f"{name}-h")
+        self._max_workers = max_workers
+        self._depth_lock = threading.Lock()
+        self._in_flight = 0           # pooled calls submitted, not returned
+        self._last_full_warning = 0.0
         self._stopped = threading.Event()
         self._conns: set = set()
         self._conns_lock = threading.Lock()
@@ -699,12 +703,17 @@ class RpcServer:
                                         "%s: on_client_opened failed",
                                         self._name)
                 elif kind == "note":
-                    self._pool.submit(self._run_note, method, data)
+                    self._submit(self._run_note, method, data)
                 elif kind == "req":
-                    self._pool.submit(
-                        self._run_request, sender, req_id, method,
-                        data, client_id,
-                    )
+                    fn = getattr(self._handler, method, None)
+                    if getattr(fn, "_rpc_inline", False):
+                        # Short, never-blocking handlers (liveness) run
+                        # here, ahead of whatever fills the pool.
+                        self._run_request(sender, req_id, method, data,
+                                          client_id)
+                    else:
+                        self._submit(self._run_request, sender, req_id,
+                                     method, data, client_id)
         except (RpcConnectionError, OSError):
             pass
         finally:
@@ -750,6 +759,31 @@ class RpcServer:
         timer = threading.Timer(self.CLIENT_DEATH_GRACE_S, check)
         timer.daemon = True
         timer.start()
+
+    def _submit(self, fn, *args) -> None:
+        """Run ``fn`` on the handler pool, counting the calls in flight; a
+        pool with every thread taken logs a warning (at most one every 10
+        s): what arrives then waits for a blocking call to return."""
+        with self._depth_lock:
+            self._in_flight += 1
+            full = self._in_flight > self._max_workers
+            now = time.monotonic()
+            warn = full and now - self._last_full_warning > 10.0
+            if warn:
+                self._last_full_warning = now
+        if warn:
+            logger.warning("%s: handler pool full: %d calls in flight on %d "
+                           "threads", self._name, self._in_flight,
+                           self._max_workers)
+
+        def run():
+            try:
+                fn(*args)
+            finally:
+                with self._depth_lock:
+                    self._in_flight -= 1
+
+        self._pool.submit(run)
 
     def _run_note(self, method: str, data: Tuple) -> None:
         try:

@@ -2,7 +2,8 @@
 
 ``params_from_numpy(tree, device)`` takes the JAX parameter tree as numpy
 arrays (``jax.tree.map(np.asarray, params)``) and returns the same dict of
-the port's tensors, key for key and shape for shape — the layouts already
+the port's tensors (lists stay lists, as the MLP's layers), key for key
+and shape for shape — the layouts already
 agree (see ``models/transformer.py``), so nothing is transposed. This module
 imports no JAX: it reads numpy only.
 """
@@ -32,6 +33,8 @@ def params_from_numpy(tree, device: Optional[Union[str, torch.device]] = None):
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
         return _to_tensor(node, dev)
 
     return walk(tree)

@@ -4,14 +4,18 @@ Counterpart of ``ray_tpu/ops/layers.py``: computation runs in the input's
 dtype with float32 where the JAX ops take it (layer-norm statistics, the
 linear accumulate and bias add, the loss). :func:`matmul_f32` gives the JAX
 ``preferred_element_type=float32`` product: a bf16 tensor-core GEMM with
-f32 output on the card, f32 operands everywhere else.
+f32 output on the card, f32 operands everywhere else; on DTensors too,
+for which :func:`_register_mm_dtype_sharding` gives DTensor the sharding
+rules of that product (``aten.mm.dtype``), which it lacks.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 
 def layer_norm(x, gamma, beta, eps: float = 1e-5):
@@ -58,6 +62,53 @@ class _Bf16MatmulF32Out(torch.autograd.Function):
         return da, db
 
 
+def _unsplit_middle(x):
+    """A DTensor ``x`` split on a middle dim (the sequence) gathered on it,
+    as megatron's sequence parallelism gathers before its projections:
+    folding ``x``'s leading dims into one, as a matmul does, would turn
+    that split into a strided shard, and DTensor (torch 2.13) then searches
+    its redistribution plans for up to a minute an op."""
+    if isinstance(x, DTensor) and any(
+            isinstance(p, Shard) and 0 < p.dim < x.ndim - 1
+            for p in x.placements):
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if isinstance(p, Shard) and 0 < p.dim < x.ndim - 1
+            else p for p in x.placements])
+    return x
+
+
+def _keep_layout(y):
+    """The identity on values; on a DTensor its backward brings the
+    gradient to ``y``'s own placements, so a gradient split on the
+    sequence is gathered before the matmul's unfold sees it."""
+    if isinstance(y, DTensor):
+        return y.redistribute(y.device_mesh, y.placements)
+    return y
+
+
+def matmul(x, w):
+    """``x @ w`` for ``x`` [..., K] and ``w`` [K, N]; a DTensor ``x``
+    through :func:`_unsplit_middle` and :func:`_keep_layout`."""
+    return _keep_layout(torch.matmul(_unsplit_middle(x), w))
+
+
+@functools.cache
+def _register_mm_dtype_sharding():
+    """Sharding rules of ``torch.mm(a, b, out_dtype=...)`` for DTensor,
+    those of ``a @ b`` per mesh dim: replicated, rows of ``a`` split,
+    columns of ``b`` split, or the contraction split into partial sums
+    (registered once, at the first DTensor product)."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.aten.mm.dtype)
+    def mm_dtype_sharding(a, b, out_dtype):
+        return [([Replicate()], [Replicate(), Replicate(), None]),
+                ([Shard(0)], [Shard(0), Replicate(), None]),
+                ([Shard(1)], [Replicate(), Shard(1), None]),
+                ([Partial()], [Shard(1), Shard(0), None])]
+
+
 def matmul_f32(x, w):
     """``x @ w`` ([..., K] @ [K, N]) accumulated and returned in f32 — the
     JAX ``preferred_element_type=float32`` product. Two bf16 operands on the
@@ -66,13 +117,16 @@ def matmul_f32(x, w):
     exact in f32)."""
     if (x.is_cuda and x.dtype == torch.bfloat16
             and w.dtype == torch.bfloat16):
+        if isinstance(x, DTensor):
+            _register_mm_dtype_sharding()
+            x = _unsplit_middle(x)
         x2 = x.reshape(-1, x.shape[-1])
         if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
             y = _Bf16MatmulF32Out.apply(x2, w)
         else:   # no graph to record: skip the Function's host overhead
             y = torch.mm(x2, w, out_dtype=torch.float32)
-        return y.reshape(*x.shape[:-1], w.shape[-1])
-    return torch.matmul(x.float(), w.float())
+        return _keep_layout(y.reshape(*x.shape[:-1], w.shape[-1]))
+    return matmul(x.float(), w.float())
 
 
 def linear(x, w, b=None):

@@ -203,6 +203,11 @@ def test_serving_imports_with_jax_blocked():
         "import ray_tpu_torch.core.sim_cluster, ray_tpu_torch.core.health\n"
         "import ray_tpu_torch.core.gcs_shards, ray_tpu_torch.core.ingest\n"
         "import ray_tpu_torch.core.lease_table, ray_tpu_torch.runtime_env\n"
+        "import ray_tpu_torch.parallel.mesh, ray_tpu_torch.parallel.sharding\n"
+        "import ray_tpu_torch.parallel.spmd, ray_tpu_torch.parallel.launch\n"
+        "import ray_tpu_torch.parallel.ring_attention\n"
+        "import ray_tpu_torch.parallel.pipeline, ray_tpu_torch.entry\n"
+        "import ray_tpu_torch.ops.moe, ray_tpu_torch.models.mlp\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ray_tpu')]\n"
         "assert not bad, bad\n"

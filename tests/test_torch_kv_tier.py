@@ -45,6 +45,7 @@ from ray_tpu.models import transformer as jtf
 from ray_tpu.serve import kv_tier as jkv_tier
 from ray_tpu.serve.llm import PagedLLMEngine as JaxEngine
 from ray_tpu.util import blockhash as jblockhash
+from ray_tpu_torch.core import config as tconfig
 from ray_tpu_torch.core.config import Config, config, set_config
 from ray_tpu_torch.core.gcs_shards import ShardedPrefixDirectory
 from ray_tpu_torch.models import transformer as ttf
@@ -69,7 +70,10 @@ def tier_enabled():
     """Flip the tier on for this module only, in both packages; engines
     read the flag at construction, so every engine below is built inside
     this scope."""
-    prev, jprev = config(), jconfig.config()
+    # The installed tables (None: knobs read from the environment), not
+    # config()'s snapshot of them, which set_config would install for
+    # every later test of the process.
+    prev, jprev = tconfig._global, jconfig._global
     set_config(Config(TIER_KNOBS))
     jconfig.set_config(jconfig.Config(TIER_KNOBS))
     n = torch.get_num_threads()

@@ -124,12 +124,16 @@ def test_loss_mask_and_unported_options():
                       {"tokens": torch.tensor(tokens),
                        "loss_mask": torch.tensor(mask)}, tcfg)
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    # Without a mesh JAX takes the dense path; the port refuses.
+    with pytest.raises(ValueError, match="needs a device mesh"):
         ttf.forward(_port_params(jparams), torch.tensor(tokens),
                     tcfg.replace(attn_impl="ring"))
-    with pytest.raises(NotImplementedError, match="dots"):
-        ttf.forward(_port_params(jparams), torch.tensor(tokens),
-                    tcfg.replace(remat=True, remat_policy="dots"))
+    dots = dict(remat=True, remat_policy="dots")
+    want = jtf.lm_loss(jparams, {"tokens": jnp.asarray(tokens, jnp.int32)},
+                       jcfg.replace(**dots))
+    got = ttf.lm_loss(_port_params(jparams, grad=True),
+                      {"tokens": torch.tensor(tokens)}, tcfg.replace(**dots))
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-5, atol=1e-5)
 
 
 def test_make_attention_picks_flash_as_jax_does():

@@ -140,7 +140,7 @@ def test_exporter_survives_gcs_outage():
         finally:
             exp.stop()
     finally:
-        set_config(Config())
+        set_config(None)    # back to the environment's knobs
 
 
 def test_exporter_disabled_by_knob():
@@ -156,7 +156,7 @@ def test_exporter_disabled_by_knob():
         assert exp._thread is None
         exp.stop()
     finally:
-        set_config(Config())
+        set_config(None)    # back to the environment's knobs
 
 
 # -- the flight recorder's ring -----------------------------------------------
