@@ -203,6 +203,37 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    3072, 8 experts, 16 x 1024 tokens, f32) on the mesh equal to the plain
    forward, then 3 AdamW steps with a falling loss; ``entry()``'s forward.
    The group is destroyed before phase 8.
+16. compiled DAG — on phase 13's cluster, after phase 14 and before the
+   teardown; the phase's worker start-up is printed apart from its
+   measured work. 16a: two ``num_gpus=0.25`` actors on node A form a
+   compiled DAG over device channels (``channel_type="device"``, 2 slots,
+   after a check that their rings fit in /dev/shm): stage A holds four
+   1024-token K/V gathers of phase 4's engine (``gpt2_small``, bf16, its
+   seed; 37,748,736 bytes each) and returns the one each tick's index
+   picks; stage B must receive a CUDA bf16 tensor on its own device, its
+   sha256 equal to A's (4 ticks one at a time, 16 as a burst); 16 ticks
+   one at a time and 16 as a burst are timed (ms a tick, GB/s) beside
+   phase 13's ``put``/``get`` and pull of the same bytes. Two CPU stages,
+   one a node, carry a 4 KiB payload over socket edges, then over
+   ``channel_type="auto"``, which must pick shm for every edge (one
+   host): round trips beside phase 13's no-op actor call. 16c: a ``gloo``
+   group of 4 ranks (2 on node A holding CUDA tensors, 2 on node B
+   holding CPU tensors: the hierarchical schedule) allreduces a 25 MiB
+   f32 bucket (sum, mean) against a torch f32 oracle at rtol 1e-6, timed
+   (ms, algorithm bandwidth); ``backend="device"`` in 4 rank threads of
+   this process on CUDA tensors: every result on the card, equal to the
+   torch sum. 16b: ``serve.run_pipeline([Pre, Model, Post])``, ``Model``
+   a ``num_gpus=1`` deployment running phase 4's engine (engine
+   defaults, the CUDA kernel): phase 4's 6 greedy requests one at a time
+   through ``compiled=False``, then through compiled lanes built over the
+   same replicas (one cold ``num_gpus=1`` replica), one at a time and as
+   a burst, must give the same tokens; K4's launches by route, set to 0
+   and read in the replica's process, equal n_layers x its prefills and
+   decode steps; the replica's ongoing and total counts hold; the
+   ``ray_tpu_dag_tick_s`` histogram reaches ``gcs.metrics_summary()``; a
+   3-stage no-op pipeline's round trip, compiled against sequential.
+   16c runs before 16b: its card ranks start with 16a's actors, and 16b's
+   replica takes the whole card.
 
 In phases 5 and 8-14 a greedy stream that departs from its reference must
 do so at a near tie: the plain path's top-2 logit gap there under 1e-3.
@@ -3526,8 +3557,11 @@ def phase_cluster(torch, np, card, counts, runtime_summary, serve_summary):
            "process" if smi_sees else "") + " (never built)")
     _cluster_retire(rt, serve, "cluster-2")
 
-    # Phase 14, the KV tier, runs on this cluster before its teardown.
+    # Phase 14, the KV tier, then phase 16, the compiled DAG, run on this
+    # cluster before its teardown.
     summary["tier"] = phase_tier(torch, np, rt, card, node_b, procs)
+    summary["dag"] = phase_dag(torch, np, rt, card, node_a, node_b, procs,
+                               summary)
 
     # 7. Tear down.
     for i in range(2):
@@ -3570,15 +3604,21 @@ def _gcs_call(cluster, method, *args):
         client.close()
 
 
-def _cluster_retire(rt_mod, serve, name):
+def _cluster_retire(rt_mod, serve, name, tag="cluster"):
     """Delete deployment ``name`` and wait until its replicas have given
     the card back."""
     serve.delete(name)
+    _wait_card_free(rt_mod, tag, f"{name}'s replicas after delete")
+
+
+def _wait_card_free(rt_mod, tag, what):
+    """Wait until the cluster's whole card is free again; fail after 120 s
+    naming ``what`` still holds it."""
     deadline = time.monotonic() + 120
     while rt_mod.available_resources().get("GPU", 0) != 1.0:
         if time.monotonic() > deadline:
-            fail(f"cluster: {name}'s replicas still hold the card after "
-                 f"delete: {rt_mod.available_resources()}")
+            fail(f"{tag}: {what} still hold the card: "
+                 f"{rt_mod.available_resources()}")
         time.sleep(0.05)
 
 
@@ -3976,6 +4016,635 @@ def phase_tier(torch, np, rt, card, node_b, procs):
     return summary
 
 
+# -- phase 16, the compiled DAG, device channels and eager collectives --------
+DAG_GATHER_TOKENS = 1024              # a K/V gather: 64 blocks of 16
+DAG_GATHERS = 4                       # stage A's gathers, picked by index
+DAG_TICKS = 16                        # ticks timed one at a time and as a burst
+DAG_SLOTS = 2                         # the device channels' ring depth
+DAG_SHA_TICKS = (4, 16)               # sha256-checked: one at a time, burst
+DAG_SOCKET_BYTES = 4096               # the socket edge's payload
+PIPE_CALLS = 200                      # no-op pipeline round trips timed
+COLL_BYTES = 25 * 2**20               # DDP's default bucket_cap_mb, f32
+COLL_REPS = 5                         # timed allreduces a op (after one warm)
+COLL_RTOL = 1e-6                      # f32 sums of 4 positive values
+GREEDY = ("prefix-a", "prefix-b", "short", "long", "mid", "followup")
+
+
+def _tensor_digest(t):
+    """The sha256 of a tensor's raw bytes, as the host holds them."""
+    import hashlib
+
+    import torch
+
+    return hashlib.sha256(t.detach().to("cpu").contiguous().reshape(-1)
+                          .view(torch.uint8).numpy().tobytes()).hexdigest()
+
+
+class _DagProducer:
+    """Phase 16a's stage A: four 1024-token K/V gathers of phase 4's engine
+    (bf16, on the card), made once; each tick returns the one its index
+    picks."""
+
+    def __init__(self, cfg, seed, prompts):
+        import torch
+
+        from ray_tpu_torch.models import transformer
+        from ray_tpu_torch.serve.llm import PagedLLMEngine
+
+        t0 = time.perf_counter()
+        params = transformer.init_params(
+            cfg, torch.Generator().manual_seed(seed), device=DEVICE)
+        eng = PagedLLMEngine(params, cfg, device=DEVICE, name="dag-producer")
+        self.xs = []
+        for p in prompts:
+            k, v, _, _ = eng.prefill_to_blocks(p, seed=0)
+            self.xs.append(torch.stack([k, v]).contiguous())
+        del eng, params
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        self.made_s = time.perf_counter() - t0
+
+    def info(self):
+        import torch
+
+        x = self.xs[0]
+        return {"pid": os.getpid(), "device": str(x.device),
+                "dtype": str(x.dtype), "shape": tuple(x.shape),
+                "bytes": x.numel() * x.element_size(), "made_s": self.made_s,
+                "digests": [_tensor_digest(x) for x in self.xs],
+                "last_words": [int(x.reshape(-1)[-1:].view(torch.int16)
+                                   .item()) for x in self.xs]}
+
+    def pick(self, i):
+        return self.xs[i % len(self.xs)]
+
+
+class _DagConsumer:
+    """Phase 16a's stage B: takes each tick's tensor off its device channel
+    and reports where it landed — with its sha256 (``"sha"``), or only its
+    last 16-bit word, read on the card after the copy's event (``"time"``)."""
+
+    def __init__(self):
+        self.ticks = 0
+
+    def check(self, x, mode):
+        import torch
+
+        tick, self.ticks = self.ticks, self.ticks + 1
+        here = (torch.device("cuda", torch.cuda.current_device())
+                if DEVICE == "cuda" else torch.device(DEVICE))
+        where = (type(x).__name__, str(x.dtype), str(x.device),
+                 x.device == here)
+        if mode == "sha":
+            return tick, where, _tensor_digest(x)
+        return tick, where, int(x.reshape(-1)[-1:].view(torch.int16).item())
+
+    def pid(self):
+        return os.getpid()
+
+
+class _Echo:
+    """A CPU stage that returns its input (phase 16a's socket and auto
+    edges)."""
+
+    def echo(self, x):
+        return x
+
+    def where(self):
+        from ray_tpu_torch.core.runtime import get_runtime
+
+        return get_runtime().current_node_id.hex(), os.getpid()
+
+
+class _CollectiveRank:
+    """Phase 16c's rank: a 25 MiB f32 bucket on its device (the card on
+    node A, the CPU on node B) in a ``gloo`` group of 4."""
+
+    def __init__(self, rank, world, device, n):
+        import torch
+
+        self.rank, self.world, self.n = rank, world, n
+        self.x = _coll_input(torch, rank, n).to(device)
+
+    def join(self, group):
+        from ray_tpu_torch.parallel import collectives as c
+
+        c.init_collective_group(self.world, self.rank, backend="gloo",
+                                group_name=group)
+        self.group = group
+        return os.getpid()
+
+    def run(self, op, reps):
+        """``reps`` + 1 allreduces of the bucket (the first warms), each
+        after a barrier; returns the timed seconds, the result's largest
+        relative error against a torch f32 oracle of the 4 inputs, the
+        result's type and dtype, the group's stats and where the input
+        lived."""
+        import numpy as np
+        import torch
+
+        from ray_tpu_torch.parallel import collectives as c
+
+        times, out = [], None
+        for _ in range(reps + 1):
+            c.barrier(group_name=self.group)
+            t0 = time.perf_counter()
+            out = c.allreduce(self.x, op=op, group_name=self.group)
+            times.append(time.perf_counter() - t0)
+        oracle = torch.stack([_coll_input(torch, r, self.n)
+                              for r in range(self.world)]).sum(0)
+        if op == "mean":
+            oracle = oracle / self.world
+        err = float(np.max(np.abs(np.asarray(out) - oracle.numpy())
+                           / np.abs(oracle.numpy())))
+        return {"s": times[1:], "rel_err": err, "type": type(out).__name__,
+                "dtype": str(out.dtype), "stats": c.get_group_stats(
+                    self.group), "device": str(self.x.device)}
+
+
+def _coll_input(torch, rank, n):
+    """Rank ``rank``'s bucket: positive f32 values, from its seed."""
+    g = torch.Generator().manual_seed(1600 + rank)
+    return 1.0 + torch.rand(n, generator=g, dtype=torch.float32)
+
+
+class _PipelineModel:
+    """Phase 16b's model stage: phase 4's engine (gpt2_small, bf16, its
+    seed, engine defaults, the CUDA kernel) in a Serve replica. A request
+    is ``{"prompt", "max_new", "fresh"}``; ``fresh`` starts it on an empty
+    prefix cache, so each run of a prompt does the same work."""
+
+    def __init__(self, cfg, seed):
+        import torch
+
+        from ray_tpu_torch.models import transformer
+        from ray_tpu_torch.serve.llm import PagedLLMEngine
+
+        params = transformer.init_params(
+            cfg, torch.Generator().manual_seed(seed), device=DEVICE)
+        self.eng = PagedLLMEngine(params, cfg, device=DEVICE,
+                                  name="pipeline-model")
+        self.eng.warmup()
+
+    def __call__(self, req):
+        if req.get("fresh"):
+            with self.eng._step_lock:
+                self.eng._reset_device_state()
+        return self.eng.generate(req["prompt"],
+                                 max_new_tokens=req["max_new"])
+
+    def info(self):
+        e = self.eng
+        return {"engine": type(e).__name__, "device": str(e.device),
+                "attention_kernel": e._pg.attention_kernel,
+                "pid": os.getpid()}
+
+    def stats(self):
+        return self.eng.stats()
+
+    def launches(self):
+        return Counts().read()
+
+    def reset_launches(self):
+        Counts().reset()
+
+
+def _pipeline_pre(req):
+    """Phase 16b's first stage (CPU): a request as the model stage takes
+    it."""
+    return {"prompt": [int(t) for t in req["prompt"]],
+            "max_new": int(req["max_new"]), "fresh": True}
+
+
+def _pipeline_post(tokens):
+    """Phase 16b's last stage (CPU): the token list as the caller gets it."""
+    return {"tokens": list(tokens), "n": len(tokens)}
+
+
+def _pipeline_requests(np):
+    """Phase 4's six greedy requests, in order; the follow-up's prompt is
+    filled in from the short request's stream by the caller."""
+    return [r for r in _requests(np) if r["name"] in GREEDY]
+
+
+def _replicas_of(rt_mod, name):
+    from ray_tpu_torch.serve.controller import get_or_create_controller
+
+    _v, table = rt_mod.get(get_or_create_controller().get_snapshot.remote(
+        -1, 0.0))
+    return table.get(name, {}).get("replicas", [])
+
+
+def phase_dag(torch, np, rt, card, node_a, node_b, procs, cluster_summary):
+    """The compiled DAG on phase 13's cluster: 16a device channels carrying
+    K/V gathers between two card actors, socket and auto edges; 16c the
+    eager collectives (a gloo group across both nodes, the device backend
+    in the driver); 16b ``run_pipeline([Pre, Model, Post])`` compiled
+    against sequential on phase 4's engine. 16c runs before 16b: its card
+    ranks start with 16a's actors, and 16b's replica takes the whole card."""
+    from ray_tpu_torch.core.runtime import get_runtime
+    from ray_tpu_torch.dag import (Channel, DeviceChannel, InputNode,
+                                   SocketChannel)
+    from ray_tpu_torch.dag.channel import shm_footprint, shm_room
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.parallel import collectives
+
+    t_phase = time.perf_counter()
+    cfg = transformer.gpt2_small()
+    L = cfg.n_layers
+    summary = {}
+    if rt.available_resources().get("GPU", 0) != 1.0:
+        fail(f"dag: phase 14's actors still hold the card: "
+             f"{rt.available_resources()}")
+
+    # Every worker of 16a and 16c, started together: stage A (which makes
+    # its gathers in its constructor), stage B, two CPU echo stages (one a
+    # node), and the four collective ranks (two on the card on node A).
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(0, cfg.vocab_size, DAG_GATHER_TOKENS).tolist()
+               for _ in range(DAG_GATHERS)]
+    on = {n: rt.NodeAffinitySchedulingStrategy(node_id=h.node_id, soft=False)
+          for n, h in (("A", node_a), ("B", node_b))}
+    t0 = time.perf_counter()
+    a = rt.remote(num_gpus=0.25, max_concurrency=2,
+                  scheduling_strategy=on["A"])(_DagProducer).remote(
+        cfg, 0, prompts)
+    b = rt.remote(num_gpus=0.25, max_concurrency=2,
+                  scheduling_strategy=on["A"])(_DagConsumer).remote()
+    echo = [rt.remote(scheduling_strategy=on[n])(_Echo).remote()
+            for n in ("A", "B")]
+    n_coll = COLL_BYTES // 4
+    ranks = [rt.remote(num_gpus=0.25 if r < 2 else 0,
+                       scheduling_strategy=on["A" if r < 2 else "B"])(
+        _CollectiveRank).remote(r, 4, DEVICE if r < 2 else "cpu", n_coll)
+        for r in range(4)]
+    a_info = rt.get(a.info.remote(), timeout=600)
+    b_pid = rt.get(b.pid.remote(), timeout=600)
+    echo_at = rt.get([e.where.remote() for e in echo], timeout=600)
+    rank_pids = rt.get([r.join.remote("dag-bucket") for r in ranks],
+                       timeout=600)
+    setup_s = time.perf_counter() - t0
+    procs.update([a_info["pid"], b_pid] + [p for _n, p in echo_at]
+                 + rank_pids)
+    nbytes = a_info["bytes"]
+    if (torch_device_type(a_info["device"]) != DEVICE
+            or a_info["dtype"] != "torch.bfloat16"
+            or nbytes != 2 * L * DAG_GATHER_TOKENS * cfg.d_model * 2):
+        fail(f"dag: stage A's gathers are {a_info}")
+    if [n for n, _p in echo_at] != [node_a.node_id.hex(),
+                                    node_b.node_id.hex()]:
+        fail(f"dag: the echo stages run on nodes {echo_at}")
+    log(f"[dag] 16a/16c workers up together in {setup_s:.1f} s (start-up, "
+        f"not measured work): stage A (num_gpus=0.25) made "
+        f"{DAG_GATHERS} {DAG_GATHER_TOKENS}-token K/V gathers of phase 4's "
+        f"engine ({nbytes} bytes each, {a_info['dtype']}, "
+        f"{a_info['shape']}) in {a_info['made_s']:.1f} s; stage B "
+        f"(num_gpus=0.25), echo stages on nodes A and B, four gloo ranks "
+        f"(two num_gpus=0.25 on node A, two on node B)")
+
+    # 16a. Device channels: A -> B, 2 slots, the gathers on the card.
+    capacity = nbytes + 4096
+    need = 3 * shm_footprint(capacity, DAG_SLOTS)  # input, A -> B, output
+    total, free = shm_room()
+    if need > free:
+        fail(f"dag: the device channels need {need} bytes of /dev/shm, "
+             f"which has {free} free of {total}")
+    dev = None if DEVICE == "cuda" else DEVICE  # None: each reader's card
+    ticks = {}
+
+    def run_dag(mode, n, burst):
+        with InputNode() as inp:
+            dag = b.check.bind(a.pick.bind(inp), mode)
+        compiled = dag.experimental_compile(
+            channel_type="device", channel_slots=DAG_SLOTS,
+            channel_capacity=capacity, channel_device=dev)
+        try:
+            kinds = {type(ch).__name__ for ch in compiled._channels.values()}
+            if kinds != {DeviceChannel.__name__}:
+                fail(f"dag: channel_type='device' built {kinds}")
+            compiled.execute(0).get(timeout=120)  # warm: pinned buffers
+            t0 = time.perf_counter()
+            if burst:
+                # Up to 2 x slots ticks in flight: the driver fetches the
+                # oldest before it writes past that (its output ring holds
+                # 2; writing on would wait on a ring only it drains).
+                outs, refs = [], []
+                for i in range(n):
+                    if len(refs) == 2 * DAG_SLOTS:
+                        outs.append(refs.pop(0).get(timeout=120))
+                    refs.append(compiled.execute(i))
+                outs += [r.get(timeout=120) for r in refs]
+            else:
+                outs = [compiled.execute(i).get(timeout=120)
+                        for i in range(n)]
+            wall = time.perf_counter() - t0
+        finally:
+            compiled.teardown()
+        first = outs[0][0]
+        for i, (tick, where, check) in enumerate(outs):
+            want = (a_info["digests"] if mode == "sha"
+                    else a_info["last_words"])[i % DAG_GATHERS]
+            if (where != ("Tensor", "torch.bfloat16", where[2], True)
+                    or torch_device_type(where[2]) != DEVICE
+                    or check != want or tick != first + i):
+                fail(f"dag: 16a tick {i} ({mode}, "
+                     f"{'burst' if burst else 'one at a time'}) landed as "
+                     f"{where}, tick {tick}, check "
+                     f"{'equal' if check == want else 'DIFFERENT'}")
+        return wall
+
+    for n, burst in zip(DAG_SHA_TICKS, (False, True)):
+        run_dag("sha", n, burst)
+    for burst in (False, True):
+        ticks["burst" if burst else "one_at_a_time"] = (
+            run_dag("time", DAG_TICKS, burst) / DAG_TICKS)
+    rt.kill(a)
+    rt.kill(b)
+    p13 = cluster_summary["object_plane"]["ms"]
+    ms = {k: v * 1e3 for k, v in ticks.items()}
+    rate = {k: nbytes / (v * 1e-3) / 1e9 for k, v in ms.items()}
+    summary["device_channel"] = {
+        "bytes": nbytes, "slots": DAG_SLOTS, "ms_per_tick": ms, "gb_per_s": rate,
+        "sha_ticks": sum(DAG_SHA_TICKS), "phase13_ms": p13,
+        "shm_needed": need, "shm_free": free}
+    log(f"[dag] 16a device channels (A -> B, {DAG_SLOTS} slots, {nbytes} "
+        f"bytes of "
+        f"bf16 a tick): {sum(DAG_SHA_TICKS)} ticks ({DAG_SHA_TICKS[0]} one "
+        f"at a time, {DAG_SHA_TICKS[1]} as a burst) landed in B as CUDA "
+        f"bf16 tensors on its own device, sha256 equal to A's; "
+        f"{DAG_TICKS} ticks one at a time {ms['one_at_a_time']:.2f} ms a "
+        f"tick = {rate['one_at_a_time']:.2f} GB/s, as a burst "
+        f"{ms['burst']:.2f} ms = {rate['burst']:.2f} GB/s; phase 13's same "
+        f"bytes: put {p13['put']:.2f} ms, get {p13['get']:.2f} ms, pull to "
+        f"node B {p13['pull_node_b']:.2f} ms; /dev/shm {need} of {free} "
+        f"free bytes  [{card}]")
+
+    # Socket edges, one stage a node, then auto on the same two nodes.
+    payload = bytes(range(256)) * (DAG_SOCKET_BYTES // 256)
+    rtt = {}
+    for kind, want_cls in (("socket", SocketChannel), ("auto", Channel)):
+        with InputNode() as inp:
+            dag = echo[1].echo.bind(echo[0].echo.bind(inp))
+        compiled = dag.experimental_compile(channel_type=kind)
+        try:
+            classes = {type(ch) for ch in compiled._channels.values()}
+            if classes != {want_cls}:
+                fail(f"dag: channel_type={kind!r} across nodes A and B (one "
+                     f"host) built {sorted(c.__name__ for c in classes)}, "
+                     f"wanted {want_cls.__name__} for every edge")
+            if compiled.execute(payload).get(timeout=60) != payload:
+                fail(f"dag: the {kind} DAG changed its payload")
+            t0 = time.perf_counter()
+            for _ in range(DAG_TICKS):
+                if compiled.execute(payload).get(timeout=60) != payload:
+                    fail(f"dag: the {kind} DAG changed its payload")
+            rtt[kind] = (time.perf_counter() - t0) / DAG_TICKS * 1e6
+        finally:
+            compiled.teardown()
+    for e in echo:
+        rt.kill(e)
+    noop13 = cluster_summary["actor"]["noop_round_trip_us"]
+    summary["socket_us"], summary["auto_shm_us"] = rtt["socket"], rtt["auto"]
+    log(f"[dag] 16a a {DAG_SOCKET_BYTES}-byte payload through two stages "
+        f"(node A, node B): socket edges {rtt['socket']:.1f} us a round "
+        f"trip (mean of {DAG_TICKS}); channel_type='auto' picked shm for "
+        f"every edge (one host): {rtt['auto']:.1f} us; phase 13's no-op "
+        f"actor call {noop13:.1f} us  [{card}]")
+
+    # 16c. The gloo group: 2 ranks on the card (node A), 2 on the CPU
+    # (node B): the hierarchical schedule, a 25 MiB f32 bucket.
+    coll = {}
+    for op in ("sum", "mean"):
+        outs = rt.get([r.run.remote(op, COLL_REPS) for r in ranks],
+                      timeout=600)
+        for r, o in enumerate(outs):
+            if (o["rel_err"] > COLL_RTOL or o["type"] != "ndarray"
+                    or o["dtype"] != "float32"):
+                fail(f"dag: gloo allreduce {op} on rank {r} ({o['device']}):"
+                     f" {o['type']} {o['dtype']}, relative error "
+                     f"{o['rel_err']:.2e} against the torch f32 oracle "
+                     f"(rtol {COLL_RTOL})")
+        s = max(_median(o["s"]) for o in outs)
+        coll[op] = {"ms": s * 1e3, "algbw_gb_per_s": COLL_BYTES / s / 1e9,
+                    "rel_err": max(o["rel_err"] for o in outs)}
+    stats = [o["stats"] for o in outs]
+    hier = sum(st["hier_rounds"] for st in stats)
+    if hier != 4 * 2 * (COLL_REPS + 1) or any(st["flat_rounds"]
+                                              for st in stats):
+        fail(f"dag: the gloo group's rounds {stats}: wanted every "
+             f"allreduce on the hierarchical schedule (2 nodes x 2 ranks)")
+    for r in ranks:
+        rt.kill(r)
+    # The device backend: 4 rank threads of this process, CUDA tensors.
+    world, dev_out, errors = 4, {}, []
+    xs = [_coll_input(torch, r, n_coll).to(DEVICE) for r in range(world)]
+
+    def member(rank):
+        try:
+            collectives.init_collective_group(world, rank, backend="device",
+                                              group_name="dag-device")
+            times = []
+            for _ in range(COLL_REPS + 1):
+                t0 = time.perf_counter()
+                out = collectives.allreduce(xs[rank],
+                                            group_name="dag-device")
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            dev_out[rank] = (out, times[1:])
+        except Exception as e:  # noqa: BLE001 — reported below, then fatal
+            errors.append(f"rank {rank}: {e!r}")
+
+    threads = [threading.Thread(target=member, args=(r,)) for r in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"dag: device-backend allreduce: {errors or 'a rank hung'}")
+    want = torch.stack(xs).sum(0)
+    for rank, (out, _t) in dev_out.items():
+        if (torch_device_type(str(out.device)) != DEVICE
+                or not torch.equal(out, want)):
+            fail(f"dag: device-backend rank {rank}: {out.device}, equal to "
+                 f"the torch sum: {torch.equal(out.cpu(), want.cpu())}")
+    collectives.destroy_collective_group("dag-device")
+    s = max(_median(t) for _o, t in dev_out.values())
+    coll["device_sum"] = {"ms": s * 1e3,
+                          "algbw_gb_per_s": COLL_BYTES / s / 1e9}
+    del xs, dev_out, want
+    summary["collectives"] = coll
+    log(f"[dag] 16c gloo allreduce of a 25 MiB f32 bucket, 4 ranks (2 on "
+        f"the card on node A, 2 on the CPU on node B), hierarchical "
+        f"schedule ({hier} rounds): sum {coll['sum']['ms']:.1f} ms = "
+        f"{coll['sum']['algbw_gb_per_s']:.2f} GB/s algorithm bandwidth, "
+        f"mean {coll['mean']['ms']:.1f} ms, relative error "
+        f"{max(coll['sum']['rel_err'], coll['mean']['rel_err']):.1e} <= "
+        f"{COLL_RTOL} against torch f32; backend='device', 4 rank threads "
+        f"on the card: {coll['device_sum']['ms']:.2f} ms = "
+        f"{coll['device_sum']['algbw_gb_per_s']:.1f} GB/s, each result on "
+        f"the card, equal to the torch sum  [{card}]")
+
+    # 16b. run_pipeline([Pre, Model, Post]): sequential, then compiled
+    # lanes over the same replicas (one cold num_gpus=1 replica).
+    _wait_card_free(rt, "dag", "16a's and 16c's actors")
+    summary["pipeline"] = _phase_dag_pipeline(torch, np, rt, card, cfg,
+                                              procs)
+    summary["launches"] = summary["pipeline"]["launches"]
+    summary["setup_s"] = setup_s + summary["pipeline"]["setup_s"]
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"[dag] phase 16 took {summary['phase_s']:.1f} s, "
+        f"{summary['setup_s']:.1f} s of it worker start-up")
+    return summary
+
+
+def _phase_dag_pipeline(torch, np, rt, card, cfg, procs):
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.core.runtime import get_runtime
+    from ray_tpu_torch.serve.controller import get_or_create_controller
+    from ray_tpu_torch.serve.dag_pipeline import build_compiled_pipeline
+
+    L = cfg.n_layers
+    out = {}
+    ctrl = get_or_create_controller()
+    stages = [serve.deployment(name="pipe-pre")(_pipeline_pre),
+              serve.deployment(
+                  name="pipe-model", max_concurrency=4,
+                  ray_actor_options={"num_gpus": 1})(_PipelineModel).bind(
+                  cfg, 0),
+              serve.deployment(name="pipe-post")(_pipeline_post)]
+    names = ["pipe-pre", "pipe-model", "pipe-post"]
+    t0 = time.perf_counter()
+    seq = serve.run_pipeline(stages, compiled=False)
+    (model,) = _replicas_of(rt, "pipe-model")
+    info = rt.get(model.handle_request.remote("info"), timeout=600)
+    out["setup_s"] = time.perf_counter() - t0
+    procs.add(info["pid"])
+    if (info["engine"] != "PagedLLMEngine" or info["attention_kernel"] !=
+            "cuda" or torch_device_type(info["device"]) != DEVICE):
+        fail(f"dag: the pipeline's model replica is {info}")
+    reqs = _pipeline_requests(np)
+
+    def fill(r, results):
+        if r.get("extends"):
+            base = next(x for x in reqs if x["name"] == r["extends"])
+            r["prompt"] = base["prompt"] + results[base["name"]] + r["extra"]
+        return {"prompt": r["prompt"], "max_new": r["max_new"]}
+
+    def one_at_a_time(handle):
+        results, walls = {}, []
+        for r in reqs:
+            req = fill(r, results)
+            t0 = time.perf_counter()
+            got = handle.remote(req).result(timeout_s=600)
+            walls.append(time.perf_counter() - t0)
+            if got["n"] != r["max_new"]:
+                fail(f"dag: {r['name']}: {got['n']} tokens, wanted "
+                     f"{r['max_new']}")
+            results[r["name"]] = got["tokens"]
+        return results, walls
+
+    want, seq_walls = one_at_a_time(seq)
+    log(f"[dag] 16b serve.run_pipeline([Pre, Model, Post], compiled=False): "
+        f"the model replica ({info['engine']} on {info['device']}, "
+        f"attention {info['attention_kernel']}, worker {info['pid']}) up in "
+        f"{out['setup_s']:.1f} s (start-up); phase 4's "
+        f"{len(reqs)} greedy requests one at a time, "
+        f"{sum(seq_walls):.2f} s")
+
+    # Compiled lanes over the replicas the sequential run deployed.
+    st0 = rt.get(model.handle_request.remote("stats"), timeout=60)
+    rt.get(model.handle_request.remote("reset_launches"), timeout=60)
+    # Read after those two calls: handle_request counts them too.
+    total0 = rt.get(model.get_metrics.remote(), timeout=60)["total"]
+    comp = build_compiled_pipeline(ctrl, names)
+    try:
+        got, comp_walls = one_at_a_time(comp)
+        if got != want:
+            bad = [n for n in want if got[n] != want[n]]
+            fail(f"dag: 16b compiled streams differ from the sequential "
+                 f"ones: {bad}")
+        t0 = time.perf_counter()
+        resps = [comp.remote(fill(r, want)) for r in reqs]
+        burst = {r["name"]: resp.result(timeout_s=600)["tokens"]
+                 for r, resp in zip(reqs, resps)}
+        burst_wall = time.perf_counter() - t0
+        if burst != want:
+            bad = [n for n in want if burst[n] != want[n]]
+            fail(f"dag: 16b the compiled burst's streams differ: {bad}")
+        m1 = rt.get(model.get_metrics.remote(), timeout=60)
+        launches = rt.get(model.handle_request.remote("launches"),
+                          timeout=60)
+        st1 = rt.get(model.handle_request.remote("stats"), timeout=60)
+    finally:
+        comp.shutdown()
+    d_pref = int(st1["prefill_forwards"] - st0["prefill_forwards"])
+    d_dec = int(st1["decode_forwards"] - st0["decode_forwards"])
+    want_k4 = {"wgmma": L * d_pref, "split": L * d_dec}
+    got_k4 = {r: launches[f"paged_attention/{r}"] for r in want_k4}
+    if got_k4 != want_k4 or not all(got_k4.values()):
+        fail(f"dag: 16b K4 launches by route in the model replica "
+             f"{got_k4}, wanted {want_k4} = {L} layers x (prefills "
+             f"{d_pref}, decode steps {d_dec})")
+    if m1["ongoing"] != 0 or m1["total"] - total0 != 2 * len(reqs):
+        fail(f"dag: 16b the model replica counts ongoing {m1['ongoing']}, "
+             f"{m1['total'] - total0:.0f} requests; wanted 0 and "
+             f"{2 * len(reqs)}")
+    get_runtime()._metrics_exporter.flush()
+    series = {m["name"]: m for m in get_runtime().gcs.metrics_summary()[
+        "metrics"]}
+    ticks = series.get("ray_tpu_dag_tick_s", {}).get("total", 0)
+    if ticks < 2 * len(reqs):
+        fail(f"dag: 16b ray_tpu_dag_tick_s in gcs.metrics_summary() counts "
+             f"{ticks} ticks, wanted >= {2 * len(reqs)}")
+    tokens = sum(len(t) for t in want.values())
+    out.update(
+        requests=len(reqs), tokens=tokens, launches=got_k4,
+        prefill_forwards=d_pref, decode_forwards=d_dec,
+        sequential_s=sum(seq_walls), compiled_s=sum(comp_walls),
+        burst_s=burst_wall, dag_ticks_counted=ticks,
+        replica_total=m1["total"])
+    log(f"[dag] 16b compiled lanes over the same replicas: the {len(reqs)} "
+        f"greedy streams one at a time equal the sequential ones token for "
+        f"token ({tokens} tokens; {sum(comp_walls):.2f} s against "
+        f"{sum(seq_walls):.2f} s sequential), and as a burst "
+        f"({burst_wall:.2f} s; a lane runs its model stage one tick at a "
+        f"time); K4 in the model replica: wgmma {got_k4['wgmma']} = {L} x "
+        f"{d_pref} prefills, split {got_k4['split']} = {L} x {d_dec} decode "
+        f"steps; the replica counts {m1['total']:.0f} requests, 0 ongoing; "
+        f"ray_tpu_dag_tick_s counts {ticks:.0f} ticks in "
+        f"gcs.metrics_summary()  [{card}]")
+    serve.delete("pipe-pre")
+    serve.delete("pipe-post")
+    _cluster_retire(rt, serve, "pipe-model", "dag")
+
+    # A no-op pipeline of three stages: compiled against sequential.
+    noop = [serve.deployment(name=f"pipe-noop-{i}")(_serve_noop)
+            for i in range(3)]
+    noop_names = [d.name for d in noop]
+    seq = serve.run_pipeline(noop, compiled=False)
+    rtt = {}
+    for kind in ("sequential", "compiled"):
+        handle = (seq if kind == "sequential"
+                  else build_compiled_pipeline(ctrl, noop_names))
+        try:
+            handle.remote(0).result(timeout_s=60)
+            t0 = time.perf_counter()
+            for i in range(PIPE_CALLS):
+                handle.remote(i).result(timeout_s=60)
+            rtt[kind] = (time.perf_counter() - t0) / PIPE_CALLS * 1e6
+        finally:
+            handle.shutdown()
+    for n in noop_names:
+        serve.delete(n)
+    out["noop_us"] = rtt
+    log(f"[dag] 16b a 3-stage no-op pipeline, one request at a time (mean "
+        f"of {PIPE_CALLS}): compiled {rtt['compiled']:.1f} us a round trip, "
+        f"sequential {rtt['sequential']:.1f} us "
+        f"({rtt['sequential'] / rtt['compiled']:.1f}x)  [{card}]")
+    return out
+
+
 def _leaf_names(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -4029,7 +4698,8 @@ def main() -> None:
     done(12)
     cluster = phase_cluster(torch, np, card, counts, runtime, serving)
     tier = cluster.pop("tier")
-    done(14)
+    dag = cluster.pop("dag")
+    done(16)
 
     def bf16_case(label):
         return next(c for c in cases
@@ -4071,6 +4741,7 @@ def main() -> None:
             + cluster["two_replicas"]["launches"][r]
             for r in ("wgmma", "split")},
         "tier_launches_by_route": tier["launches"],
+        "dag_launches_by_route": dag["launches"],
     }]
     for name, (replaces, _) in FLASH.items():
         mine = [c for c in flash_cases if c["kernel"] == name]
@@ -4096,7 +4767,7 @@ def main() -> None:
          "train_end_to_end": train_e2e, "mesh": mesh, "slotted": slotted,
          "spec": spec,
          "disagg": disagg, "runtime": runtime, "serve": serving,
-         "cluster": cluster, "tier": tier},
+         "cluster": cluster, "tier": tier, "dag": dag},
         indent=1))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

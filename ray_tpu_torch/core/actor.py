@@ -8,8 +8,8 @@ an ``ActorHandle`` straight to the actor's mailbox (the direct actor transport
 of ``direct_actor_task_submitter.cc`` — no scheduler on the call path), with
 per-handle sequence numbers for ordering.
 
-The port's copy of ``ray_tpu/core/actor.py``. Compiled-DAG authoring
-(``ActorMethod.bind``) waits for the compiled DAG slice.
+The port's copy of ``ray_tpu/core/actor.py``; ``ActorMethod.bind`` authors
+a compiled-DAG stage (``ray_tpu_torch/dag``).
 """
 
 from __future__ import annotations
@@ -32,6 +32,16 @@ class ActorMethod:
 
     def remote(self, *args, **kwargs):
         return self._handle._submit(self._method_name, args, kwargs, {})
+
+    def bind(self, *args):
+        """Author a compiled-DAG stage (compile with
+        ``.experimental_compile()``). Each arg is an upstream DAG node
+        (fan-in: one channel-fed value per tick) or a constant baked into
+        every call; at least one must be a DAG node."""
+        from ray_tpu_torch.dag.dag_node import ClassMethodNode
+
+        # ClassMethodNode validates that at least one arg is a DAG node.
+        return ClassMethodNode(self._handle, self._method_name, *args)
 
     def options(self, **overrides):
         handle, name = self._handle, self._method_name

@@ -262,7 +262,19 @@ class Config:
     # channel endpoint is recorded as stalled after a quarter of it.
     internal_wait_timeout_s = _Flag(60.0)
 
-    # -- shm channels ---------------------------------------------------------
+    # -- eager collectives ----------------------------------------------------
+    # Two-level collectives: ranks sharing a node store reduce through shm
+    # at a node leader, leaders run the inter-node ring, results fan back
+    # out by shm key. 0 restores the flat topology-blind ring everywhere.
+    collective_hierarchy_enabled = _Flag(True)
+    # Segment size (bytes) of the pipelined inter-node ring: segment k's
+    # reduction overlaps segment k+1's transfer.
+    collective_segment_size = _Flag(1 * 1024 * 1024)
+    # Timeout of every blocking collective step (mailbox take, ring recv,
+    # p2p recv without an explicit timeout).
+    collective_timeout_s = _Flag(120.0)
+
+    # -- channels and compiled DAGs -------------------------------------------
     # Ring depth of an shm channel: values in flight on one edge before the
     # writer blocks on the reader's ack (1 = strict lock-step).
     dag_channel_slots = _Flag(8)
@@ -271,6 +283,12 @@ class Config:
     # Sleep-poll granularity (microseconds) of a blocked channel endpoint;
     # backs off exponentially to 40x this while idle.
     dag_channel_spin_us = _Flag(50.0)
+    # Credit window of a cross-host SocketChannel edge: frames the writer
+    # may send ahead of the reader's acks (1 = per-frame lock-step).
+    dag_socket_window = _Flag(8)
+    # Bound on CompiledDAG.teardown's drain: how long the stage loops get to
+    # see the close pill and detach before the driver unlinks the channels.
+    dag_teardown_timeout_s = _Flag(10.0)
 
     # -- observability --------------------------------------------------------
     # Gate of every built-in metric observation (off = one flag check).

@@ -8,9 +8,9 @@ the :class:`MetricsExporter` thread that snapshots this process's
 and ships it to the runtime's GCS aggregator (:func:`cluster_histogram`
 reads it back). Each built-in metric is created lazily, once per process,
 under the same name, description and tag keys as the JAX package's, so one
-exposition reads the same from either package. The JAX module's default
-collectors mirror the RPC, object-pull and collective stats of the
-multiprocess cluster and come with it.
+exposition reads the same from either package. The default collectors
+mirror the RPC, object-pull and collective stats into gauges at export
+ticks.
 
 Every ``observe`` at a hot path is gated on :func:`metrics_enabled` so
 ``metrics_export_enabled=0`` reduces instrumentation to one flag check.
@@ -19,6 +19,7 @@ Every ``observe`` at a hot path is gated on :func:`metrics_enabled` so
 from __future__ import annotations
 
 import os
+import sys
 import threading
 from typing import Callable, Dict, List, Optional
 
@@ -112,6 +113,13 @@ def serve_request_hist() -> um.Histogram:
         um.Histogram, "ray_tpu_serve_request_latency_s",
         "Serve replica request latency", boundaries=_LATENCY_BOUNDS,
         tag_keys=("deployment",))
+
+
+def dag_tick_hist() -> um.Histogram:
+    return _metric(
+        um.Histogram, "ray_tpu_dag_tick_s",
+        "Compiled-DAG tick latency (execute write to result fetch)",
+        boundaries=_LATENCY_BOUNDS)
 
 
 def serve_batch_hist() -> um.Histogram:
@@ -283,9 +291,26 @@ def _collect_pull_stats() -> None:
         "ranges/failed sources)", object_transfer.pull_stats())
 
 
+def _collect_collective_stats() -> None:
+    # Only where a collective group lives: the module is in sys.modules
+    # then (importing it here would pull the parallel package into every
+    # process that exports metrics).
+    collectives = sys.modules.get("ray_tpu_torch.parallel.collectives")
+    if collectives is None:
+        return
+    groups = collectives.all_group_stats()
+    if not groups:
+        return
+    g = _metric(um.Gauge, "ray_tpu_collective_bytes",
+                "Per-group collective byte counters by traffic kind",
+                tag_keys=("group", "counter"))
+    for name, st in groups.items():
+        for key, val in st.items():
+            g.set(float(val), {"group": name, "counter": key})
+
+
 def ensure_default_collectors() -> None:
-    """Install the process-wide collectors exactly once. (The JAX package's
-    third, the collective byte counters, comes with the collectives.)"""
+    """Install the process-wide collectors exactly once."""
     global _default_collectors_installed
     with _metrics_lock:
         if _default_collectors_installed:
@@ -293,6 +318,7 @@ def ensure_default_collectors() -> None:
         _default_collectors_installed = True
     um.register_collector(_collect_rpc_send_stats)
     um.register_collector(_collect_pull_stats)
+    um.register_collector(_collect_collective_stats)
 
 
 # ---------------------------------------------------------------------------

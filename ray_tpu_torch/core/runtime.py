@@ -1397,9 +1397,11 @@ def _resolve_actor_method(instance, method_name: str):
     """Bind an actor method, routing DAG_LOOP_METHOD to the compiled-DAG
     resident loop with the live instance (dag/compiled_dag.py)."""
     if method_name == DAG_LOOP_METHOD:
-        raise NotImplementedError(
-            "compiled DAGs (the actor's resident DAG loop) are not ported "
-            "yet: they wait for the compiled DAG slice")
+        import functools
+
+        from ray_tpu_torch.dag.compiled_dag import actor_dag_loop
+
+        return functools.partial(actor_dag_loop, instance)
     return getattr(instance, method_name)
 
 

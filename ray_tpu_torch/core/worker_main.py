@@ -12,9 +12,9 @@ RPC server back with the daemon, installs a :class:`CoreWorker` as the global
 runtime (so nested ``f.remote()``/``get``/``put`` inside user code work), and
 serves ``run_task`` / ``start_actor`` / ``run_actor_task``.
 
-The port's copy of ``ray_tpu/core/worker_main.py``. An actor's resident
-compiled-DAG loop raises ``NotImplementedError`` (it comes with the compiled
-DAG, as in the port's in-process runtime), and the lock-order and leak
+The port's copy of ``ray_tpu/core/worker_main.py``: ``DAG_LOOP_METHOD``
+parks an actor in its resident compiled-DAG loop, which detaches the
+channel endpoints it attached when it exits. The lock-order and leak
 checkers' start-up hooks come with those checkers. A worker imports torch
 only when a tensor or a user's code needs it.
 """
@@ -659,9 +659,14 @@ class WorkerService:
         borrowed: set = set()
         try:
             if spec.actor_method == DAG_LOOP_METHOD:
-                raise NotImplementedError(
-                    "compiled DAGs (the actor's resident DAG loop) are not "
-                    "ported yet: they wait for the compiled DAG slice")
+                import functools
+
+                from ray_tpu_torch.dag.compiled_dag import actor_dag_loop
+
+                # The loop detaches the channel endpoints it attached (fds,
+                # mmaps, sockets) when it exits.
+                entry = (functools.partial(actor_dag_loop, state.instance),
+                         False)
             else:
                 entry = state.resolve_method(spec.actor_method)
             if entry is None:

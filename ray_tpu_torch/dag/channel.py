@@ -23,9 +23,10 @@ yet acked); reader blocks until a new even write_seq appears in its slot.
 The file is sparse, so a ring larger than the free space of /dev/shm would
 map and then fault (SIGBUS) on the first write past the limit: the creator
 checks the room first (:func:`check_shm_room`) and raises instead.
-``SocketChannel``, the cross-host edge, needs the runtime's KV for its
-rendezvous and comes with the compiled DAG (ROADMAP Queue 1, "the compiled
-DAG").
+
+:class:`SocketChannel` is the cross-host edge of a compiled DAG: the same
+surface over a TCP stream, its rendezvous through the runtime's KV, its
+acks windowed (``dag_socket_window``).
 """
 
 from __future__ import annotations
@@ -383,3 +384,224 @@ class Channel:
     def __reduce__(self):
         # Cross-process handle: reattach by name (same slot geometry).
         return (Channel, (self.name, self.capacity, False, self.slots))
+
+
+class SocketChannel:
+    """Single-writer single-reader channel ACROSS HOSTS (shm cannot).
+
+    Same surface and semantics as :class:`Channel` — a ring of in-flight
+    values with backpressure — over a TCP stream with CREDIT-BASED acks:
+    the writer may run ``dag_socket_window`` frames ahead of the reader's
+    acks (the reader acks each frame as its read returns), so burst
+    submission pipelines over the wire instead of stalling on a per-frame
+    ack round-trip. ``window=1`` restores strict lock-step. Roles bind
+    lazily: the first ``read()`` makes this end the reader (it listens and
+    publishes its address in the control plane's KV under the channel
+    name); the first ``write()`` makes it the writer (it polls the KV and
+    connects). Frames are length-prefixed.
+    """
+
+    _ACK = b"\x06\x00\x00\x00\x00\x00\x00\x01"
+
+    def __init__(self, name: Optional[str] = None,
+                 capacity: int = 4 * 1024 * 1024, create: bool = True,
+                 window: Optional[int] = None):
+        from ray_tpu_torch.core.config import config
+
+        self.name = name or f"rtpu-schan-{uuid.uuid4().hex[:12]}"
+        self.capacity = capacity  # parity with Channel; frames are unbounded
+        self.window = (max(1, int(window)) if window
+                       else max(1, int(config().dag_socket_window)))
+        self._sock = None
+        self._listener = None
+        self._role: Optional[str] = None
+        self._unacked = 0
+        self._closed = False
+        self._attached_endpoint = not create
+
+    # -- rendezvous -----------------------------------------------------------
+
+    def _kv(self):
+        from ray_tpu_torch.core.runtime import get_runtime
+
+        return get_runtime().gcs
+
+    def _become_reader(self, timeout: Optional[float]) -> None:
+        import socket as _socket
+
+        self._role = "reader"
+        lst = _socket.socket()
+        lst.bind(("0.0.0.0", 0))
+        lst.listen(1)
+        port = lst.getsockname()[1]
+        self._listener = lst
+        # Publish host AND port: the writer may sit on another machine —
+        # loopback would only ever work same-host (which auto mode gives
+        # to shm anyway). The reader's reachable interface is the one its
+        # runtime registered with the control plane.
+        self._kv().kv_put(f"dag_channel:{self.name}",
+                          f"{self._my_host()}:{port}".encode(),
+                          namespace="dag")
+        lst.settimeout(timeout if timeout is not None else None)
+        try:
+            conn, _addr = lst.accept()
+        except _socket.timeout as e:
+            raise ChannelTimeout(
+                f"writer never connected to {self.name}") from e
+        conn.setsockopt(_socket.IPPROTO_TCP, _socket.TCP_NODELAY, 1)
+        conn.settimeout(None)
+        self._sock = conn
+
+    @staticmethod
+    def _my_host() -> str:
+        from ray_tpu_torch.core.runtime import get_runtime
+
+        rt = get_runtime()
+        for attr in ("owner_address", "_node_address"):
+            addr = getattr(rt, attr, None)
+            if addr:
+                return addr.rsplit(":", 1)[0]
+        return "127.0.0.1"
+
+    def _become_writer(self, timeout: Optional[float]) -> None:
+        import socket as _socket
+
+        self._role = "writer"
+        deadline = (None if timeout is None
+                    else time.monotonic() + timeout)
+        while True:
+            raw = self._kv().kv_get(f"dag_channel:{self.name}",
+                                    namespace="dag")
+            if raw:
+                break
+            if deadline is not None and time.monotonic() > deadline:
+                raise ChannelTimeout(
+                    f"reader of {self.name} never published its address")
+            time.sleep(0.02)
+        host, port = raw.decode().rsplit(":", 1)
+        sock = _socket.create_connection((host, int(port)),
+                                         timeout=timeout or 60.0)
+        sock.settimeout(None)
+        sock.setsockopt(_socket.IPPROTO_TCP, _socket.TCP_NODELAY, 1)
+        self._sock = sock
+
+    # -- IO -------------------------------------------------------------------
+
+    def _send_frame(self, payload: bytes) -> None:
+        self._sock.sendall(len(payload).to_bytes(8, "big") + payload)
+
+    def _recv_exact(self, n: int, timeout: Optional[float]) -> bytes:
+        # Partial data RIDES OVER timeouts in self._rx: a timed-out read
+        # must be retryable without desyncing the length-prefixed stream
+        # (discarding a half-received payload would make the next read
+        # parse payload bytes as a length prefix).
+        if not hasattr(self, "_rx"):
+            self._rx = bytearray()
+        self._sock.settimeout(timeout)
+        try:
+            while len(self._rx) < n:
+                try:
+                    chunk = self._sock.recv(65536)
+                except TimeoutError as e:
+                    raise ChannelTimeout(f"no data in {self.name}") from e
+                if not chunk:
+                    raise ChannelClosed(self.name)
+                self._rx.extend(chunk)
+            out = bytes(self._rx[:n])
+            del self._rx[:n]
+            return out
+        finally:
+            # Back to blocking mode: a lingering recv timeout would make a
+            # later sendall of a large frame fail MID-WRITE and desync the
+            # length-prefixed stream.
+            self._sock.settimeout(None)
+
+    def _drain_acks(self) -> None:
+        """Opportunistically consume every ack already on the wire without
+        blocking — the credit-refill half of the windowed protocol. The
+        writer's socket only ever carries acks, so buffered bytes parse as
+        fixed 8-byte frames."""
+        if not hasattr(self, "_rx"):
+            self._rx = bytearray()
+        try:
+            self._sock.settimeout(0.0)
+            while True:
+                chunk = self._sock.recv(65536)
+                if not chunk:
+                    raise ChannelClosed(self.name)
+                self._rx.extend(chunk)
+        except (BlockingIOError, InterruptedError):
+            pass
+        finally:
+            self._sock.settimeout(None)
+        while len(self._rx) >= 8 and self._unacked > 0:
+            ack = bytes(self._rx[:8])
+            del self._rx[:8]
+            if ack != self._ACK:
+                raise ChannelClosed(self.name)
+            self._unacked -= 1
+
+    def write(self, value: Any, timeout: Optional[float] = 30.0) -> None:
+        self._write_payload(serialization.dumps(value), timeout)
+
+    def _write_payload(self, payload: bytes, timeout: Optional[float]) -> None:
+        if self._sock is None:
+            self._become_writer(timeout)
+        self._drain_acks()
+        if self._unacked >= self.window:
+            # Window exhausted: block for exactly one credit before
+            # publishing the next frame.
+            ack = self._recv_exact(8, timeout)
+            if ack != self._ACK:
+                raise ChannelClosed(self.name)
+            self._unacked -= 1
+        self._send_frame(payload)
+        self._unacked += 1
+
+    def read(self, timeout: Optional[float] = 30.0) -> Any:
+        if self._sock is None:
+            self._become_reader(timeout)
+        length = int.from_bytes(self._recv_exact(8, timeout), "big")
+        payload = self._recv_exact(length, timeout)
+        if payload == _CLOSE:
+            raise ChannelClosed(self.name)
+        value = serialization.loads(payload)
+        try:
+            self._sock.sendall(self._ACK)
+        except OSError:
+            pass  # writer gone; the value still counts
+        return value
+
+    # -- lifecycle ------------------------------------------------------------
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        try:
+            if self._sock is None:
+                self._become_writer(timeout=5.0)
+            self._send_frame(_CLOSE)
+        except (ChannelTimeout, ChannelClosed, OSError):
+            pass
+
+    def detach(self) -> None:
+        """Close this endpoint's socket/listener fds without touching the
+        KV registration — the worker-side half of teardown. Idempotent."""
+        for s in (self._sock, self._listener):
+            if s is not None:
+                try:
+                    s.close()
+                except OSError:
+                    pass
+        self._sock = self._listener = None
+
+    def destroy(self) -> None:
+        self.detach()
+        try:
+            self._kv().kv_del(f"dag_channel:{self.name}", namespace="dag")
+        except Exception:  # noqa: BLE001 — runtime already down
+            pass
+
+    def __reduce__(self):
+        return (SocketChannel, (self.name, self.capacity, False, self.window))

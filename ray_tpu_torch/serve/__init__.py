@@ -20,7 +20,8 @@ from ray_tpu_torch.serve.api import (
 )
 from ray_tpu_torch.serve.batching import batch
 from ray_tpu_torch.serve.config import AutoscalingConfig, DeploymentConfig
-from ray_tpu_torch.serve.dag_pipeline import SequentialPipelineHandle
+from ray_tpu_torch.serve.dag_pipeline import (PipelineHandle,
+                                              SequentialPipelineHandle)
 from ray_tpu_torch.serve.deployment import Application, Deployment, deployment
 from ray_tpu_torch.serve.errors import Saturated
 from ray_tpu_torch.serve.handle import DeploymentHandle, DeploymentResponse
@@ -32,6 +33,7 @@ __all__ = [
     "Application",
     "run",
     "run_pipeline",
+    "PipelineHandle",
     "SequentialPipelineHandle",
     "shutdown",
     "status",

@@ -4,11 +4,8 @@ The port's copy of ``ray_tpu/serve/api.py``: walk the bound app graph dependenci
 args replaced with DeploymentHandles — the composed-app pattern), wait for
 replicas, return the ingress handle. The HTTP proxy starts lazily on the
 run that asks for it (``_start_proxy``), the gRPC ingress likewise.
-
-``run_pipeline(compiled=True)`` precompiles the chain into resident DAG
-lanes, which need the compiled DAG (ROADMAP Queue 1, "the compiled DAG"):
-it raises ``NotImplementedError`` until that is ported; ``compiled=False``
-runs the same chain over per-call handles.
+``run_pipeline`` deploys a linear chain and precompiles it into resident
+DAG lanes (``compiled=True``) or walks it over per-call handles.
 """
 
 from __future__ import annotations
@@ -24,6 +21,7 @@ from ray_tpu_torch.serve.handle import DeploymentHandle
 
 _proxy = None  # module-level HTTP proxy singleton
 _grpc_proxy = None  # module-level gRPC proxy singleton
+_pipelines: list = []  # live PipelineHandles; torn down in shutdown()
 
 
 def run(
@@ -95,21 +93,21 @@ def run_pipeline(
     """Deploy a LINEAR chain of deployments and return its ingress handle.
 
     ``stages`` is the chain in data-flow order (each stage's ``__call__``
-    receives the previous stage's return value). With ``compiled=False``
-    the chain runs over per-call DeploymentHandles, one routed actor call
-    per stage per request; the handle's ``.remote(value).result()`` is the
-    JAX package's. ``compiled=True`` (the JAX default, and so the default
-    here) would precompile the chain into resident compiled-DAG lanes over
-    the stage replicas (``channel_*`` and ``lanes`` shape those lanes); it
-    raises ``NotImplementedError`` before deploying anything.
-    """
-    from ray_tpu_torch.serve.dag_pipeline import SequentialPipelineHandle
+    receives the previous stage's return value). With ``compiled=True``
+    the call chain is PRECOMPILED into resident compiled-DAG lanes over the
+    stage replicas — one channel write + read per edge per request instead
+    of a per-stage actor call; see ``ray_tpu_torch/serve/dag_pipeline.py``
+    for the replica-dedication trade-off. With ``compiled=False`` the same
+    chain runs over per-call DeploymentHandles. The returned handle's
+    ``.remote(value).result()`` surface is identical either way.
 
-    if compiled:
-        raise NotImplementedError(
-            "run_pipeline(compiled=True) parks the stage replicas in "
-            "compiled-DAG lanes, which wait for the compiled DAG (ROADMAP "
-            "Queue 1, \"the compiled DAG\"); use compiled=False")
+    ``lanes`` bounds the number of parallel compiled lanes (default: one
+    per replica of the smallest stage). ``channel_slots`` overrides the
+    ``dag_channel_slots`` ring depth per edge.
+    """
+    from ray_tpu_torch.serve.dag_pipeline import (SequentialPipelineHandle,
+                                                  build_compiled_pipeline)
+
     if not ray_tpu_torch.is_initialized():
         ray_tpu_torch.init()
     controller = get_or_create_controller()
@@ -137,8 +135,16 @@ def run_pipeline(
         )
         names.append(dep.name)
     _wait_ready(controller, names)
-    return SequentialPipelineHandle(
-        names, [DeploymentHandle(n, controller) for n in names])
+    if not compiled:
+        return SequentialPipelineHandle(
+            names, [DeploymentHandle(n, controller) for n in names])
+    handle = build_compiled_pipeline(
+        controller, names, channel_type=channel_type,
+        channel_capacity=channel_capacity, channel_slots=channel_slots,
+        lanes=lanes)
+    handle._registry = _pipelines
+    _pipelines.append(handle)
+    return handle
 
 
 def grpc_proxy_address() -> Optional[str]:
@@ -239,6 +245,16 @@ def shutdown() -> None:
     if _grpc_proxy is not None:
         _grpc_proxy.stop()
         _grpc_proxy = None
+    # Pipelines first: their replicas are PARKED in resident DAG loops and
+    # only exit on the close pill — killing the controller/replicas before
+    # teardown would orphan the loops mid-read.
+    while _pipelines:
+        try:
+            _pipelines.pop().shutdown()
+        except Exception:  # noqa: BLE001 — shutdown is best-effort
+            from ray_tpu_torch.utils.logging import get_logger, log_swallowed
+
+            log_swallowed(get_logger("serve"), "pipeline shutdown")
     try:
         controller = ray_tpu_torch.get_actor(CONTROLLER_NAME)
     except Exception:

@@ -1,25 +1,100 @@
 """Serve pipelines and the prefill→decode KV handoff lane.
 
-Counterpart of ``ray_tpu/serve/dag_pipeline.py``: :class:`KVHandoffLane`
-and the per-call pipeline (:class:`SequentialPipelineHandle`, what
-``serve.run_pipeline(compiled=False)`` returns). The compiled pipelines of
-that module (``PipelineHandle``, ``build_compiled_pipeline``) park replicas
-in compiled-DAG loops, which wait for the compiled DAG (ROADMAP Queue 1,
-"the compiled DAG").
+Counterpart of ``ray_tpu/serve/dag_pipeline.py``. For a LINEAR chain of
+deployments (preprocess → model → postprocess),
+``serve.run_pipeline(..., compiled=True)`` precompiles the call chain into
+resident compiled-DAG lanes (:func:`build_compiled_pipeline`,
+:class:`PipelineHandle`). Each lane parks one replica of every stage in a
+``dag_call`` loop over mutable channels (``ray_tpu_torch.dag``), so a
+steady-state request costs one channel write and one read per edge
+instead of a routed actor call per stage.
+
+A replica parked in a lane is DEDICATED: the resident loop occupies one of
+its execution threads, so autoscaling and redeploys must not touch lane
+members mid-flight. Lanes are built from the replica fleet at build time;
+tear the pipeline down (``PipelineHandle.shutdown``) before redeploying
+its stages. ``compiled=False`` walks the same chain over per-call handles
+(:class:`SequentialPipelineHandle`).
+
+:class:`KVHandoffLane` carries KV blocks from a prefill engine to a decode
+engine over one shm ring.
 """
 
 from __future__ import annotations
 
+import itertools
 import struct
+import threading
 import time
 from typing import Any, List, Optional, Tuple
 
 import torch
 
+import ray_tpu_torch
 from ray_tpu_torch.core import serialization
 from ray_tpu_torch.dag.channel import (_CLOSE, FILE_HEADER_SIZE,
                                        SLOT_HEADER_SIZE, Channel,
                                        ChannelClosed)
+from ray_tpu_torch.dag.dag_node import InputNode
+from ray_tpu_torch.utils.logging import get_logger, log_swallowed
+
+logger = get_logger("serve_pipeline")
+
+
+class PipelineResponse:
+    """Future-like response (same surface as DeploymentResponse.result)."""
+
+    def __init__(self, ref):
+        self._ref = ref
+
+    def result(self, timeout_s: Optional[float] = 30.0):
+        return self._ref.get(timeout=timeout_s)
+
+
+class PipelineHandle:
+    """Ingress handle of a COMPILED pipeline: requests round-robin over the
+    precompiled lanes; each lane pipelines several in-flight requests
+    through its multi-slot ring edges."""
+
+    def __init__(self, stage_names: List[str], lanes: List[Any]):
+        self.stage_names = list(stage_names)
+        self._lanes = list(lanes)
+        self._rr = itertools.count()
+        self._lock = threading.Lock()
+        self._shut = False
+        # serve.run_pipeline registers the handle here so serve.shutdown()
+        # can tear down forgotten pipelines; a direct shutdown() call
+        # deregisters so repeatedly-rebuilt pipelines don't accrete.
+        self._registry: Optional[list] = None
+
+    @property
+    def num_lanes(self) -> int:
+        return len(self._lanes)
+
+    def remote(self, value: Any) -> PipelineResponse:
+        if self._shut:
+            raise RuntimeError("pipeline was shut down")
+        lane = self._lanes[next(self._rr) % len(self._lanes)]
+        return PipelineResponse(lane.execute(value))
+
+    def shutdown(self) -> None:
+        """Tear down every lane (close pills propagate, loops exit, the
+        driver unlinks the channels). The stage replicas come back to life
+        as ordinary routed replicas afterwards. Idempotent."""
+        with self._lock:
+            if self._shut:
+                return
+            self._shut = True
+            for lane in self._lanes:
+                try:
+                    lane.teardown()
+                except Exception:  # noqa: BLE001 — teardown is best-effort
+                    log_swallowed(logger, "pipeline lane teardown")
+        if self._registry is not None:
+            try:
+                self._registry.remove(self)
+            except ValueError:
+                pass  # serve.shutdown already popped us
 
 
 class SequentialPipelineHandle:
@@ -51,6 +126,46 @@ class _SequentialResponse:
             self._value = v
             self._done = True
         return self._value
+
+
+def build_compiled_pipeline(controller, stage_names: List[str], *,
+                            channel_type: str = "auto",
+                            channel_capacity: int = 4 * 1024 * 1024,
+                            channel_slots: Optional[int] = None,
+                            lanes: Optional[int] = None) -> PipelineHandle:
+    """Compile ``lanes`` parallel resident DAG lanes over the current
+    replica fleet of ``stage_names`` (in chain order). Each lane uses a
+    DISTINCT replica per stage (a resident loop occupies the replica), so
+    the lane count is capped by the smallest stage's replica count."""
+    _version, table = ray_tpu_torch.get(
+        controller.get_snapshot.remote(-1, 0.0))
+    replica_sets = []
+    for name in stage_names:
+        entry = table.get(name)
+        if not entry or not entry["replicas"]:
+            raise RuntimeError(
+                f"deployment {name!r} has no live replicas to compile")
+        replica_sets.append(list(entry["replicas"]))
+    max_lanes = min(len(rs) for rs in replica_sets)
+    n_lanes = min(lanes, max_lanes) if lanes else max_lanes
+    compiled_lanes = []
+    try:
+        for lane in range(n_lanes):
+            node = InputNode()
+            for rs in replica_sets:
+                node = rs[lane].dag_call.bind(node)
+            compiled_lanes.append(node.experimental_compile(
+                channel_type=channel_type,
+                channel_capacity=channel_capacity,
+                channel_slots=channel_slots))
+    except BaseException:
+        for built in compiled_lanes:
+            try:
+                built.teardown()
+            except Exception:  # noqa: BLE001 — unwind is best-effort
+                log_swallowed(logger, "pipeline build unwind")
+        raise
+    return PipelineHandle(stage_names, compiled_lanes)
 
 
 def _round64(n: int) -> int:

@@ -1,5 +1,7 @@
 """The port's import boundary: ``ray_tpu_torch`` and ``chip_smoke.py`` import
-nothing of JAX and nothing of the JAX package ``ray_tpu``.
+nothing of JAX, nothing of the JAX package ``ray_tpu`` and no ``ml_dtypes``
+(the card's machine does not list it: bf16 travels as torch tensors or raw
+16-bit words).
 
 Every ``.py`` file is walked with ``ast`` (imports inside functions count
 too), and the runtime, serving and training entry modules are imported in a
@@ -31,7 +33,7 @@ import pytest
 import torch  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu", "ml_dtypes")
 
 
 def _port_files():
@@ -171,6 +173,7 @@ def test_forbidden_rule_keeps_the_port_prefix():
     assert _forbidden("ray_tpu.serve.llm")
     assert _forbidden("ray_tpu")
     assert _forbidden("jax.numpy")
+    assert _forbidden("ml_dtypes")
 
 
 def test_serving_imports_with_jax_blocked():

@@ -3,7 +3,8 @@ restart and head-disk loss, node death, lineage recovery, the owner-free
 protocol, runtime env, log aggregation, the memory monitor and nested
 tasks over real ``ray_tpu_torch`` Cluster processes. The collectives tests
 (``test_gloo_collectives_across_processes``,
-``test_ring_collectives_full_surface``) wait for the port's collectives."""
+``test_ring_collectives_full_surface``) are in
+``test_torch_collectives_cluster.py``."""
 
 import os
 import signal

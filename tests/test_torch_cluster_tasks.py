@@ -2,7 +2,7 @@
 objects, actors, cancellation, leases and placement groups over a real
 ``ray_tpu_torch`` Cluster (a GCS process, node-daemon processes and worker
 processes). The second half is ``test_torch_cluster_faults.py``; the two
-collectives tests wait for the port's collectives."""
+collectives tests are in ``test_torch_collectives_cluster.py``."""
 
 import os
 import signal

@@ -220,20 +220,41 @@ def test_init_with_address_waits_for_the_cluster_slice():
     assert not ray_tpu_torch.is_initialized()
 
 
-def test_compiled_dag_loop_waits_for_its_slice(ray_start_regular):
+def test_resident_dag_loop_answers_through_its_method(ray_start_regular):
+    # What a compiled DAG sends: DAG_LOOP_METHOD parks the actor in the
+    # resident loop with the live instance; it answers every tick off its
+    # in-channel until the close pill, then returns "closed".
     from ray_tpu_torch.core.task_spec import DAG_LOOP_METHOD
+    from ray_tpu_torch.dag import Channel
 
     rt = ray_start_regular
 
     @rt.remote
     class Stage:
-        def f(self):
-            return 1
+        def __init__(self):
+            self.calls = 0
+
+        def f(self, x, k):
+            self.calls += 1
+            return x * k
+
+        def count(self):
+            return self.calls
 
     s = Stage.remote()
-    ref = s._submit(DAG_LOOP_METHOD, (), {}, {})  # what a compiled DAG sends
-    with pytest.raises(NotImplementedError, match="compiled DAG slice"):
-        rt.get(ref, timeout=10)
+    cin, cout = Channel(capacity=1 << 16), Channel(capacity=1 << 16)
+    try:
+        ref = s._submit(DAG_LOOP_METHOD,
+                        ("f", [cin], [cout], [("c", 0), ("v", 3)]), {}, {})
+        for i in range(5):
+            cin.write(i, timeout=10)
+            assert cout.read(timeout=10) == 3 * i
+        cin.close()
+        assert rt.get(ref, timeout=10) == "closed"
+        assert rt.get(s.count.remote(), timeout=10) == 5
+    finally:
+        cin.destroy()
+        cout.destroy()
 
 
 # -- knobs ------------------------------------------------------------------------

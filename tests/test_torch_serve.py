@@ -9,10 +9,10 @@ Where the port differs by design the test says so:
 
 - the HTTP proxy listens on an ephemeral port (JAX's test takes 18431,
   which a JAX worker of the same suite may hold at the same time);
-- ``run_pipeline(compiled=True)`` parks replicas in compiled-DAG lanes,
-  which wait for the multi-process cluster: JAX's three pipeline tests run
-  through ``compiled=False`` here, and one more test holds that
-  ``compiled=True`` raises ``NotImplementedError``.
+- ``run_pipeline`` compiles by default, as JAX's does: JAX's three
+  pipeline tests run through ``compiled=True`` (the sequential handle is
+  their reference), and one more test holds that ``run_pipeline`` with no
+  ``compiled=`` builds the compiled lanes.
 """
 
 import json
@@ -353,7 +353,8 @@ class TestGrpcIngress:
 
 
 class TestCompiledPipeline:
-    """serve.run_pipeline over per-call handles (``compiled=False``)."""
+    """serve.run_pipeline: the deployment call chain precompiled into
+    resident DAG lanes over the stage replicas (dag_pipeline.py)."""
 
     def test_compiled_matches_sequential(self, serve_instance):
         @serve.deployment
@@ -374,9 +375,16 @@ class TestCompiledPipeline:
         stages = [Tokenize, Count, Format]
         seq = serve.run_pipeline(stages, compiled=False)
         assert seq.stage_names == ["Tokenize", "Count", "Format"]
-        got = [seq.remote(f"a b c {'x ' * i}").result(timeout_s=60)
-               for i in range(4)]
-        assert got == [{"tokens": 3 + i} for i in range(4)]
+        want = [seq.remote(f"a b c {'x ' * i}").result(timeout_s=60)
+                for i in range(4)]
+        comp = serve.run_pipeline(stages, compiled=True)
+        try:
+            assert comp.num_lanes == 1
+            got = [comp.remote(f"a b c {'x ' * i}").result(timeout_s=60)
+                   for i in range(4)]
+            assert got == want == [{"tokens": 3 + i} for i in range(4)]
+        finally:
+            comp.shutdown()
 
     def test_pipeline_burst_and_replica_bookkeeping(self, serve_instance):
         @serve.deployment
@@ -396,13 +404,15 @@ class TestCompiledPipeline:
                        if ("deployment", "AddOne") in k)
 
         before = add_one_requests()
-        handle = serve.run_pipeline([AddOne, Double], compiled=False)
+        handle = serve.run_pipeline([AddOne, Double], compiled=True)
         try:
+            # Burst ahead of any result(): ticks pipeline through the ring
+            # edges and drain FIFO per request.
             resps = [handle.remote(i) for i in range(6)]
             assert [r.result(timeout_s=60) for r in resps] == \
                 [(i + 1) * 2 for i in range(6)]
-            # The replicas keep the latency histogram warm (the metrics
-            # plane's serve deployment view stays truthful).
+            # The dag_call path keeps the replica latency histogram warm
+            # (the metrics plane's serve deployment view stays truthful).
             assert add_one_requests() - before >= 6
         finally:
             handle.shutdown()
@@ -417,17 +427,25 @@ class TestCompiledPipeline:
         def exclaim(s):
             return s + "!"
 
-        handle = serve.run_pipeline([upper, exclaim], compiled=False)
+        handle = serve.run_pipeline([upper, exclaim], compiled=True)
         assert handle.remote("hey").result(timeout_s=60) == "HEY!"
         handle.shutdown()
         handle.shutdown()  # idempotent
+        with pytest.raises(RuntimeError, match="shut down"):
+            handle.remote("again")
 
-    def test_compiled_raises_not_implemented(self, serve_instance):
+    def test_run_pipeline_compiles_by_default(self, serve_instance):
+        from ray_tpu_torch.serve.dag_pipeline import PipelineHandle
+
         @serve.deployment
         def ident(x):
             return x
 
-        with pytest.raises(NotImplementedError, match="compiled=False"):
-            serve.run_pipeline([ident])
-        # Refused before anything was deployed.
-        assert "ident" not in serve.status()
+        handle = serve.run_pipeline([ident])
+        assert isinstance(handle, PipelineHandle) and handle.num_lanes == 1
+        assert handle.remote({"k": [1, 2]}).result(timeout_s=60) == \
+            {"k": [1, 2]}
+        # serve.shutdown() (the fixture's) tears the registered lanes down.
+        from ray_tpu_torch.serve import api
+
+        assert api._pipelines == [handle]
