@@ -234,6 +234,37 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    3-stage no-op pipeline's round trip, compiled against sequential.
    16c runs before 16b: its card ranks start with 16a's actors, and 16b's
    replica takes the whole card.
+17. Train and Tune — after phase 16, at ``bench.py``'s configuration
+   (phase 6's: ``gpt2_small(max_seq_len=1024, remat=True)``, bf16 compute,
+   f32 parameters, its seed and batch), in a directory of the phase's own
+   under ``build/`` (run storage, checkpoints, TMPDIR) that must have room
+   for 4 full checkpoints (else a ``CUT:`` line and a 2-layer model in
+   17b), removed at the end. 17b, last on phase 13's cluster:
+   ``TorchTrainer`` with ``TorchConfig(init_distributed=True)`` and one
+   ``use_gpu`` worker process: a world-1 NCCL group, phase 15's sharded
+   step (remat "full") on a mesh over it, a checkpoint every 2 steps; the
+   worker ``os._exit``s once at step 5 and ``FailureConfig(max_failures=1)``
+   restarts the group in a new process, which re-forms the group and
+   resumes from the last checkpoint: no report goes back to step 0, every
+   step's loss in both incarnations within 1e-3 of phase 6's (and of
+   17a's), flash 2n / n / n a step read in the worker, the ``GPU`` grant
+   back after ``fit()``; each incarnation's start-up, NCCL init and step
+   time beside phase 15's. Then, on the in-process runtime, 17a:
+   ``TorchTrainer`` with one ``use_gpu`` worker and no process group, 3 +
+   10 steps reported with their losses (within 1e-3 of phase 6's), times
+   and K1-K3 launches (exactly 2n / n / n a step), one checkpoint (params,
+   the AdamW state as optax's tree, the step) through ``report``;
+   ``result.checkpoint`` restored into a fresh bundle steps to the
+   uninterrupted run's next loss; tokens/s and step time beside phase 6's,
+   ``report()``'s cost and a report round's, the checkpoint's bytes, save,
+   snapshot, the manager's copy and the restore. 17c: ``Tuner`` over a
+   function trainable, 4 trials on a learning-rate grid with ``{"CPU": 1,
+   "GPU": 0.5}`` each and ``ASHAScheduler(max_t=8, grace_period=2,
+   reduction_factor=2)``, one step of gpt2_small at B=4, L=1024 an
+   iteration: every trial ends, at most 2 at once, ASHA stops one at a
+   rung at least and every decision it made is its rule's on the reported
+   losses, ``get_best_result()`` is the lowest final loss, and K1-K3's
+   launches are 2n / n / n x the iterations run.
 
 In phases 5 and 8-14 a greedy stream that departs from its reference must
 do so at a near tie: the plain path's top-2 logit gap there under 1e-3.
@@ -3246,7 +3277,8 @@ def _replica_run(rt_mod, torch, cfg, handle, reps, reqs, label):
     return summary, results
 
 
-def phase_cluster(torch, np, card, counts, runtime_summary, serve_summary):
+def phase_cluster(torch, np, card, counts, runtime_summary, serve_summary,
+                  train, mesh):
     """The multi-process cluster on the card: a GCS, two node daemons (one
     with the card) and their worker processes; phase 4's engine in a
     worker-process actor and through two Serve deployments; the 2-layer
@@ -3562,6 +3594,9 @@ def phase_cluster(torch, np, card, counts, runtime_summary, serve_summary):
     summary["tier"] = phase_tier(torch, np, rt, card, node_b, procs)
     summary["dag"] = phase_dag(torch, np, rt, card, node_a, node_b, procs,
                                summary)
+    # Phase 17b, the trainer in a worker process, last on this cluster.
+    summary["trainer"] = phase_trainer_cluster(torch, np, rt, card, counts,
+                                               procs, train, mesh)
 
     # 7. Tear down.
     for i in range(2):
@@ -4645,6 +4680,693 @@ def _phase_dag_pipeline(torch, np, rt, card, cfg, procs):
     return out
 
 
+# -- phase 17, Train and Tune ------------------------------------------------
+TRAINER_LOSS_TOL = 1e-3               # a trainer's step vs phase 6's: relative
+TRAINER_CKPT_AT_ONCE = 4              # full checkpoints on disk at once, at most
+MESH_TRAINER_STEPS = 6                # 17b: steps 0..5, a checkpoint every 2
+MESH_TRAINER_KILL = 5                 # 17b: the first worker dies at this step
+REPORT_ROUNDS = 200                   # a no-op loop's rounds, for their cost
+TUNE_LRS = (3e-3, 1e-3, 3e-4, 1e-4)   # 17c's grid, the largest first
+TUNE_B, TUNE_MAX_T, TUNE_GRACE, TUNE_RF = 4, 8, 2, 2
+
+
+def _phase17_dir(fresh=False):
+    """The phase's own directory (run storage, checkpoints, TMPDIR), under
+    the checkout's gitignored ``build/``; removed at the phase's end."""
+    import shutil
+
+    d = ROOT / "build" / "phase17"
+    if fresh and d.exists():
+        shutil.rmtree(d)
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def _flash_now():
+    """K1-K3's launch counts in this process."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_forward": fa.forward_launches, "flash_dq": fa.dq_launches,
+            "flash_dkv": fa.dkv_launches}
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def _ckpt_tree(training, params, opt, step):
+    """A train loop's checkpoint: parameters, the AdamW state as optax's
+    tree, the step."""
+    return {"params": params, "opt": training.adamw_state_tree(opt, params),
+            "step": step}
+
+
+def _resume(training, rt_train, bundle_params, bundle_opt, path, optimizer):
+    """``(params, opt, step)`` restored from the checkpoint at ``path`` into
+    the structure (and placement) of a fresh bundle's state."""
+    state = rt_train.restore_pytree(
+        _ckpt_tree(training, bundle_params, bundle_opt, 0), path)
+    params = state["params"]
+    opt = training.load_adamw_state_tree(optimizer.init(params), params,
+                                         state["opt"])
+    return params, opt, state["step"]
+
+
+def _trainer_loop(config):
+    """17a's train loop, in the trainer's worker: phase 6's step (its seed,
+    batch and optimizer), a report a step with its loss, time and K1-K3
+    launches read here; one checkpoint after the last step (through the
+    ``AsyncCheckpointer``: the snapshot timed apart from the write), then
+    one more step, the uninterrupted run's next loss."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train as rt_train
+    from ray_tpu_torch.models import training, transformer
+
+    dev = torch.device(config["device"])
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cfg = transformer.gpt2_small(max_seq_len=config["L"], remat=True)
+    bundle = training.make_train_step(
+        loss_fn=lambda p, b: transformer.lm_loss(p, b, cfg),
+        init_params_fn=lambda seed: transformer.init_params(
+            cfg, seed, device=config["device"]),
+        optimizer=training.adamw(3e-4, weight_decay=0.1),
+        device=config["device"])
+    params, opt = bundle.init(0)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.tensor(rng.integers(
+        0, cfg.vocab_size, (config["B"], config["L"])), device=dev)}
+    report_us, last = [], config["steps"] - 1
+    for step in range(config["steps"]):
+        sync()
+        t0 = time.perf_counter()
+        before = _flash_now()
+        params, opt, m = bundle.step(params, opt, batch)
+        loss = m["loss"].item()
+        t1 = time.perf_counter()
+        after = _flash_now()
+        metrics = {"step": step, "loss": loss, "step_ms": (t1 - t0) * 1e3,
+                   "t_end": t1, "n_layers": cfg.n_layers,
+                   "launches": {k: after[k] - before[k] for k in after},
+                   "process_group": dist.is_initialized(),
+                   "device": str(bundle.device)}
+        ckpt = None
+        if step == last:
+            d = os.path.join(config["dir"], "worker-ckpt")
+            writer = rt_train.AsyncCheckpointer()
+            t2 = time.perf_counter()
+            writer.save(_ckpt_tree(training, params, opt, step), d)
+            t3 = time.perf_counter()
+            writer.wait()
+            t4 = time.perf_counter()
+            metrics.update(snapshot_ms=(t3 - t2) * 1e3,
+                           write_ms=(t4 - t3) * 1e3, save_ms=(t4 - t2) * 1e3,
+                           checkpoint_bytes=_dir_bytes(d))
+            ckpt = rt_train.Checkpoint(d)
+        t5 = time.perf_counter()
+        rt_train.report(metrics, checkpoint=ckpt)
+        report_us.append((time.perf_counter() - t5) * 1e6)
+    params, opt, m = bundle.step(params, opt, batch)
+    rt_train.report({"step": config["steps"], "next_loss": m["loss"].item(),
+                     "report_call_us": sorted(report_us)[len(report_us) // 2],
+                     "reports": config["steps"] + 1})
+
+
+def _noop_reports(config):
+    from ray_tpu_torch import train as rt_train
+
+    for i in range(config["n"]):
+        rt_train.report({"i": i})
+
+
+def _mesh_trainer_loop(config):
+    """17b's train loop, in a GPU worker process of phase 13's cluster:
+    phase 15's sharded step (remat "full") on a mesh over the process group
+    ``TorchConfig`` formed; a checkpoint every 2 steps (into this process's
+    own directory), resumed from the trainer's last one; the first
+    incarnation dies at ``kill_step``. Every event goes to a JSON-lines log
+    the driver reads, since ``Result`` keeps only the last incarnation's
+    reports."""
+    import json as _json
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train as rt_train
+    from ray_tpu_torch.models import training, transformer
+    from ray_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from ray_tpu_torch.parallel.sharding import ShardingRules
+    from ray_tpu_torch.train.backend import process_group_setup
+
+    def log(**event):
+        event.update(pid=os.getpid(), t=time.time())
+        with open(config["log"], "a") as f:
+            f.write(_json.dumps(event) + "\n")
+
+    age = _process_age_s()
+    t0 = time.perf_counter()
+    dev = torch.device(config["device"])
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    mesh = make_mesh(MeshSpec(data=-1), device_type=dev.type)
+    rules = ShardingRules()
+    kw = {} if config["n_layers"] is None else {"n_layers": config["n_layers"]}
+    cfg = transformer.gpt2_small(max_seq_len=config["L"], remat=True,
+                                 remat_policy="full", **kw)
+    optimizer = training.adamw(3e-4, weight_decay=0.1)
+    bundle = training.make_train_step(
+        loss_fn=lambda p, b: transformer.lm_loss(p, b, cfg, mesh=mesh,
+                                                 rules=rules),
+        init_params_fn=lambda seed: transformer.init_params(
+            cfg, seed, device=config["device"]),
+        logical_params=transformer.logical_axes(cfg), mesh=mesh, rules=rules,
+        optimizer=optimizer, batch_logical=("batch", None))
+    params, opt = bundle.init(0)
+    start = 0
+    ck = rt_train.get_checkpoint()
+    mine = os.path.join(config["worker_dir"], str(os.getpid()))
+    if ck is not None:
+        # fit() copied every checkpoint it received before it restarted the
+        # group: an earlier incarnation's own files are no longer needed.
+        for old in Path(config["worker_dir"]).glob("*"):
+            shutil.rmtree(old)
+        params, opt, last = _resume(training, rt_train, params, opt, ck.path,
+                                    optimizer)
+        start = last + 1
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.tensor(rng.integers(
+        0, cfg.vocab_size, (config["B"], config["L"])), device=dev)}
+    sync()
+    log(event="setup", **process_group_setup(),
+        pg_backend=dist.get_backend(), pg_world=dist.get_world_size(),
+        process_age_s=age, loop_setup_s=time.perf_counter() - t0,
+        resumed_from=start, n_layers=cfg.n_layers,
+        device=str(bundle.device))
+    for step in range(start, config["steps"]):
+        if step == config["kill_step"] and not os.path.exists(config["marker"]):
+            open(config["marker"], "w").close()
+            log(event="kill", step=step)
+            os._exit(1)               # hard death: no cleanup, no report
+        sync()
+        t1 = time.perf_counter()
+        before = _flash_now()
+        params, opt, m = bundle.step(params, opt, batch)
+        loss = m["loss"].item()
+        t2 = time.perf_counter()
+        after = _flash_now()
+        ckpt, save_ms = None, None
+        if step % 2 == 1:
+            d = os.path.join(mine, f"step-{step}")
+            rt_train.save_pytree(_ckpt_tree(training, params, opt, step), d)
+            save_ms = (time.perf_counter() - t2) * 1e3
+            ckpt = rt_train.Checkpoint(d)
+        log(event="step", step=step, loss=loss, step_ms=(t2 - t1) * 1e3,
+            launches={k: after[k] - before[k] for k in after},
+            save_ms=save_ms)
+        rt_train.report({"step": step, "loss": loss, "pid": os.getpid()},
+                        checkpoint=ckpt)
+
+
+def _check_step_losses(tag, got, want, tol=TRAINER_LOSS_TOL):
+    """``got`` {step: loss} against ``want`` {step: loss} (relative)."""
+    for step, loss in got.items():
+        ref = want[step]
+        if not (math.isfinite(loss) and abs(loss - ref) <= tol * abs(ref)):
+            fail(f"{tag}: step {step} loss {loss} against {ref} (tolerance "
+                 f"{tol} relative); all: {got} vs {want}")
+
+
+def phase_trainer_cluster(torch, np, rt, card, counts, procs, train,
+                          mesh_summary):
+    """17b: ``TorchTrainer`` in a GPU worker process of phase 13's cluster
+    with ``TorchConfig(init_distributed=True)`` — a world-1 NCCL group, the
+    sharded step on a mesh over it, a checkpoint every 2 steps; the worker
+    dies once at step 5 and ``FailureConfig(max_failures=1)`` restarts the
+    group from the last checkpoint."""
+    import shutil
+
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.train import (CheckpointConfig, FailureConfig,
+                                     RunConfig, ScalingConfig, TorchConfig,
+                                     TorchTrainer)
+
+    t_phase = time.perf_counter()
+    _wait_card_free(rt, "trainer", "phase 16's actors")
+    phase = _phase17_dir(fresh=True)
+    cfg = transformer.gpt2_small(max_seq_len=TRAIN_L, remat=True)
+    n_params = transformer.param_count(
+        transformer.init_params(cfg, 0, device="meta"))
+    ckpt_bytes = 3 * 4 * n_params      # f32 parameters and two f32 moments
+    free = shutil.disk_usage(phase).free
+    n_layers = None
+    if free < TRAINER_CKPT_AT_ONCE * ckpt_bytes:
+        n_layers = 2
+        log(f"[trainer] CUT: 17b checkpoints a {n_layers}-layer model of "
+            f"gpt2_small's width: {TRAINER_CKPT_AT_ONCE} full checkpoints of "
+            f"{ckpt_bytes} bytes do not fit in the {free} bytes free at "
+            f"{phase}")
+    log_path = phase / "mesh-trainer.jsonl"
+    config = {"device": DEVICE, "L": TRAIN_L, "B": TRAIN_B,
+              "steps": MESH_TRAINER_STEPS, "kill_step": MESH_TRAINER_KILL,
+              "marker": str(phase / "killed-once"), "log": str(log_path),
+              "worker_dir": str(phase / "worker"), "n_layers": n_layers}
+    driver0 = counts.read()
+    t_fit = time.time()
+    result = TorchTrainer(
+        _mesh_trainer_loop, train_loop_config=config,
+        backend_config=TorchConfig(
+            init_distributed=True,
+            backend=None if DEVICE == "cuda" else "gloo"),
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=RunConfig(
+            name="mesh-trainer", storage_path=str(phase / "storage"),
+            failure_config=FailureConfig(max_failures=1),
+            checkpoint_config=CheckpointConfig(num_to_keep=1)),
+    ).fit()
+    fit_s = time.time() - t_fit
+    if result.error is not None:
+        fail(f"trainer 17b: fit() failed: {result.error}")
+    _wait_card_free(rt, "trainer 17b", "the trainer's workers after fit()")
+    if counts.read() != driver0:
+        fail(f"trainer 17b: the driver's own counters moved: {counts.read()}")
+    events = [json.loads(line) for line in open(log_path)]
+    setups = [e for e in events if e["event"] == "setup"]
+    kills = [e for e in events if e["event"] == "kill"]
+    steps = [e for e in events if e["event"] == "step"]
+    want_backend = "nccl" if DEVICE == "cuda" else "gloo"
+    if (len(setups) != 2 or len({e["pid"] for e in setups}) != 2
+            or any((e["backend"], e["world_size"], e["pg_backend"],
+                    e["pg_world"]) != (want_backend, 1, want_backend, 1)
+                   for e in setups)):
+        fail(f"trainer 17b: wanted two incarnations in two processes, each "
+             f"with a world-1 {want_backend} group: {setups}")
+    if ([k["step"] for k in kills] != [MESH_TRAINER_KILL]
+            or kills[0]["pid"] != setups[0]["pid"]):
+        fail(f"trainer 17b: the kill events {kills}")
+    hist = result.metrics_history
+    got_steps = [h["step"] for h in hist]
+    resumed = setups[1]["resumed_from"]
+    if (not got_steps or got_steps[0] == 0 or resumed == 0
+            or got_steps != list(range(resumed, MESH_TRAINER_STEPS))
+            or any(h["pid"] != setups[1]["pid"] for h in hist)):
+        fail(f"trainer 17b: the resumed run's reports {hist} (resumed from "
+             f"step {resumed}): the series must go on from the checkpoint, "
+             f"never back to step 0")
+    n = setups[0]["n_layers"]
+    want = {"flash_forward": 2 * n, "flash_dq": n, "flash_dkv": n}
+    for e in steps:
+        if e["launches"] != want:
+            fail(f"trainer 17b step {e['step']} (pid {e['pid']}): launches "
+                 f"{e['launches']}, wanted {want}")
+    by_inc = [{e["step"]: e["loss"] for e in steps if e["pid"] == s["pid"]}
+              for s in setups]
+    # The step both incarnations ran: the resumed one equals the first's.
+    _check_step_losses("trainer 17b, resumed vs first incarnation",
+                       {s: by_inc[1][s] for s in by_inc[1] if s in by_inc[0]},
+                       by_inc[0])
+    if n_layers is None:
+        _check_step_losses("trainer 17b vs phase 6",
+                           {e["step"]: e["loss"] for e in steps},
+                           dict(enumerate(train["losses"])))
+    launches = {k: sum(e["launches"][k] for e in steps) for k in want}
+    procs.update(e["pid"] for e in setups)
+    first = {s["pid"]: min(e["t"] for e in steps if e["pid"] == s["pid"])
+             for s in setups}
+    p15 = mesh_summary["runs"]["full"]["step_ms"]
+    incs = []
+    for i, s in enumerate(setups):
+        ms = [e["step_ms"] for e in steps if e["pid"] == s["pid"]]
+        incs.append({
+            "pid": s["pid"], "resumed_from": s["resumed_from"],
+            "process_age_at_first_step_s": s["process_age_s"]
+            + s["loop_setup_s"],
+            "from_fit_or_kill_to_first_step_s": first[s["pid"]] - (
+                t_fit if i == 0 else kills[0]["t"]),
+            "loop_setup_s": s["loop_setup_s"], "init_ms": s["init_ms"],
+            "init_method": s["init_method"], "step_ms": ms,
+            # an incarnation's first step warms DTensor's dispatch caches
+            "warm_step_ms_median": _median(ms[1:]) if len(ms) > 1 else None,
+            "save_ms": [e["save_ms"] for e in steps
+                        if e["pid"] == s["pid"] and e["save_ms"]]})
+    summary = {"fit_s": fit_s, "losses_by_incarnation": by_inc,
+               "incarnations": incs, "launches": launches,
+               "checkpoint_bytes_estimate": ckpt_bytes, "disk_free": free,
+               "n_layers": n, "cut": n_layers is not None,
+               "phase15_full_step_ms": p15}
+    for i, inc in enumerate(incs):
+        log(f"[trainer] 17b incarnation {i + 1}: worker pid {inc['pid']}, "
+            f"{want_backend} world 1 formed in {inc['init_ms']:.1f} ms "
+            f"({inc['init_method']}); first step {inc['from_fit_or_kill_to_first_step_s']:.1f} s after "
+            f"{'fit()' if i == 0 else 'the kill'} (the process "
+            f"{inc['process_age_at_first_step_s']:.1f} s old), resumed from "
+            f"step {inc['resumed_from']}; steps {[round(x, 1) for x in inc['step_ms']]} "
+            f"ms (phase 15 full {p15:.1f} ms), "
+            f"checkpoint saves {[round(x) for x in inc['save_ms']]} ms  "
+            f"[{card}]")
+    log(f"[trainer] 17b fit() {fit_s:.1f} s: killed at step "
+        f"{MESH_TRAINER_KILL}, resumed at step {resumed} in a new process; "
+        f"losses within {TRAINER_LOSS_TOL} of "
+        f"{'phase 6' if n_layers is None else 'the first incarnation'}; the "
+        f"GPU grant came back; flash {launches} in the workers")
+    shutil.rmtree(phase)
+    summary["phase_s"] = time.perf_counter() - t_phase
+    return summary
+
+
+def _no_op_trainer_s(rt_train, phase, n):
+    t0 = time.perf_counter()
+    result = rt_train.TorchTrainer(
+        _noop_reports, train_loop_config={"n": n},
+        scaling_config=rt_train.ScalingConfig(num_workers=1),
+        run_config=rt_train.RunConfig(storage_path=str(phase / "noop"),
+                                      name=f"noop-{n}")).fit()
+    wall = time.perf_counter() - t0
+    if result.error is not None or len(result.metrics_history) != n:
+        fail(f"trainer: a no-op loop of {n} reports: {result}")
+    return wall
+
+
+def _trainer_in_process(torch, np, rt_train, card, counts, train, phase):
+    """17a: ``TorchTrainer`` on the in-process runtime with one GPU worker."""
+    import shutil
+
+    from ray_tpu_torch.models import training, transformer
+
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    config = {"device": DEVICE, "L": TRAIN_L, "B": TRAIN_B, "steps": steps,
+              "dir": str(phase / "a")}
+    counts.reset()                   # this path's counts: 0 just before
+    t0 = time.perf_counter()
+    result = rt_train.TorchTrainer(
+        _trainer_loop, train_loop_config=config,
+        scaling_config=rt_train.ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=rt_train.RunConfig(name="trainer",
+                                      storage_path=str(phase / "storage")),
+    ).fit()
+    fit_s = time.perf_counter() - t0
+    launches = counts.read()          # ... and read just after
+    if result.error is not None:
+        fail(f"trainer 17a: fit() failed: {result.error}")
+    hist = result.metrics_history
+    final = hist[-1]
+    step_reports = hist[:-1]
+    if len(hist) != final["reports"] or len(step_reports) != steps:
+        fail(f"trainer 17a: metrics_history has {len(hist)} entries for "
+             f"{final['reports']} reports")
+    if any(h["process_group"] for h in step_reports):
+        fail("trainer 17a: a process group was formed in one process")
+    if not all(h["device"].startswith(DEVICE) for h in step_reports):
+        fail(f"trainer 17a: the step ran on {step_reports[0]['device']}")
+    n = step_reports[0]["n_layers"]
+    want = {"flash_forward": 2 * n, "flash_dq": n, "flash_dkv": n}
+    for h in step_reports:
+        if h["launches"] != want:
+            fail(f"trainer 17a step {h['step']}: launches {h['launches']}, "
+                 f"wanted {want}")
+    total = {k: want[k] * (steps + 1) for k in want}
+    if {k: launches[k] for k in want} != total or any(
+            launches[k] for k in launches if k not in want):
+        fail(f"trainer 17a: launches {launches} in the run, wanted {total}")
+    losses = {h["step"]: h["loss"] for h in step_reports}
+    _check_step_losses("trainer 17a vs phase 6", losses,
+                       dict(enumerate(train["losses"])))
+    # The timed steps: from the end of the last warm-up step to the end of
+    # the last one, reports and loss reads included.
+    wall = step_reports[-1]["t_end"] - step_reports[TRAIN_WARMUP - 1]["t_end"]
+    tokens_per_s = TRAIN_B * TRAIN_L * TRAIN_STEPS / wall
+    ck = step_reports[-1]
+    # The checkpoint restores into a fresh bundle: its next step equals the
+    # uninterrupted run's.
+    cfg = transformer.gpt2_small(max_seq_len=TRAIN_L, remat=True)
+    optimizer = training.adamw(3e-4, weight_decay=0.1)
+    bundle = training.make_train_step(
+        loss_fn=lambda p, b: transformer.lm_loss(p, b, cfg),
+        init_params_fn=lambda seed: transformer.init_params(cfg, seed,
+                                                            device=DEVICE),
+        optimizer=optimizer, device=DEVICE)
+    fresh, fresh_opt = bundle.init(1)           # other weights: overwritten
+    t1 = time.perf_counter()
+    params, opt, last = _resume(training, rt_train, fresh, fresh_opt,
+                                result.checkpoint.path, optimizer)
+    restore_ms = (time.perf_counter() - t1) * 1e3
+    del fresh, fresh_opt
+    count = int(training.adamw_state_tree(opt, params)[0].count)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.tensor(rng.integers(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_L)), device=DEVICE)}
+    _, _, m = bundle.step(params, opt, batch)
+    resumed = m["loss"].item()
+    if last != steps - 1 or count != steps:
+        fail(f"trainer 17a: the checkpoint holds step {last} and count "
+             f"{count}, wanted {steps - 1} and {steps}")
+    _check_step_losses("trainer 17a, the restored bundle's next step",
+                       {steps: resumed}, {steps: final["next_loss"]})
+    del params, opt, bundle, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The manager's copy of the same checkpoint, timed alone.
+    mgr = rt_train.CheckpointManager(str(phase / "copy"))
+    t2 = time.perf_counter()
+    mgr.register(result.checkpoint, {})
+    copy_ms = (time.perf_counter() - t2) * 1e3
+    shutil.rmtree(phase / "copy")
+    shutil.rmtree(phase / "storage")
+    shutil.rmtree(phase / "a")
+    # One report round's cost: a no-op loop of 1 + REPORT_ROUNDS reports
+    # against one of 1 report, each twice.
+    walls = {k: [] for k in (1, 1 + REPORT_ROUNDS)}
+    for _ in range(2):
+        for k in walls:
+            walls[k].append(_no_op_trainer_s(rt_train, phase, k))
+    round_us = 1e6 * (min(walls[1 + REPORT_ROUNDS]) - min(walls[1])) / REPORT_ROUNDS
+    shutil.rmtree(phase / "noop")
+    p6 = train
+    out = {"fit_s": fit_s, "losses": [losses[s] for s in sorted(losses)],
+           "next_loss": final["next_loss"], "resumed_next_loss": resumed,
+           "step_ms": [h["step_ms"] for h in step_reports],
+           "timed_wall_s": wall, "tokens_per_s": tokens_per_s,
+           "step_ms_timed_mean": wall / TRAIN_STEPS * 1e3,
+           "phase6_step_ms": p6["step_ms"],
+           "phase6_tokens_per_s": p6["tokens_per_s"],
+           "report_call_us_median": final["report_call_us"],
+           "report_round_us": round_us, "no_op_fit_s": walls,
+           "checkpoint_bytes": ck["checkpoint_bytes"],
+           "checkpoint_snapshot_ms": ck["snapshot_ms"],
+           "checkpoint_write_ms": ck["write_ms"],
+           "checkpoint_save_ms": ck["save_ms"],
+           "manager_copy_ms": copy_ms, "restore_ms": restore_ms,
+           "launches": {k: launches[k] for k in want}}
+    log(f"[trainer] 17a TorchTrainer in-process, one GPU worker, no process "
+        f"group: {TRAIN_STEPS} timed steps at {out['step_ms_timed_mean']:.1f} "
+        f"ms a step, {tokens_per_s:.0f} tokens/s (phase 6 "
+        f"{p6['step_ms']:.1f} ms, {p6['tokens_per_s']:.0f} tokens/s); "
+        f"losses within {TRAINER_LOSS_TOL} of phase 6's; flash {want} a "
+        f"step  [{card}]")
+    log(f"[trainer] 17a report(): {final['report_call_us']:.1f} us in the "
+        f"loop; one report round {round_us:.1f} us (no-op loops of 1 and "
+        f"{1 + REPORT_ROUNDS} reports)")
+    log(f"[trainer] 17a checkpoint {ck['checkpoint_bytes']} bytes: snapshot "
+        f"{ck['snapshot_ms']:.1f} ms, write {ck['write_ms']:.1f} ms, the "
+        f"manager's copy {copy_ms:.1f} ms, restore {restore_ms:.1f} ms; the "
+        f"restored bundle's next loss {resumed:.6f} = the uninterrupted "
+        f"{final['next_loss']:.6f}  [{card}]")
+    return out
+
+
+def _tune_trainable(config):
+    """17c's trial: gpt2_small at full width, B=4 and L=1024, one AdamW step
+    on a fixed batch an iteration, reporting its loss."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models import training, transformer
+
+    t_start = time.perf_counter()
+    cfg = transformer.gpt2_small(max_seq_len=config["L"], remat=True)
+    bundle = training.make_train_step(
+        loss_fn=lambda p, b: transformer.lm_loss(p, b, cfg),
+        init_params_fn=lambda seed: transformer.init_params(
+            cfg, seed, device=config["device"]),
+        optimizer=training.adamw(config["lr"], weight_decay=0.1),
+        device=config["device"])
+    params, opt = bundle.init(0)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.tensor(rng.integers(
+        0, cfg.vocab_size, (config["B"], config["L"])),
+        device=config["device"])}
+    for _ in range(config["max_t"]):
+        params, opt, m = bundle.step(params, opt, batch)
+        tune.report({"loss": m["loss"].item(), "t_start": t_start,
+                     "t": time.perf_counter(), "n_layers": cfg.n_layers})
+
+
+def _asha_replay(records, milestones, max_t, rf):
+    """The decisions ASHA's rule gives on ``records`` (trial, t, score) in
+    the order the scheduler saw them: stop at ``t >= max_t``; at each rung
+    a trial crosses, stop if its score is below the top ``1/rf`` cutoff of
+    the scores recorded there so far."""
+    rungs, nxt, out = {m: [] for m in milestones}, {}, []
+    for trial, t, score in records:
+        if t >= max_t:
+            out.append("STOP")
+            continue
+        d, i = "CONTINUE", nxt.get(trial, 0)
+        while i < len(milestones) and t >= milestones[i]:
+            scores = rungs[milestones[i]]
+            scores.append(score)
+            k = max(1, int(len(scores) / rf))
+            if score < sorted(scores, reverse=True)[k - 1]:
+                d = "STOP"
+            i += 1
+        nxt[trial] = i
+        out.append(d)
+    return out
+
+
+def _tune_on_card(torch, np, rt, card, counts):
+    """17c: ``Tuner`` over a function trainable, 4 trials on a
+    learning-rate grid with ``{"CPU": 1, "GPU": 0.5}`` each, ASHA."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.tune import ASHAScheduler, TrialStatus
+
+    class RecordingASHA(ASHAScheduler):
+        """ASHA, recording every result it decides on, in its order."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.record = []
+
+        def on_trial_result(self, trial, result):
+            d = super().on_trial_result(trial, result)
+            self.record.append((trial.trial_id,
+                                int(result["training_iteration"]),
+                                self._score(result), d))
+            return d
+
+    sched = RecordingASHA(max_t=TUNE_MAX_T, grace_period=TUNE_GRACE,
+                          reduction_factor=TUNE_RF)
+    counts.reset()                   # this path's counts: 0 just before
+    t0 = time.perf_counter()
+    grid = tune.Tuner(
+        _tune_trainable,
+        param_space={"lr": tune.grid_search(list(TUNE_LRS)), "device": DEVICE,
+                     "L": TRAIN_L, "B": TUNE_B, "max_t": TUNE_MAX_T},
+        tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                    scheduler=sched),
+        resources_per_trial={"CPU": 1, "GPU": 0.5},
+    ).fit()
+    wall = time.perf_counter() - t0
+    launches = counts.read()          # ... and read just after
+    trials = grid._trials
+    ended = (TrialStatus.TERMINATED, TrialStatus.STOPPED)
+    if len(trials) != len(TUNE_LRS) or any(
+            t.status not in ended or t.error for t in trials):
+        fail(f"tune: trials {[(t.config['lr'], t.status, t.error) for t in trials]}")
+    iters = sum(len(t.metrics_history) for t in trials)
+    n = trials[0].metrics_history[0]["n_layers"]
+    want = {"flash_forward": 2 * n * iters, "flash_dq": n * iters,
+            "flash_dkv": n * iters}
+    if {k: launches[k] for k in want} != want:
+        fail(f"tune: launches {launches} over {iters} iterations, wanted "
+             f"{want}")
+    # At most 2 trials at once: the card's two 0.5 grants.
+    spans = [(t.metrics_history[0]["t_start"], t.metrics_history[-1]["t"])
+             for t in trials]
+    edges = sorted([(a, 1) for a, _ in spans] + [(b, -1) for _, b in spans])
+    live = most = 0
+    for _, d in edges:
+        live += d
+        most = max(most, live)
+    if most > 2:
+        fail(f"tune: {most} trials ran at once on two GPU grants: {spans}")
+    # ASHA's stops: at least one at a rung, each as its rule gives on the
+    # reported metrics in the order they were seen.
+    rec = sched.record
+    replay = _asha_replay([r[:3] for r in rec], sched.milestones, TUNE_MAX_T,
+                          TUNE_RF)
+    if [r[3] for r in rec] != replay:
+        fail(f"tune: ASHA's decisions {rec} against its rule {replay}")
+    rung_stops = [r for r in rec if r[3] == "STOP" and r[1] < TUNE_MAX_T]
+    if not rung_stops:
+        fail(f"tune: ASHA stopped no trial at a rung: {rec}")
+    best = grid.get_best_result()
+    lowest = min(trials, key=lambda t: t.last_result["loss"])
+    if best.metrics["loss"] != lowest.last_result["loss"]:
+        fail(f"tune: get_best_result() {best.metrics['loss']} is not the "
+             f"lowest final loss {lowest.last_result['loss']}")
+    by_lr = {t.config["lr"]: {"status": t.status,
+                              "iterations": len(t.metrics_history),
+                              "losses": [h["loss"] for h in t.metrics_history]}
+             for t in trials}
+    out = {"wall_s": wall, "iterations": iters, "most_at_once": most,
+           "trials": by_lr, "milestones": sched.milestones,
+           "rung_stops": [(r[0], r[1]) for r in rung_stops],
+           "best_lr": lowest.config["lr"],
+           "launches": {k: launches[k] for k in want}}
+    log(f"[tune] 17c 4 trials (lr {list(TUNE_LRS)}) x up to {TUNE_MAX_T} "
+        f"steps of gpt2_small B={TUNE_B} L={TRAIN_L}, {{CPU: 1, GPU: 0.5}} "
+        f"each, ASHA rungs {sched.milestones}: {iters} iterations in "
+        f"{wall:.1f} s, at most {most} at once; stopped at a rung "
+        f"{len(rung_stops)}, each as ASHA's rule gives; best lr "
+        f"{lowest.config['lr']} (final loss "
+        f"{lowest.last_result['loss']:.4f}); flash {out['launches']}  "
+        f"[{card}]")
+    return out
+
+
+def phase_trainer(torch, np, card, counts, train, cluster_trainer):
+    """17a and 17c on the in-process runtime (after phase 13's cluster is
+    gone), then 17b's losses held to 17a's."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train as rt_train
+
+    t_phase = time.perf_counter()
+    phase = _phase17_dir(fresh=True)
+    (phase / "tmp").mkdir()
+    old_tmp = tempfile.tempdir
+    tempfile.tempdir = str(phase / "tmp")
+    rt.init()
+    try:
+        if rt.cluster_resources().get("GPU") != 1.0:
+            fail(f"trainer: init() registers {rt.cluster_resources()}, "
+                 f"wanted the card as GPU 1")
+        st = shutil.disk_usage(phase)
+        summary = {"disk_free": st.free}
+        summary["a"] = _trainer_in_process(torch, np, rt_train, card, counts,
+                                           train, phase)
+        summary["c"] = _tune_on_card(torch, np, rt, card, counts)
+    finally:
+        rt.shutdown()
+        tempfile.tempdir = old_tmp
+    shutil.rmtree(phase)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not cluster_trainer["cut"]:
+        a = dict(enumerate(summary["a"]["losses"]))
+        for inc in cluster_trainer["losses_by_incarnation"]:
+            _check_step_losses("trainer 17b vs 17a",
+                               {int(k): v for k, v in inc.items()}, a)
+    summary["b"] = cluster_trainer
+    summary["launches"] = {k: summary["a"]["launches"][k]
+                           + cluster_trainer["launches"][k]
+                           + summary["c"]["launches"][k]
+                           for k in summary["a"]["launches"]}
+    summary["phase_s"] = (time.perf_counter() - t_phase
+                          + cluster_trainer["phase_s"])
+    log(f"[trainer] 17b's losses within {TRAINER_LOSS_TOL} of 17a's"
+        f"{' (cut: not compared)' if cluster_trainer['cut'] else ''}; "
+        f"phase 17 took {summary['phase_s']:.1f} s; flash on the trainer "
+        f"paths {summary['launches']}")
+    return summary
+
+
 def _leaf_names(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -4696,10 +5418,14 @@ def main() -> None:
     done(11)
     serving = phase_serve(torch, np, card, count, counts, engine, runtime)
     done(12)
-    cluster = phase_cluster(torch, np, card, counts, runtime, serving)
+    cluster = phase_cluster(torch, np, card, counts, runtime, serving,
+                            train, mesh)
     tier = cluster.pop("tier")
     dag = cluster.pop("dag")
     done(16)
+    trainer = phase_trainer(torch, np, card, counts, train,
+                            cluster.pop("trainer"))
+    done(17)
 
     def bf16_case(label):
         return next(c for c in cases
@@ -4751,6 +5477,7 @@ def main() -> None:
             "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": replaces, "launches": train["launches"][name],
             "mesh_launches": mesh["launches"][name],
+            "trainer_launches": trainer["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
@@ -4767,7 +5494,7 @@ def main() -> None:
          "train_end_to_end": train_e2e, "mesh": mesh, "slotted": slotted,
          "spec": spec,
          "disagg": disagg, "runtime": runtime, "serve": serving,
-         "cluster": cluster, "tier": tier, "dag": dag},
+         "cluster": cluster, "tier": tier, "dag": dag, "trainer": trainer},
         indent=1))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

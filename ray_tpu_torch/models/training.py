@@ -21,10 +21,11 @@ optimizer state is a ``torch.optim`` optimizer over the leaves.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ray_tpu_torch.parallel.mesh import compute_mesh, replicated
 from ray_tpu_torch.parallel.sharding import (ShardingRules, logical_sharding,
@@ -83,6 +84,85 @@ class AdamW:
                 "exp_avg_sq": torch.zeros_like(
                     p, memory_format=torch.preserve_format)}
         return opt
+
+
+class ScaleByAdamState(NamedTuple):
+    """optax's ``ScaleByAdamState``: the step count and the two moments,
+    each a tree shaped like the parameters."""
+
+    count: Any
+    mu: Any
+    nu: Any
+
+
+class EmptyState(NamedTuple):
+    """optax's ``EmptyState`` (the weight decay's and the learning rate's)."""
+
+
+def adamw_state_tree(opt_state: torch.optim.Optimizer, params) -> Tuple:
+    """The AdamW state as the tree ``optax.adamw(...).init(params)`` has,
+    ``(ScaleByAdamState(count, mu, nu), EmptyState(), EmptyState())``: an
+    int32 count (every leaf shares one step: the first leaf's is read) and
+    the moments, the optimizer's own tensors shaped like ``params``. The
+    ``state_dict`` of a torch optimizer keys leaves by integers, which a
+    checkpoint refuses; this tree saves as the JAX package saves its
+    optimizer state."""
+    first = next(iter(_leaves(params)))
+    count = torch.tensor(int(opt_state.state[first]["step"].item()),
+                         dtype=torch.int32)
+    return (ScaleByAdamState(
+        count=count,
+        mu=_tree_map(lambda p: opt_state.state[p]["exp_avg"], params),
+        nu=_tree_map(lambda p: opt_state.state[p]["exp_avg_sq"], params)),
+        EmptyState(), EmptyState())
+
+
+def _zip_leaves(tree, *others):
+    """``(leaf, other leaves at the same path)`` over ``tree``, matching
+    dicts by key (the others may hold them in another order) and lists and
+    tuples by position; a missing path raises ``KeyError``/``IndexError``."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _zip_leaves(v, *(o[k] for o in others))
+    elif isinstance(tree, (list, tuple)):
+        if any(len(o) != len(tree) for o in others):
+            raise ValueError(f"a list of {len(tree)} against "
+                             f"{[len(o) for o in others]}")
+        for i, v in enumerate(tree):
+            yield from _zip_leaves(v, *(o[i] for o in others))
+    else:
+        yield (tree,) + others
+
+
+def _into(dst: torch.Tensor, src) -> None:
+    """Copy ``src`` (a tensor, a DTensor or a numpy array) into ``dst``."""
+    if not isinstance(src, torch.Tensor):
+        src = torch.as_tensor(src)
+    src = src.to(dtype=dst.dtype)
+    if isinstance(dst, DTensor) and not isinstance(src, DTensor):
+        src = distribute_tensor(src.to(dst.device), dst.device_mesh,
+                                dst.placements)
+    dst.copy_(src)
+
+
+def load_adamw_state_tree(opt_state: torch.optim.Optimizer, params,
+                          tree) -> torch.optim.Optimizer:
+    """Load an ``adamw_state_tree`` (this package's, or optax's as numpy
+    arrays: ``tree[0]`` is ``(count, mu, nu)``) into ``opt_state``, the
+    optimizer over ``params``: every leaf's ``step`` becomes the count and
+    its ``exp_avg``/``exp_avg_sq`` the moments, in place, on the fused
+    route (the step on the card) and the plain one (the step on the host)
+    alike."""
+    count, mu, nu = tree[0][0], tree[0][1], tree[0][2]
+    count = float(np.asarray(count.cpu() if isinstance(count, torch.Tensor)
+                             else count))
+    with torch.no_grad():
+        for p, m, v in _zip_leaves(params, mu, nu):
+            st = opt_state.state[p]
+            st["step"].fill_(count)
+            _into(st["exp_avg"], m)
+            _into(st["exp_avg_sq"], v)
+    return opt_state
 
 
 def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,

@@ -36,6 +36,7 @@ went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -46,10 +47,19 @@ _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 
-# Kernel launches since import (or since a caller reset them to 0).
+# Kernel launches since import (or since a caller reset them to 0). Several
+# threads launch at once (trials of one process, autograd's device thread),
+# so each count is bumped under a lock.
 forward_launches = 0
 dq_launches = 0
 dkv_launches = 0
+_count_lock = threading.Lock()
+
+
+def _count(counter: str) -> None:
+    """Add one launch to ``counter`` (one of the three above)."""
+    with _count_lock:
+        globals()[counter] += 1
 
 _fns = {}
 
@@ -221,7 +231,6 @@ def _launch(name, ptrs, strides, q, Lk, scale, causal):
 
 
 def _forward_cuda(q, k, v, scale, causal):
-    global forward_launches
     _check(q, k, v)
     q, k, v = (_kernel_operand(t) for t in (q, k, v))
     B, Lq, H, D = q.shape
@@ -230,12 +239,11 @@ def _forward_cuda(q, k, v, scale, causal):
     _launch("forward", (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         o.data_ptr(), lse.data_ptr()),
             _strides(q, k, v), q, k.shape[1], scale, causal)
-    forward_launches += 1
+    _count("forward_launches")
     return o, lse
 
 
 def _dq_cuda(q, k, v, g, lse, delta, scale, causal):
-    global dq_launches
     _check(q, k, v, g)
     q, k, v, g = (_kernel_operand(t) for t in (q, k, v, g))
     lse, delta = _rows(q, lse, delta)
@@ -243,12 +251,11 @@ def _dq_cuda(q, k, v, g, lse, delta, scale, causal):
     _launch("dq", (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                    lse.data_ptr(), delta.data_ptr(), dq.data_ptr()),
             _strides(q, k, v, g), q, k.shape[1], scale, causal)
-    dq_launches += 1
+    _count("dq_launches")
     return dq
 
 
 def _dkv_cuda(q, k, v, g, lse, delta, scale, causal):
-    global dkv_launches
     _check(q, k, v, g)
     q, k, v, g = (_kernel_operand(t) for t in (q, k, v, g))
     lse, delta = _rows(q, lse, delta)
@@ -258,7 +265,7 @@ def _dkv_cuda(q, k, v, g, lse, delta, scale, causal):
                     lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                     dv.data_ptr()),
             _strides(q, k, v, g), q, k.shape[1], scale, causal)
-    dkv_launches += 1
+    _count("dkv_launches")
     return dk, dv
 
 

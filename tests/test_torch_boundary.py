@@ -211,6 +211,8 @@ def test_serving_imports_with_jax_blocked():
         "import ray_tpu_torch.parallel.ring_attention\n"
         "import ray_tpu_torch.parallel.pipeline, ray_tpu_torch.entry\n"
         "import ray_tpu_torch.ops.moe, ray_tpu_torch.models.mlp\n"
+        "import ray_tpu_torch.train, ray_tpu_torch.tune\n"
+        "import ray_tpu_torch.tune.experiment_state\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ray_tpu')]\n"
         "assert not bad, bad\n"

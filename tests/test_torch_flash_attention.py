@@ -261,3 +261,29 @@ def test_kernel_wrappers_validate_on_the_host():
     assert tfa._kernel_operand(ones).is_contiguous()
     odd = torch.zeros(1, 64, 2, 65)[..., 1:]
     assert tfa._kernel_operand(odd).is_contiguous()
+
+
+def test_launch_counts_lose_no_update_across_threads():
+    """Concurrent trials and autograd's device thread bump the counters at
+    once: 16 threads x 2000 bumps under a tiny switch interval lose none."""
+    import sys
+    import threading
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    before = fa.dq_launches
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(
+            target=lambda: [fa._count("dq_launches") for _ in range(2000)])
+            for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert fa.dq_launches - before == 16 * 2000
+    fa.dq_launches = before

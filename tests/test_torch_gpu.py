@@ -1047,3 +1047,136 @@ def test_device_backend_allreduce_stays_on_the_card(cuda):
         assert out.is_cuda and out.dtype == torch.bfloat16
         assert torch.equal(out, torch.full_like(out, 10.0))
     col.destroy_collective_group("card")
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """CUDA f32 and bf16 leaves and a world-1 DTensor through save_pytree,
+    load_pytree and restore_pytree bit for bit, each restored leaf placed
+    as its target (the card; the DTensor's mesh and placements); the
+    AsyncCheckpointer's snapshot of CUDA tensors the same."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+
+    from ray_tpu_torch import train as rt_train
+    from ray_tpu_torch.parallel.mesh import MeshSpec, compute_mesh, make_mesh
+
+    g = torch.Generator().manual_seed(7)
+    f32 = torch.randn(33, 17, generator=g).cuda()
+    bf16 = torch.randn(5, 64, generator=g).to("cuda", torch.bfloat16)
+    started = not dist.is_initialized()
+    mesh = make_mesh(MeshSpec(data=-1))
+    try:
+        dt = distribute_tensor(torch.randn(8, 4, generator=g).cuda(),
+                               compute_mesh(mesh), [Shard(0)])
+        tree = {"f32": f32, "bf16": bf16, "dt": dt, "step": 3}
+        rt_train.save_pytree(tree, str(tmp_path / "s"))
+        back = rt_train.load_pytree(str(tmp_path / "s"))
+        assert back["f32"].tobytes() == f32.cpu().numpy().tobytes()
+        assert back["bf16"].dtype == torch.bfloat16
+        assert torch.equal(back["bf16"], bf16.cpu())
+        target = {"f32": torch.zeros_like(f32), "bf16": torch.zeros_like(bf16),
+                  "dt": distribute_tensor(torch.zeros(8, 4, device="cuda"),
+                                          compute_mesh(mesh), [Shard(0)]),
+                  "step": 0}
+        got = rt_train.restore_pytree(target, str(tmp_path / "s"))
+        assert got["f32"].is_cuda and torch.equal(got["f32"], f32)
+        assert got["bf16"].is_cuda and torch.equal(got["bf16"], bf16)
+        assert isinstance(got["dt"], DTensor)
+        assert got["dt"].placements == dt.placements
+        assert torch.equal(got["dt"].full_tensor(), dt.full_tensor())
+        assert got["step"] == 3
+        snap = f32.cpu()
+        ck = rt_train.AsyncCheckpointer()
+        ck.save(tree, str(tmp_path / "a"))
+        f32.add_(1.0)                      # after the snapshot
+        ck.wait()
+        again = rt_train.load_pytree(str(tmp_path / "a"))
+        assert again["f32"].tobytes() == snap.numpy().tobytes()
+        assert torch.equal(again["bf16"], bf16.cpu())
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_torch_trainer_runs_a_tiny_step_on_the_card(runtime, tmp_path):
+    """``TorchTrainer(use_gpu=True)`` on the in-process runtime: one tiny
+    train step on the card, its flash launches read in the worker."""
+    from ray_tpu_torch import train as rt_train
+
+    def loop(config):
+        import torch
+
+        from ray_tpu_torch.models import training, transformer
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        cfg = transformer.tiny(n_heads=2, max_seq_len=128, attn_impl="flash",
+                               remat=True)
+        bundle = training.make_train_step(
+            loss_fn=lambda p, b: transformer.lm_loss(p, b, cfg),
+            init_params_fn=lambda seed: transformer.init_params(cfg, seed),
+            optimizer=training.adamw(1e-3))
+        params, opt = bundle.init(0)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 128),
+                               generator=torch.Generator().manual_seed(0))
+        before = (fa.forward_launches, fa.dq_launches, fa.dkv_launches)
+        params, opt, m = bundle.step(params, opt, {"tokens": tokens})
+        after = (fa.forward_launches, fa.dq_launches, fa.dkv_launches)
+        rt_train.report({"loss": m["loss"].item(),
+                         "device": str(bundle.device),
+                         "launches": [a - b for a, b in zip(after, before)],
+                         "n_layers": cfg.n_layers})
+
+    result = rt_train.TorchTrainer(
+        loop, scaling_config=rt_train.ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=rt_train.RunConfig(storage_path=str(tmp_path), name="gpu"),
+    ).fit()
+    assert result.error is None, result.error
+    m = result.metrics
+    n = m["n_layers"]
+    assert m["device"].startswith("cuda") and np.isfinite(m["loss"])
+    assert m["launches"] == [2 * n, n, n]
+
+
+@pytest.mark.gpu
+def test_restored_adamw_resumes_on_the_fused_route(cuda, tmp_path):
+    """Params and ``adamw_state_tree`` checkpointed after 2 steps on the
+    card, restored into a fresh bundle (the fused AdamW: its step on the
+    card): the next step's loss and parameters equal the uninterrupted
+    run's."""
+    from ray_tpu_torch import train as rt_train
+
+    cfg = transformer.tiny(attn_impl="dense")
+    tokens = torch.tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 64)), device="cuda")
+
+    def bundle():
+        return training.make_train_step(
+            loss_fn=lambda p, b: transformer.lm_loss(p, b, cfg),
+            init_params_fn=lambda seed: transformer.init_params(cfg, seed),
+            optimizer=training.adamw(1e-3, weight_decay=0.1), device="cuda")
+
+    b = bundle()
+    params, opt = b.init(0)
+    assert opt.param_groups[0]["fused"]
+    for _ in range(2):
+        params, opt, _ = b.step(params, opt, {"tokens": tokens})
+    d = str(tmp_path / "ck")
+    rt_train.save_pytree({"params": params,
+                          "opt": training.adamw_state_tree(opt, params)}, d)
+    params, opt, m = b.step(params, opt, {"tokens": tokens})
+
+    b2 = bundle()
+    fresh, fresh_opt = b2.init(1)                  # other weights: overwritten
+    back = rt_train.restore_pytree(
+        {"params": fresh, "opt": training.adamw_state_tree(fresh_opt, fresh)}, d)
+    p2 = back["params"]
+    opt2 = training.load_adamw_state_tree(
+        training.adamw(1e-3, weight_decay=0.1).init(p2), p2, back["opt"])
+    assert opt2.param_groups[0]["fused"]
+    assert all(opt2.state[p]["step"].is_cuda for p in training._leaves(p2))
+    p2, opt2, m2 = b2.step(p2, opt2, {"tokens": tokens})
+    np.testing.assert_allclose(m2["loss"].item(), m["loss"].item(), rtol=1e-6)
+    for a, c in zip(training._leaves(params), training._leaves(p2)):
+        torch.testing.assert_close(c, a, rtol=1e-6, atol=1e-7)
