@@ -265,6 +265,35 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    rung at least and every decision it made is its rule's on the reported
    losses, ``get_best_result()`` is the lowest final loss, and K1-K3's
    launches are 2n / n / n x the iterations run.
+18. Data and RLlib — which of pyarrow, gymnasium and pandas import here;
+   a leg whose package is absent prints so and does not run. 18a, on the
+   in-process runtime after phase 17: 4,096 rows of 1,024 int32 tokens
+   below GPT-2's vocab (16 MiB, from the seed) in 16 parquet files under
+   ``build/phase18/`` through ``read_parquet`` → ``map_batches`` (the
+   tokens column) → ``random_shuffle(seed=0)`` →
+   ``streaming_split(1, equal=True)`` → ``iter_torch_batches(batch_size=16,
+   dtypes={"tokens": torch.int64})`` onto the card (its default device):
+   rows/s, GB/s to the card, the host batch and the pin + copy a batch,
+   the wait in ``next()`` (median, max); every row reaches the card once
+   (a digest a row, read back). 18c, last on phase 13's cluster: the same
+   pipeline with its read and map tasks pinned to node B's CPU workers
+   (``ray_remote_args``), the split iterated onto the card by this process
+   on node A, the same gate. 18b: 17a's in-process ``TorchTrainer`` at
+   phase 6's configuration, each of its 3 + 10 steps' batches taken from
+   a ``StreamSplitDataIterator`` passed in ``train_loop_config`` (the
+   corpus: phase 6's batch 13 times, 16 rows a file): every batch phase
+   6's, int64 on the card before its step, K1-K3 2n / n / n a step, every
+   loss phase 6's bit for bit; step time and tokens/s beside 17a's and
+   phase 6's, the wait on the iterator a step. 18d: the Nature-CNN PPO
+   learner (1.69 M parameters, 14.45 M by the device policy's count, so
+   ``"auto"`` puts it on the card; without one the policy raises) over 3
+   iterations' minibatches of 64, then one update on the card from a CPU
+   learner's parameters against the same update on the CPU, TF32 off,
+   within 1e-4 a leaf; where gymnasium
+   imports, ``PPOConfig().environment(SyntheticAtariEnv)`` with 2 env
+   runners of 2 envs, fragments of 64, one epoch, minibatches of 64, 3
+   iterations: env steps/s, the learner's update time, its device, finite
+   losses.
 
 In phases 5 and 8-14 a greedy stream that departs from its reference must
 do so at a near tie: the plain path's top-2 logit gap there under 1e-3.
@@ -3597,6 +3626,8 @@ def phase_cluster(torch, np, card, counts, runtime_summary, serve_summary,
     # Phase 17b, the trainer in a worker process, last on this cluster.
     summary["trainer"] = phase_trainer_cluster(torch, np, rt, card, counts,
                                                procs, train, mesh)
+    # Phase 18c, the Data pipeline across processes, after it.
+    summary["data"] = phase_data_cluster(torch, np, rt, card, node_b)
 
     # 7. Tear down.
     for i in range(2):
@@ -4690,12 +4721,13 @@ TUNE_LRS = (3e-3, 1e-3, 3e-4, 1e-4)   # 17c's grid, the largest first
 TUNE_B, TUNE_MAX_T, TUNE_GRACE, TUNE_RF = 4, 8, 2, 2
 
 
-def _phase17_dir(fresh=False):
-    """The phase's own directory (run storage, checkpoints, TMPDIR), under
-    the checkout's gitignored ``build/``; removed at the phase's end."""
+def _phase_dir(name, fresh=False):
+    """A phase's own directory (run storage, checkpoints, corpora,
+    TMPDIR), under the checkout's gitignored ``build/``; removed at the
+    phase's end."""
     import shutil
 
-    d = ROOT / "build" / "phase17"
+    d = ROOT / "build" / name
     if fresh and d.exists():
         shutil.rmtree(d)
     d.mkdir(parents=True, exist_ok=True)
@@ -4915,7 +4947,7 @@ def phase_trainer_cluster(torch, np, rt, card, counts, procs, train,
 
     t_phase = time.perf_counter()
     _wait_card_free(rt, "trainer", "phase 16's actors")
-    phase = _phase17_dir(fresh=True)
+    phase = _phase_dir("phase17", fresh=True)
     cfg = transformer.gpt2_small(max_seq_len=TRAIN_L, remat=True)
     n_params = transformer.param_count(
         transformer.init_params(cfg, 0, device="meta"))
@@ -5328,7 +5360,7 @@ def phase_trainer(torch, np, card, counts, train, cluster_trainer):
     from ray_tpu_torch import train as rt_train
 
     t_phase = time.perf_counter()
-    phase = _phase17_dir(fresh=True)
+    phase = _phase_dir("phase17", fresh=True)
     (phase / "tmp").mkdir()
     old_tmp = tempfile.tempdir
     tempfile.tempdir = str(phase / "tmp")
@@ -5365,6 +5397,471 @@ def phase_trainer(torch, np, card, counts, train, cluster_trainer):
         f"phase 17 took {summary['phase_s']:.1f} s; flash on the trainer "
         f"paths {summary['launches']}")
     return summary
+
+
+# -- phase 18 ----------------------------------------------------------------
+DATA_ROWS, DATA_FILES = 4096, 16       # 18a/18c: 4,096 rows of 1,024 tokens
+DATA_BATCH = 16                        # rows a batch (phase 6's B)
+PPO_RUNNERS, PPO_ENVS = 2, 2           # 18d: env runners, envs a runner
+PPO_FRAGMENT, PPO_MINIBATCH = 64, 64   # steps an env an iteration; rows an update
+PPO_ITERS = 3
+LEARNER_CARD_TOL = 1e-4                # card vs CPU update, relative to a leaf
+
+
+def _write_token_files(np, d, tokens, rows_per_file):
+    """``tokens`` [rows, L] int32 as parquet files of ``rows_per_file``
+    rows, one ``fixed_size_list<int32>[L]`` column ``ids``."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    d.mkdir(parents=True, exist_ok=True)
+    for i in range(0, len(tokens), rows_per_file):
+        part = np.ascontiguousarray(tokens[i:i + rows_per_file])
+        col = pa.FixedSizeListArray.from_arrays(pa.array(part.reshape(-1)),
+                                                part.shape[1])
+        pq.write_table(pa.table({"ids": col}),
+                       str(d / f"part-{i // rows_per_file:05d}.parquet"))
+
+
+def _tokens_from_ids(table):
+    """18's ``map_batches``: the ``ids`` list column → a ``tokens`` tensor
+    column [rows, L] int32."""
+    ids = table.column("ids").combine_chunks()
+    return {"tokens": ids.flatten().to_numpy().reshape(-1, ids.type.list_size)}
+
+
+def _data_corpus(np, vocab):
+    """18a's corpus: DATA_ROWS rows of TRAIN_L int32 tokens below the
+    vocab, from the script's seed, written as DATA_FILES parquet files."""
+    d = _phase_dir("phase18") / "corpus"
+    tokens = np.random.default_rng(0).integers(
+        0, vocab, (DATA_ROWS, TRAIN_L)).astype(np.int32)
+    if not d.exists():
+        _write_token_files(np, d, tokens, DATA_ROWS // DATA_FILES)
+    return d, tokens
+
+
+def _row_digests(np, tokens):
+    import collections
+    import hashlib
+
+    return collections.Counter(
+        hashlib.blake2b(np.ascontiguousarray(row, dtype=np.int32).tobytes(),
+                        digest_size=16).digest() for row in tokens)
+
+
+def _device_kw():
+    """``iter_torch_batches`` is left to its default device (the card);
+    a CPU rehearsal names the host."""
+    return {} if DEVICE == "cuda" else {"device": DEVICE}
+
+
+def _ingest(torch, np, rt_data, files, tokens, remote_args, tag):
+    """read_parquet → map_batches (the tokens column) →
+    random_shuffle(seed=0) → streaming_split(1, equal=True) →
+    iter_torch_batches onto the card; the timed loop keeps every batch on
+    the card, then each row's digest is read back."""
+    ds = (rt_data.read_parquet(str(files), ray_remote_args=remote_args)
+          .map_batches(_tokens_from_ids, batch_format="pyarrow",
+                       ray_remote_args=remote_args)
+          .random_shuffle(seed=0))
+    (split,) = ds.streaming_split(1, equal=True)
+    produce = []                      # host numpy batch made: s a batch
+    inner = split.iter_batches
+
+    def timed_batches(**kw):
+        gen = inner(**kw)
+        while True:
+            t = time.perf_counter()
+            b = next(gen, None)
+            produce.append(time.perf_counter() - t)
+            if b is None:
+                return
+            yield b
+
+    split.iter_batches = timed_batches
+    got, waits = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    it = split.iter_torch_batches(batch_size=DATA_BATCH,
+                                  dtypes={"tokens": torch.int64},
+                                  **_device_kw())
+    try:
+        while True:
+            t = time.perf_counter()
+            b = next(it, None)
+            if b is None:
+                break
+            waits.append(time.perf_counter() - t)
+            got.append(b["tokens"])
+    finally:
+        split.finish()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad = [(tuple(t.shape), str(t.dtype), t.device.type) for t in got
+           if (tuple(t.shape), t.dtype, t.device.type)
+           != ((DATA_BATCH, TRAIN_L), torch.int64, torch.device(DEVICE).type)]
+    if bad or len(got) * DATA_BATCH != DATA_ROWS:
+        fail(f"data {tag}: {len(got)} batches, wrong ones {bad[:3]}")
+    rows = torch.cat(got).cpu().numpy()
+    if _row_digests(np, rows) != _row_digests(np, tokens):
+        fail(f"data {tag}: the rows that reached the card are not the "
+             f"corpus's multiset")
+    pin_copy = [w - p for w, p in zip(waits, produce)]
+    nbytes = tokens.nbytes
+    out = {"rows": len(rows), "batches": len(got), "wall_s": wall,
+           "rows_per_s": len(rows) / wall, "gb_per_s": nbytes / wall / 1e9,
+           "bytes": nbytes, "first_wait_ms": waits[0] * 1e3,
+           "wait_ms_median": _median(waits) * 1e3,
+           "wait_ms_max": max(waits) * 1e3,
+           "pin_copy_ms_median": _median(pin_copy) * 1e3,
+           "pin_copy_ms_max": max(pin_copy) * 1e3,
+           "host_batch_ms_median": _median(produce[:len(waits)]) * 1e3}
+    return out
+
+
+def _data_line(tag, r, card):
+    log(f"[data] {tag}: {r['rows']} rows ({r['bytes']} bytes of int32 "
+        f"tokens) in {r['wall_s']:.3f} s = {r['rows_per_s']:.0f} rows/s, "
+        f"{r['gb_per_s']:.3f} GB/s to the card; next() waits a batch median "
+        f"{r['wait_ms_median']:.2f} ms, max {r['wait_ms_max']:.1f} ms (the "
+        f"first, through the shuffle's barrier, {r['first_wait_ms']:.1f} "
+        f"ms); host batch {r['host_batch_ms_median']:.2f} ms, pin + copy "
+        f"{r['pin_copy_ms_median']:.2f} ms a batch (median); the row "
+        f"multiset exact  [{card}]")
+
+
+def phase_data_cluster(torch, np, rt, card, node_b):
+    """18c, on phase 13's cluster before its teardown: 18a's pipeline with
+    its read and map tasks on node B's CPU workers; this process (node A)
+    iterates the split onto the card."""
+    from ray_tpu_torch import data as rt_data
+    from ray_tpu_torch.models import transformer
+
+    files, tokens = _data_corpus(np, transformer.gpt2_small().vocab_size)
+    on_b = {"scheduling_strategy": rt.NodeAffinitySchedulingStrategy(
+        node_id=node_b.node_id, soft=False)}
+    out = _ingest(torch, np, rt_data, files, tokens, on_b, "18c")
+    _data_line("18c read and map tasks on node B, the split onto the card "
+               "on node A", out, card)
+    return out
+
+
+def _data_trainer_loop(config):
+    """18b's loop, in the trainer's worker: phase 6's step, each batch
+    taken from the ``StreamSplitDataIterator`` in the loop's config onto
+    the card; a report a step with its loss, time, wait on the iterator
+    and K1-K3 launches."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import train as rt_train
+    from ray_tpu_torch.models import training, transformer
+
+    dev = torch.device(config["device"])
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cfg = transformer.gpt2_small(max_seq_len=config["L"], remat=True)
+    bundle = training.make_train_step(
+        loss_fn=lambda p, b: transformer.lm_loss(p, b, cfg),
+        init_params_fn=lambda seed: transformer.init_params(
+            cfg, seed, device=config["device"]),
+        optimizer=training.adamw(3e-4, weight_decay=0.1),
+        device=config["device"])
+    params, opt = bundle.init(0)
+    want = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (config["B"], config["L"])), device=dev)
+    split = config["it"]
+    batches = split.iter_torch_batches(batch_size=config["B"],
+                                       dtypes={"tokens": torch.int64},
+                                       **config["device_kw"])
+    try:
+        for step in range(config["steps"]):
+            t_w = time.perf_counter()
+            batch = next(batches)
+            wait = time.perf_counter() - t_w
+            tok = batch["tokens"]
+            placed = {"device": str(tok.device), "dtype": str(tok.dtype),
+                      "equal": bool(torch.equal(tok, want))}
+            sync()
+            t0 = time.perf_counter()
+            before = _flash_now()
+            params, opt, m = bundle.step(params, opt, batch)
+            loss = m["loss"].item()
+            t1 = time.perf_counter()
+            after = _flash_now()
+            rt_train.report({
+                "step": step, "loss": loss, "step_ms": (t1 - t0) * 1e3,
+                "t_end": t1, "wait_ms": wait * 1e3, "batch": placed,
+                "n_layers": cfg.n_layers,
+                "launches": {k: after[k] - before[k] for k in after}})
+    finally:
+        split.finish()
+
+
+def _ppo_batch(np, spec, n, seed):
+    """A PPO minibatch of ``n`` rows from a seed: uint8 pixels, actions,
+    their logp, advantages and value targets."""
+    rng = np.random.default_rng(seed)
+    return {"obs": rng.integers(0, 256, (n, spec.observation_dim)
+                                ).astype(np.uint8),
+            "actions": rng.integers(0, spec.action_dim, n).astype(np.float32),
+            "logp": np.full(n, -np.log(spec.action_dim), np.float32),
+            "advantages": rng.standard_normal(n).astype(np.float32),
+            "value_targets": rng.standard_normal(n).astype(np.float32)}
+
+
+def _ppo_learner(torch, np, card):
+    """18d's learner leg: the Nature-CNN PPO learner that ``"auto"`` puts
+    on the card, timed over PPO_ITERS iterations' minibatches; then one
+    update on the card from a CPU learner's parameters against the same
+    update on the CPU, TF32 off."""
+    from ray_tpu_torch.rllib import PPOConfig, PPOLearner, RLModuleSpec
+    from ray_tpu_torch.rllib.rl_module import tree_leaves
+
+    spec = RLModuleSpec(observation_dim=84 * 84 * 4, action_dim=6,
+                        discrete=True, conv=True, obs_shape=(84, 84, 4),
+                        hidden=(512,))
+    c = PPOConfig()
+    cfg = {"lr": c.lr, "clip_param": c.clip_param,
+           "vf_clip_param": c.vf_clip_param, "vf_loss_coeff": c.vf_loss_coeff,
+           "entropy_coeff": c.entropy_coeff, "grad_clip": c.grad_clip}
+    learner = PPOLearner(spec, dict(cfg, device="auto"), seed=0)
+    if learner.device.type != torch.device(DEVICE).type:
+        fail(f"ppo: the auto learner of a {spec} module is on "
+             f"{learner.device}")
+    n_params = sum(p.numel() for p in tree_leaves(learner.params))
+    policy_count = (spec.observation_dim * sum(spec.hidden)
+                    + spec.hidden[-1] * spec.action_dim)
+    rows = PPO_RUNNERS * PPO_ENVS * PPO_FRAGMENT
+    ms, losses = [], []
+    for it in range(PPO_ITERS):
+        batch = _ppo_batch(np, spec, rows, it)
+        for lo in range(0, rows, PPO_MINIBATCH):
+            mb = {k: v[lo:lo + PPO_MINIBATCH] for k, v in batch.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(learner.update(mb)["loss"])
+            ms.append((time.perf_counter() - t0) * 1e3)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"ppo: learner losses {losses}")
+    # One update on the card against the CPU's, from the same parameters.
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        host = PPOLearner(spec, dict(cfg, device="cpu"), seed=1)
+        card_l = PPOLearner(spec, dict(cfg, device="auto"), seed=2)
+        card_l.set_weights(host.get_weights())
+        batch = _ppo_batch(np, spec, PPO_MINIBATCH, 100)
+        m_host, m_card = host.update(batch), card_l.update(batch)
+        worst = 0.0
+        for a, b in zip(tree_leaves(card_l.get_weights()),
+                        tree_leaves(host.get_weights())):
+            worst = max(worst, float(np.abs(a - b).max()
+                                     / max(np.abs(b).max(), 1e-30)))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    loss_rel = abs(m_card["loss"] - m_host["loss"]) / abs(m_host["loss"])
+    if worst > LEARNER_CARD_TOL or loss_rel > LEARNER_CARD_TOL:
+        fail(f"ppo: the card's update against the CPU's: worst leaf "
+             f"{worst:.3g} relative, loss {m_card['loss']} vs "
+             f"{m_host['loss']} (tolerance {LEARNER_CARD_TOL})")
+    out = {"device": str(learner.device), "params": n_params,
+           "policy_count": policy_count, "updates": len(ms), "minibatch": PPO_MINIBATCH,
+           "update_ms_median": _median(ms), "update_ms_first": ms[0],
+           "update_ms_max": max(ms), "losses": losses,
+           "card_vs_cpu_worst_leaf_rel": worst,
+           "card_vs_cpu_loss_rel": loss_rel,
+           "grad_norm_card": m_card["grad_norm"],
+           "grad_norm_cpu": m_host["grad_norm"]}
+    log(f"[ppo] 18d the Nature-CNN PPO learner ({n_params} parameters; "
+        f"{policy_count} by the device policy's count) on "
+        f"{learner.device} by the auto policy: {len(ms)} updates of "
+        f"{PPO_MINIBATCH} rows, {out['update_ms_median']:.2f} ms an update "
+        f"(median; the first {ms[0]:.1f} ms); losses finite. One update on "
+        f"the card from a CPU learner's parameters against the CPU's, TF32 "
+        f"off: worst leaf {worst:.3g} relative, loss {loss_rel:.3g} relative "
+        f"(tolerance {LEARNER_CARD_TOL})  [{card}]")
+    return out
+
+
+def _ppo_run(torch, np, card):
+    """18d's PPO run: SyntheticAtariEnv with the Nature-CNN module, env
+    runners on the host CPU, the learner on the card by "auto"."""
+    from ray_tpu_torch.rllib import PPOConfig, SyntheticAtariEnv
+
+    algo = (PPOConfig().environment(SyntheticAtariEnv)
+            .env_runners(num_env_runners=PPO_RUNNERS,
+                         num_envs_per_env_runner=PPO_ENVS)
+            .training(rollout_fragment_length=PPO_FRAGMENT, num_epochs=1,
+                      minibatch_size=PPO_MINIBATCH, seed=0)
+            .build())
+    try:
+        learner = algo.learner_group._local
+        if learner.device.type != torch.device(DEVICE).type:
+            fail(f"ppo: the PPO learner is on {learner.device}")
+        upd, inner = [], algo.learner_group.update
+
+        def timed(mb):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = inner(mb)
+            upd.append((time.perf_counter() - t0) * 1e3)
+            return m
+
+        algo.learner_group.update = timed
+        results = [algo.train() for _ in range(PPO_ITERS)]
+    finally:
+        algo.stop()
+    if not all(math.isfinite(r["loss"]) for r in results):
+        fail(f"ppo: losses {[r['loss'] for r in results]}")
+    out = {"device": str(learner.device),
+           "env_steps_per_s": [r["env_steps_per_sec"] for r in results],
+           "timesteps_total": results[-1]["timesteps_total"],
+           "losses": [r["loss"] for r in results],
+           "update_ms_median": _median(upd), "updates": len(upd),
+           "sample_s": [r["time_sample_s"] for r in results]}
+    log(f"[ppo] 18d PPO on SyntheticAtariEnv: {PPO_RUNNERS} env runners x "
+        f"{PPO_ENVS} envs x {PPO_FRAGMENT} steps, {PPO_ITERS} iterations, "
+        f"{out['timesteps_total']} env steps, env steps/s "
+        f"{[round(x, 1) for x in out['env_steps_per_s']]}; the learner on "
+        f"{learner.device}: {len(upd)} updates of {PPO_MINIBATCH} rows, "
+        f"{out['update_ms_median']:.2f} ms an update (median); losses "
+        f"finite  [{card}]")
+    return out
+
+
+def phase_data(torch, np, card, counts, train, trainer, cluster_data):
+    """18a, 18b and 18d on the in-process runtime (after phase 17), with
+    18c's numbers (from phase 13's cluster) beside 18a's."""
+    import importlib.util
+    import shutil
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rt_data
+    from ray_tpu_torch import train as rt_train
+    from ray_tpu_torch.models import transformer
+
+    t_phase = time.perf_counter()
+    have = {p: importlib.util.find_spec(p) is not None
+            for p in ("pyarrow", "gymnasium", "pandas")}
+    log(f"[data] packages: " + ", ".join(
+        f"{p} {'imports' if ok else 'is absent'}" for p, ok in have.items()))
+    vocab = transformer.gpt2_small().vocab_size
+    summary = {"packages": have, "c": cluster_data}
+    rt.init()
+    try:
+        # 18a: the pipeline alone, in this process's runtime.
+        files, tokens = _data_corpus(np, vocab)
+        summary["a"] = _ingest(torch, np, rt_data, files, tokens, None, "18a")
+        _data_line("18a read, map and shuffle tasks in this process's "
+                   "runtime, the split onto the card", summary["a"], card)
+        c = cluster_data
+        log(f"[data] 18c beside 18a: {c['rows_per_s']:.0f} vs "
+            f"{summary['a']['rows_per_s']:.0f} rows/s, next() median "
+            f"{c['wait_ms_median']:.2f} vs {summary['a']['wait_ms_median']:.2f}"
+            f" ms, pin + copy {c['pin_copy_ms_median']:.2f} vs "
+            f"{summary['a']['pin_copy_ms_median']:.2f} ms a batch")
+        summary["b"] = _data_trainer(torch, np, rt_data, rt_train, card,
+                                     counts, train, trainer)
+        summary["d"] = {"learner": _ppo_learner(torch, np, card)}
+        if have["gymnasium"]:
+            summary["d"]["run"] = _ppo_run(torch, np, card)
+        else:
+            log("[ppo] gymnasium is absent here: 18d's PPO run (env runners "
+                "on SyntheticAtariEnv) waits for it; the learner leg ran")
+    finally:
+        rt.shutdown()
+    shutil.rmtree(_phase_dir("phase18"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["launches"] = summary["b"]["launches"]
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"[data] phase 18 (18a, 18b, 18d) took {summary['phase_s']:.1f} s")
+    return summary
+
+
+def _data_trainer(torch, np, rt_data, rt_train, card, counts, train, trainer):
+    """18b: Data → ``TorchTrainer`` → GPT-2 124M: 17a's in-process trainer
+    on phase 6's configuration, each step's batch from a
+    ``StreamSplitDataIterator`` in ``train_loop_config``; the corpus is
+    phase 6's batch 13 times, 16 rows a parquet file."""
+    from ray_tpu_torch.models import transformer
+
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    cfg = transformer.gpt2_small(max_seq_len=TRAIN_L)
+    batch = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_B, TRAIN_L)).astype(np.int32)
+    files = _phase_dir("phase18") / "trainer"
+    _write_token_files(np, files, np.concatenate([batch] * steps), TRAIN_B)
+    ds = rt_data.read_parquet(str(files)).map_batches(
+        _tokens_from_ids, batch_format="pyarrow")
+    (split,) = ds.streaming_split(1, equal=True)
+    config = {"device": DEVICE, "L": TRAIN_L, "B": TRAIN_B, "steps": steps,
+              "it": split, "device_kw": _device_kw()}
+    counts.reset()                   # this path's counts: 0 just before
+    t0 = time.perf_counter()
+    result = rt_train.TorchTrainer(
+        _data_trainer_loop, train_loop_config=config,
+        scaling_config=rt_train.ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=rt_train.RunConfig(
+            name="data-trainer", storage_path=str(_phase_dir("phase18") / "storage")),
+    ).fit()
+    fit_s = time.perf_counter() - t0
+    launches = counts.read()          # ... and read just after
+    if result.error is not None:
+        fail(f"data 18b: fit() failed: {result.error}")
+    hist = result.metrics_history
+    if len(hist) != steps:
+        fail(f"data 18b: {len(hist)} reports for {steps} steps")
+    dev_type = torch.device(DEVICE).type
+    for h in hist:
+        b = h["batch"]
+        if (not b["device"].startswith(dev_type) or b["dtype"] != "torch.int64"
+                or not b["equal"]):
+            fail(f"data 18b step {h['step']}: the batch {b} (wanted phase "
+                 f"6's, int64, on the card)")
+    n = hist[0]["n_layers"]
+    want = {"flash_forward": 2 * n, "flash_dq": n, "flash_dkv": n}
+    for h in hist:
+        if h["launches"] != want:
+            fail(f"data 18b step {h['step']}: launches {h['launches']}, "
+                 f"wanted {want}")
+    total = {k: want[k] * steps for k in want}
+    if {k: launches[k] for k in want} != total or any(
+            launches[k] for k in launches if k not in want):
+        fail(f"data 18b: launches {launches} in the run, wanted {total}")
+    losses = [h["loss"] for h in hist]
+    if losses != train["losses"]:
+        fail(f"data 18b: losses {losses} are not phase 6's "
+             f"{train['losses']} bit for bit")
+    wall = hist[-1]["t_end"] - hist[TRAIN_WARMUP - 1]["t_end"]
+    a = trainer["a"]
+    out = {"fit_s": fit_s, "losses": losses,
+           "step_ms": [h["step_ms"] for h in hist],
+           "wait_ms": [h["wait_ms"] for h in hist],
+           "wait_ms_median_timed": _median(
+               [h["wait_ms"] for h in hist[TRAIN_WARMUP:]]),
+           "timed_wall_s": wall,
+           "step_ms_timed_mean": wall / TRAIN_STEPS * 1e3,
+           "tokens_per_s": TRAIN_B * TRAIN_L * TRAIN_STEPS / wall,
+           "trainer_17a_step_ms": a["step_ms_timed_mean"],
+           "trainer_17a_tokens_per_s": a["tokens_per_s"],
+           "phase6_step_ms": train["step_ms"],
+           "phase6_tokens_per_s": train["tokens_per_s"],
+           "launches": {k: launches[k] for k in want}}
+    log(f"[data] 18b Data -> TorchTrainer -> gpt2_small: {TRAIN_STEPS} timed "
+        f"steps at {out['step_ms_timed_mean']:.1f} ms a step (the iterator's "
+        f"wait included), {out['tokens_per_s']:.0f} tokens/s (17a "
+        f"{a['step_ms_timed_mean']:.1f} ms, {a['tokens_per_s']:.0f} "
+        f"tokens/s; phase 6 {train['step_ms']:.1f} ms, "
+        f"{train['tokens_per_s']:.0f} tokens/s); the loop's wait on the "
+        f"iterator {out['wait_ms_median_timed']:.2f} ms a step (median); "
+        f"every batch phase 6's, int64 on the card before its step; losses "
+        f"= phase 6's bit for bit; flash {want} a step  [{card}]")
+    return out
 
 
 def _leaf_names(tree, prefix=""):
@@ -5426,6 +5923,9 @@ def main() -> None:
     trainer = phase_trainer(torch, np, card, counts, train,
                             cluster.pop("trainer"))
     done(17)
+    data = phase_data(torch, np, card, counts, train, trainer,
+                      cluster.pop("data"))
+    done(18)
 
     def bf16_case(label):
         return next(c for c in cases
@@ -5478,6 +5978,7 @@ def main() -> None:
             "replaces": replaces, "launches": train["launches"][name],
             "mesh_launches": mesh["launches"][name],
             "trainer_launches": trainer["launches"][name],
+            "data_trainer_launches": data["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
@@ -5494,7 +5995,8 @@ def main() -> None:
          "train_end_to_end": train_e2e, "mesh": mesh, "slotted": slotted,
          "spec": spec,
          "disagg": disagg, "runtime": runtime, "serve": serving,
-         "cluster": cluster, "tier": tier, "dag": dag, "trainer": trainer},
+         "cluster": cluster, "tier": tier, "dag": dag, "trainer": trainer,
+         "data": data},
         indent=1))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -2368,10 +2368,6 @@ class CoreWorker:
                     grants = self._daemons.get(node_addr).call(
                         "lease_worker_block_n", block_id, dict(resources),
                         granted, len(take), timeout=None)
-                    if not grants:
-                        raise WorkerDiedError(
-                            f"capacity block {block_id} revoked or "
-                            f"exhausted at {node_addr}")
                 except Exception as e:  # noqa: BLE001 — node death
                     # post-grant, pool exhaustion, or a revoked block. The
                     # tasks go back to the queue head; un-carved capacity
@@ -2387,6 +2383,16 @@ class CoreWorker:
                         return
                     time.sleep(0.1)
                     break  # re-request from the GCS (block may be dead)
+                if not grants:
+                    # The block is spent, not the node: its free units went
+                    # back to the GCS (the daemon's idle sweep ran before
+                    # this carve landed, as under a loaded host) or it was
+                    # revoked. No worker failed, so this does not count
+                    # toward the abort: requeue and ask the GCS again.
+                    with self._key_lock:
+                        state.queue.extendleft(reversed(take))
+                    time.sleep(0.05)
+                    break
                 if len(grants) < len(take):
                     # Short batch (slow spawn at the daemon): requeue the
                     # uncovered tail; the next loop pass retries it.

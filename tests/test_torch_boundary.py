@@ -32,6 +32,8 @@ import numpy as np  # noqa: F401
 import pytest
 import torch  # noqa: F401
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu", "ml_dtypes")
 
@@ -213,6 +215,8 @@ def test_serving_imports_with_jax_blocked():
         "import ray_tpu_torch.ops.moe, ray_tpu_torch.models.mlp\n"
         "import ray_tpu_torch.train, ray_tpu_torch.tune\n"
         "import ray_tpu_torch.tune.experiment_state\n"
+        "import ray_tpu_torch.data, ray_tpu_torch.data.stream_split\n"
+        "import ray_tpu_torch.rllib, ray_tpu_torch.rllib.envs\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'ray_tpu')]\n"
         "assert not bad, bad\n"

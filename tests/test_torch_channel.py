@@ -21,6 +21,8 @@ from ray_tpu_torch.dag.channel import Channel, ChannelClosed, ChannelTimeout
 from ray_tpu_torch.serve.dag_pipeline import KVHandoffLane
 from ray_tpu_torch.util import flightrec
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 
 # -- the ring (tests/test_dag.py::TestChannel) --------------------------------
 def test_write_read_roundtrip():

@@ -28,6 +28,9 @@ from ray_tpu_torch.core.lease_table import (LocalLeaseTable, block_of,
                                       is_block_lease)
 from ray_tpu_torch.core.rpc import RpcClient, RpcServer
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+from torch_time_limit import time_limit  # noqa: E402
+
 
 @contextlib.contextmanager
 def _cfg(**flags):
@@ -438,7 +441,8 @@ def test_ingest_read_your_writes_and_inline_fallback():
 def block_cluster():
     from ray_tpu_torch.core.cluster import Cluster
 
-    cluster = Cluster(num_nodes=2, resources_per_node={"CPU": 2})
+    with time_limit(120, "the module's cluster start"):
+        cluster = Cluster(num_nodes=2, resources_per_node={"CPU": 2})
     yield cluster
     cluster.shutdown()
 

@@ -33,6 +33,8 @@ from ray_tpu_torch.core import ids as tids
 from ray_tpu_torch.core import lease_table as tlease
 from ray_tpu_torch.core import task_spec as tspec
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 # -- gcs_shards -----------------------------------------------------------------
 
 

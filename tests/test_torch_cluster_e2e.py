@@ -34,6 +34,9 @@ from ray_tpu_torch.core.cluster import Cluster
 from ray_tpu_torch.core.cluster import connect
 from ray_tpu_torch.models.convert import params_from_numpy
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+from torch_time_limit import time_limit  # noqa: E402
+
 cloudpickle.register_pickle_by_value(sys.modules[__name__])
 
 GEOM = dict(prompt_buckets=(16, 32), chunk=4, slots=2, block_tokens=8,
@@ -107,8 +110,9 @@ def params():
 
 @pytest.fixture(scope="module")
 def clusters():
-    jc = JaxCluster(num_nodes=2, resources_per_node={"CPU": 2})
-    tc = Cluster(num_nodes=2, resources_per_node={"CPU": 2})
+    with time_limit(180, "the module's two clusters' start"):
+        jc = JaxCluster(num_nodes=2, resources_per_node={"CPU": 2})
+        tc = Cluster(num_nodes=2, resources_per_node={"CPU": 2})
     yield jc, tc
     tc.shutdown()
     jc.shutdown()

@@ -19,6 +19,8 @@ import pytest
 from ray_tpu_torch.core.config import Config, set_config
 from ray_tpu_torch.core.ids import NodeID, PlacementGroupID
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 
 @contextlib.contextmanager
 def _cfg(**flags):

@@ -18,6 +18,8 @@ import pytest
 from ray_tpu_torch.core.cluster import Cluster
 from ray_tpu_torch.core.rpc import RpcClient
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 GCS_POOL = 128          # gcs_server.main's RpcServer(max_workers=128)
 
 

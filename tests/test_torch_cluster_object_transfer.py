@@ -19,6 +19,8 @@ import ray_tpu_torch
 from ray_tpu_torch.core.cluster import Cluster, connect
 from ray_tpu_torch.core import runtime as runtime_mod
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 
 def _wait_for(predicate, timeout=60.0, interval=0.2):
     deadline = time.time() + timeout

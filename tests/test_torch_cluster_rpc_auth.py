@@ -12,6 +12,8 @@ import pytest
 
 from ray_tpu_torch.core.rpc import RpcClient, RpcConnectionError, RpcServer
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 
 class _Handler:
     def ping(self):

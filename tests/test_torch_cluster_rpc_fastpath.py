@@ -32,6 +32,8 @@ from ray_tpu_torch.core.task_spec import (SpecCacheMiss, SpecEncoder,
                                     SpecTemplateStore, TaskArg, TaskOptions,
                                     TaskSpec, TaskType, spec_var_fields)
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 
 # ---------------------------------------------------------------------------
 # (a) coalesced frames decode identically to singletons

@@ -29,6 +29,9 @@ from ray_tpu_torch.core import serialization
 from ray_tpu_torch.core.cluster import Cluster
 from ray_tpu_torch.models import transformer
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+from torch_time_limit import time_limit  # noqa: E402
+
 ROOT = Path(__file__).resolve().parents[1]
 # Workers cannot import this module: its classes travel by value.
 cloudpickle.register_pickle_by_value(sys.modules[__name__])
@@ -119,7 +122,8 @@ def test_deferred_read_is_plain_where_all_is_imported():
 
 @pytest.fixture(scope="module")
 def cluster():
-    c = Cluster(num_nodes=1, resources_per_node={"CPU": 2})
+    with time_limit(120, "the module's cluster start"):
+        c = Cluster(num_nodes=1, resources_per_node={"CPU": 2})
     yield c
     c.shutdown()
 

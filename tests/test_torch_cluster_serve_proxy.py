@@ -19,6 +19,8 @@ from ray_tpu_torch import serve
 from ray_tpu_torch.core.cluster import Cluster, connect
 from ray_tpu_torch.core import runtime as runtime_mod
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 
 @pytest.fixture()
 def mp_serve():

@@ -15,6 +15,9 @@ import ray_tpu_torch
 from ray_tpu_torch.core.cluster import Cluster, connect
 from ray_tpu_torch.core import runtime as runtime_mod
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+from torch_time_limit import time_limit  # noqa: E402
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread_per_process():
@@ -27,7 +30,8 @@ def _one_torch_thread_per_process():
 
 @pytest.fixture(scope="module")
 def mp_cluster():
-    cluster = Cluster(num_nodes=2, resources_per_node={"CPU": 2})
+    with time_limit(120, "the module's cluster start"):
+        cluster = Cluster(num_nodes=2, resources_per_node={"CPU": 2})
     yield cluster
     cluster.shutdown()
 

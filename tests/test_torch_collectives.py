@@ -22,6 +22,8 @@ import ray_tpu_torch
 from ray_tpu.parallel import collectives as jcol
 from ray_tpu_torch.parallel import collectives as col
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 OPS = ("sum", "prod", "min", "max", "mean")
 
 

@@ -21,6 +21,8 @@ import ray_tpu_torch
 from ray_tpu_torch.core import runtime as runtime_mod
 from ray_tpu_torch.core.cluster import Cluster, connect
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 OPS = ("sum", "prod", "min", "max", "mean")
 
 

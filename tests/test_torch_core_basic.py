@@ -11,6 +11,8 @@ import pytest
 
 import ray_tpu_torch
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 
 @pytest.fixture
 def ray_start_regular():

@@ -36,6 +36,8 @@ from ray_tpu_torch.core import scheduler as tsched
 from ray_tpu_torch.core import serialization as tser
 from ray_tpu_torch.core import task_spec as tspec
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 # -- ids ------------------------------------------------------------------------
 
 

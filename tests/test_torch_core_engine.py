@@ -27,6 +27,8 @@ from ray_tpu_torch.models import transformer as ttf
 from ray_tpu_torch.models.convert import params_from_numpy
 from ray_tpu_torch.serve.llm import PagedLLMEngine
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 GEOM = dict(prompt_buckets=(16, 32), chunk=4, slots=2, block_tokens=8,
             pool_blocks=129)
 PROMPTS = [[7, 3, 11], [2, 4, 6, 8, 10], [1] * 9, [5, 9] * 7,
@@ -64,16 +66,6 @@ class TorchHost:
 
     def active_blocks(self):
         return self.eng.kv.active_blocks()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_intra_op_thread():
-    """One intra-op thread: the tiny model gains nothing from more, and the
-    suite's workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

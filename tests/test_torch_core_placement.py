@@ -20,6 +20,8 @@ from ray_tpu_torch.core.resources import (NodeResources, ResourceSet,
                                     topology_of)
 from ray_tpu_torch.core.scheduler import ClusterResourceScheduler
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 
 @contextlib.contextmanager
 def _cfg(**flags):

@@ -18,6 +18,8 @@ import ray_tpu_torch
 from ray_tpu_torch.core import runtime as runtime_mod
 from ray_tpu_torch.core.config import config
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 
 @pytest.fixture
 def ray_start_regular():

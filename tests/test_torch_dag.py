@@ -23,6 +23,8 @@ import ray_tpu_torch
 from ray_tpu_torch.dag import (Channel, ChannelClosed, ChannelTimeout,
                                InputNode, MultiOutputNode)
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 
 @pytest.fixture
 def ray_start_regular():

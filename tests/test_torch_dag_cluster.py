@@ -20,6 +20,8 @@ from ray_tpu_torch.core import runtime as runtime_mod
 from ray_tpu_torch.core.cluster import Cluster, connect
 from ray_tpu_torch.dag import InputNode
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread_per_process():

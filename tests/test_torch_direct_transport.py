@@ -28,12 +28,16 @@ from ray_tpu_torch.core.cluster import Cluster, connect
 from ray_tpu_torch.core import runtime as runtime_mod
 from ray_tpu_torch.core.rpc import RpcClient
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+from torch_time_limit import time_limit  # noqa: E402
+
 cloudpickle.register_pickle_by_value(sys.modules[__name__])
 
 
 @pytest.fixture(scope="module")
 def mp_cluster():
-    cluster = Cluster(num_nodes=2, resources_per_node={"CPU": 2})
+    with time_limit(120, "the module's cluster start"):
+        cluster = Cluster(num_nodes=2, resources_per_node={"CPU": 2})
     yield cluster
     cluster.shutdown()
 

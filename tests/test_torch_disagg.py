@@ -32,22 +32,14 @@ from ray_tpu_torch.models import transformer as ttf
 from ray_tpu_torch.models.convert import params_from_numpy
 from ray_tpu_torch.serve.llm import DisaggregatedLLMEngine, PagedLLMEngine
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 BT = 8
 GEOM = dict(prompt_buckets=(16, 32), chunk=4, slots=2, max_queue=0,
             block_tokens=BT, pool_blocks=65)
 PROMPTS = [[7, 3, 11], [2, 4, 6, 8, 10], [1] * 9, [5, 9] * 7,
            list(range(100, 125))]  # last spans the 32 bucket
 TOL = 1e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_intra_op_thread():
-    """One intra-op thread: the tiny model's ops gain nothing from more, and
-    the suite's workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", params=["learned", "rope"])

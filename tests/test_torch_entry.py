@@ -17,6 +17,8 @@ import torch_mesh_cases
 
 from ray_tpu_torch import entry
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 ROOT = str(Path(__file__).resolve().parents[1])
 
 

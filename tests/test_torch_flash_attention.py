@@ -21,6 +21,8 @@ import torch
 from ray_tpu.ops import flash_attention as jfa
 from ray_tpu_torch.ops import flash_attention as tfa
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 
 

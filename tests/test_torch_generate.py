@@ -23,23 +23,14 @@ from ray_tpu_torch.models import transformer as ttf
 from ray_tpu_torch.models.convert import params_from_numpy
 from ray_tpu_torch.util import blockhash as thash
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 
 BT = 8
 NUM_BLOCKS = 20
 LOGIT_TOL = 1e-4
 POOL_TOL = 1e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_intra_op_thread():
-    """One intra-op thread for this module: its tiny-model ops gain nothing
-    from more, and the suite's workers share the cores, where extra threads
-    only contend (several times slower under a full test run)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", params=["learned", "rope"])

@@ -40,6 +40,11 @@ from one worker process to another, each landing on the reader's card bit
 for bit (a burst through 2 slots, checked by sha256), and a
 ``backend="device"`` allreduce of CUDA tensors leaves every rank's result
 on the card, equal to the torch sum.
+
+Data and RLlib on the card: ``iter_torch_batches`` lands batches on the
+card by default (dtype, device, values; through a streaming split too), and
+one update of the conv PPO learner on the card equals the CPU's within 1e-4
+of each leaf's scale, TF32 off.
 """
 
 import time
@@ -1180,3 +1185,66 @@ def test_restored_adamw_resumes_on_the_fused_route(cuda, tmp_path):
     np.testing.assert_allclose(m2["loss"].item(), m["loss"].item(), rtol=1e-6)
     for a, c in zip(training._leaves(params), training._leaves(p2)):
         torch.testing.assert_close(c, a, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.gpu
+def test_iter_torch_batches_lands_on_the_card(runtime):
+    """``iter_torch_batches`` with its default device: every column on the
+    card, int32 tokens cast to int64 through ``dtypes``, values equal to
+    the dataset's; a read-only arrow column is copied (no warning)."""
+    import warnings
+
+    from ray_tpu_torch import data as rt_data
+
+    rows = np.random.default_rng(0).integers(0, 50257, (40, 64)).astype(np.int32)
+    ds = rt_data.from_numpy({"tokens": rows, "w": np.arange(40, dtype=np.float32)})
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        batches = list(ds.iterator().iter_torch_batches(
+            batch_size=8, dtypes={"tokens": torch.int64}))
+    assert len(batches) == 5
+    for i, b in enumerate(batches):
+        assert b["tokens"].is_cuda and b["tokens"].dtype == torch.int64
+        assert b["w"].is_cuda and b["w"].dtype == torch.float32
+        np.testing.assert_array_equal(b["tokens"].cpu().numpy(),
+                                      rows[8 * i:8 * (i + 1)])
+    (split,) = ds.streaming_split(1, equal=True)
+    got = [b["tokens"] for b in split.iter_torch_batches(batch_size=8)]
+    split.finish()
+    assert all(t.is_cuda for t in got)
+    assert sorted(map(tuple, torch.cat(got).cpu().numpy())) == sorted(
+        map(tuple, rows))
+    with pytest.raises(ValueError, match="pin_memory"):
+        next(ds.iterator().iter_torch_batches(batch_size=8, device="cpu",
+                                              pin_memory=True))
+
+
+@pytest.mark.gpu
+def test_learner_update_on_the_card_equals_the_cpu(cuda):
+    """The conv PPO learner that "auto" puts on the card: one update from
+    a CPU learner's parameters equals the same update on the CPU, within
+    1e-4 of each leaf's scale, TF32 off."""
+    from ray_tpu_torch.rllib import PPOLearner, RLModuleSpec
+    from ray_tpu_torch.rllib.rl_module import tree_leaves
+
+    spec = RLModuleSpec(observation_dim=84 * 84 * 4, action_dim=6,
+                        conv=True, obs_shape=(84, 84, 4), hidden=(512,))
+    cfg = {"lr": 3e-4, "clip_param": 0.2, "vf_clip_param": 10.0,
+           "vf_loss_coeff": 0.5, "entropy_coeff": 0.01, "grad_clip": 0.5}
+    host = PPOLearner(spec, dict(cfg, device="cpu"), seed=0)
+    card = PPOLearner(spec, cfg, seed=1)
+    assert card.device.type == "cuda"
+    card.set_weights(host.get_weights())
+    rng = np.random.default_rng(0)
+    n = 64
+    batch = {"obs": rng.integers(0, 256, (n, spec.observation_dim)).astype(np.uint8),
+             "actions": rng.integers(0, 6, n).astype(np.float32),
+             "logp": np.full(n, -np.log(6.0), np.float32),
+             "advantages": rng.standard_normal(n).astype(np.float32),
+             "value_targets": rng.standard_normal(n).astype(np.float32)}
+    mh, mc = host.update(batch), card.update(batch)
+    assert abs(mc["loss"] - mh["loss"]) <= 1e-4 * abs(mh["loss"])
+    assert abs(mc["grad_norm"] - mh["grad_norm"]) <= 1e-4 * mh["grad_norm"]
+    for a, b in zip(tree_leaves(card.get_weights()),
+                    tree_leaves(host.get_weights())):
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max()

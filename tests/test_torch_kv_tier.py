@@ -56,6 +56,8 @@ from ray_tpu_torch.serve.handle import Router
 from ray_tpu_torch.serve.llm import PagedLLMEngine
 from ray_tpu_torch.util import blockhash
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 cloudpickle.register_pickle_by_value(sys.modules[__name__])
 torch.backends.cuda.matmul.allow_tf32 = False
 

@@ -16,6 +16,8 @@ import torch
 from ray_tpu.ops import layers as jl
 from ray_tpu_torch.ops import layers as tl
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 
 

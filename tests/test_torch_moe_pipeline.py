@@ -34,6 +34,8 @@ from ray_tpu_torch.models import training as ttraining
 from ray_tpu_torch.models.convert import params_from_numpy
 from ray_tpu_torch.ops import moe as tmoe
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 
 WORLD = 8

@@ -29,6 +29,8 @@ import ray_tpu_torch
 from ray_tpu_torch.core import runtime as runtime_mod
 from ray_tpu_torch.core.cluster import Cluster, connect
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 # Worker processes cannot import the tests package — ship this module's
 # classes by value (what cloudpickle does automatically for __main__).
 cloudpickle.register_pickle_by_value(sys.modules[__name__])

@@ -19,6 +19,8 @@ import pytest
 from ray_tpu_torch.core import native_store
 from ray_tpu_torch.core.native_store import NativeObjectStore, NativeStoreUnavailable
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 NATIVE_DIR = native_store.SOURCE.parent
 
 

@@ -28,6 +28,8 @@ from ray_tpu_torch.core.object_ref import ObjectRef
 from ray_tpu_torch.core.object_store import MemoryStore
 from ray_tpu_torch.core.serialization import serialize
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 cloudpickle.register_pickle_by_value(sys.modules[__name__])
 
 

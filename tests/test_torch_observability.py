@@ -31,6 +31,8 @@ from ray_tpu_torch.serve import llm as tllm
 from ray_tpu_torch.serve.errors import Saturated
 from ray_tpu_torch.util import tracing as ttr
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 GEOM = dict(prompt_buckets=(16, 32), chunk=4, slots=2, max_queue=0)
 PAGED = dict(GEOM, block_tokens=8, pool_blocks=65)
 PROMPT = [5, 9, 3, 77, 21, 8, 8, 1, 40, 2, 6]   # 11 tokens: 1 full block

@@ -24,6 +24,8 @@ from ray_tpu.ops.paged_attention import \
     paged_attention_reference as jax_reference
 from ray_tpu_torch.ops import paged_attention as pa
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 
 BT = 8   # block_tokens

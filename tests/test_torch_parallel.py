@@ -40,6 +40,8 @@ from ray_tpu.parallel.sharding import logical_sharding as jlogical_sharding
 from ray_tpu_torch.parallel.launch import WorldError, run_world
 from ray_tpu_torch.parallel.mesh import MeshSpec, mesh_shape
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 WORLD = 8
 
 
@@ -268,8 +270,8 @@ def test_launcher_kills_a_hung_world_within_its_deadline():
     with tempfile.TemporaryDirectory() as pid_dir:
         t0 = time.monotonic()
         with pytest.raises(WorldError, match="not done within"):
-            run_world(_hang_rank, 2, pid_dir, timeout_s=45)
-        assert time.monotonic() - t0 < 60
+            run_world(_hang_rank, 2, pid_dir, timeout_s=15)
+        assert time.monotonic() - t0 < 30
         pids = [int(open(os.path.join(pid_dir, f)).read())
                 for f in sorted(os.listdir(pid_dir))]
         assert len(pids) == 2

@@ -24,6 +24,8 @@ import pytest
 import ray_tpu_torch
 from ray_tpu_torch import serve
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 
 @pytest.fixture
 def serve_instance():

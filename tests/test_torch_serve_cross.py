@@ -32,6 +32,8 @@ from ray_tpu_torch.serve import errors as terr
 from ray_tpu_torch.serve import handle as thandle
 from ray_tpu_torch.util import blockhash as tbh
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 
 # -- prefix_head_hash ---------------------------------------------------------
 

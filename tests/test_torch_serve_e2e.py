@@ -51,6 +51,8 @@ from ray_tpu_torch.models.convert import params_from_numpy
 from ray_tpu_torch.serve import llm as tllm
 from ray_tpu_torch.util import tracing as ttr
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 PROMPTS = [[7, 3, 11], [2, 4, 6, 8, 10], [1] * 9, [5, 9] * 7,
            list(range(100, 125))]
 N_NEW = 10

@@ -30,6 +30,8 @@ from ray_tpu_torch.models.generate import Generator
 from ray_tpu_torch.serve.errors import Saturated
 from ray_tpu_torch.serve.llm import LLMEngine, PagedLLMEngine
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 
 BT = 8

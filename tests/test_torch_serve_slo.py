@@ -32,6 +32,8 @@ from ray_tpu_torch.serve.handle import DeploymentHandle, Router
 from ray_tpu_torch.serve.llm import llm_deployment
 from ray_tpu_torch.util.blockhash import prefix_head_hash
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 PROMPTS = [[7, 3, 11], [2, 4, 6, 8, 10], [1] * 9, [5, 9] * 7]
 
 

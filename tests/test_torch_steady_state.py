@@ -22,6 +22,8 @@ from ray_tpu_torch.models import transformer as ttf
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.serve.llm import LLMEngine, PagedLLMEngine
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 
 @pytest.fixture
 def guard():

@@ -29,6 +29,8 @@ from ray_tpu_torch.train import (
     TorchTrainer,
 )
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 
 @pytest.fixture
 def ray_start_regular():
@@ -254,10 +256,8 @@ class TestGpt2Gate:
     def test_gpt2_through_torch_trainer(self, ray_start_regular, storage):
         """SURVEY §7 P4 gate #2 (scaled down): tiny GPT-2, the sharded train
         step on a mesh over the process group ``TorchConfig`` formed (world
-        1, gloo), checkpointed via report. The JAX gate streams its token
-        rows through the Data library; the port's Data library is not
-        ported yet (ROADMAP Queue 1, item 12), so the same rows go in as
-        numpy batches."""
+        1, gloo), Data-library ingest (``from_items`` →
+        ``iter_torch_batches`` on the host), checkpointed via report."""
 
         def loop(config):
             import tempfile as tf
@@ -266,6 +266,7 @@ class TestGpt2Gate:
             import torch
             import torch.distributed as dist
 
+            from ray_tpu_torch import data as rt_data
             from ray_tpu_torch.models import training, transformer
             from ray_tpu_torch.parallel.mesh import MeshSpec, cpu_mesh
             from ray_tpu_torch.parallel.sharding import ShardingRules
@@ -286,15 +287,18 @@ class TestGpt2Gate:
             )
             params, opt = bundle.init(0)
 
+            # token stream through the Data library
             rng = np.random.default_rng(0)
-            docs = [rng.integers(0, cfg.vocab_size, 32).tolist()
+            docs = [{"tokens": rng.integers(0, cfg.vocab_size, 32).tolist()}
                     for _ in range(64)]
+            it = rt_data.from_items(docs).iterator()
 
             losses = []
             for epoch in range(4):
-                for i in range(0, len(docs), 8):
-                    batch = {"tokens": torch.tensor(np.stack(
-                        [np.asarray(t, np.int64) for t in docs[i:i + 8]]))}
+                for batch in it.iter_torch_batches(
+                        batch_size=8, device="cpu", drop_last=True,
+                        dtypes={"tokens": torch.int64}):
+                    assert batch["tokens"].shape == (8, 32)
                     params, opt, metrics = bundle.step(params, opt, batch)
                     losses.append(metrics["loss"].item())
                 d = tf.mkdtemp()

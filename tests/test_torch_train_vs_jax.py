@@ -47,6 +47,8 @@ from ray_tpu_torch.tune import experiment as texp
 from ray_tpu_torch.tune import schedulers as tsched
 from ray_tpu_torch.tune import search as tsearch
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 
 

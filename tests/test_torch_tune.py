@@ -19,6 +19,8 @@ from ray_tpu_torch.tune import (
     TrialStatus,
 )
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 
 @pytest.fixture
 def ray_start_regular():

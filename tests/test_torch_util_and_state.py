@@ -25,6 +25,8 @@ from ray_tpu_torch.util import flightrec
 from ray_tpu_torch.util.actor_pool import ActorPool
 from ray_tpu_torch.util.queue import Empty, Full, Queue
 
+import torch_threads  # noqa: F401,E402  (one torch thread a test process)
+
 
 @pytest.fixture
 def ray_start_regular():
