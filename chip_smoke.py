@@ -294,6 +294,35 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    runners of 2 envs, fragments of 64, one epoch, minibatches of 64, 3
    iterations: env steps/s, the learner's update time, its device, finite
    losses.
+19. RL — on the in-process runtime after phase 18. 19a: ``LLMRL`` (the
+   RLAX-style post-training loop) at GPT-2 124M widths through ``tiny(**kw)``
+   (d_model 768, 12 layers, 12 heads, d_ff 3072, vocab 50304 so it pads to
+   itself, max_seq_len 1024, bf16 compute, f32 parameters, random weights
+   from a seed): 2 generation actors sharing the card, each a
+   ``PagedLLMEngine`` (K4), the learner on the card (its forward over
+   [8, 1024] sequences takes flash: K1 forward, K2/K3 backward), prompts of
+   32-128 tokens from a seeded rng, 32 new tokens, 3 iterations of 8
+   rollouts and 2 updates at lr 1e-5, the reward the share of completion
+   tokens in the vocab's lower half. Counts set to 0 just before the 3
+   iterations and read just after: K4 by route = n_layers x (prefills,
+   decode steps) of both engines; K1 = n_layers x (behavior forwards +
+   updates), K2 = K3 = n_layers x updates. Gates: a greedy rollout batch
+   through the kernel equals the plain path's (a departure only at a near
+   tie within the bf16 tolerance); behavior log-probs through flash and
+   one learner update through flash (loss, grad norm) within twice dense
+   bf16's error against f32 dense plus one bf16 step (phase 7's rule);
+   after a weight sync the generators' pools are drained and a greedy
+   rollout equals a fresh actor's on the learner's weights; rewards and
+   losses finite. Rollout tokens/s, an iteration's wall, the behavior
+   forward, the update, the weight sync (learner -> 2 generators, reset
+   included) and the reward an iteration. 19b: one ``ImpalaLearner`` and one
+   ``APPOLearner`` update on the card from a CPU learner's parameters on a
+   synthetic [T=50, N=8] CartPole-shaped batch with autoreset steps,
+   against the CPU's, TF32 off, within 1e-4 a leaf. 19c: an
+   ``InferencePool`` serving 4 runners' steps on the host CPU:
+   actions, log-probs and values bit for bit those of each runner sampling
+   locally with its own generator. The env loops of IMPALA, APPO, DQN,
+   SAC, CQL and the multi-agent PPO wait for gymnasium where it is absent.
 
 In phases 5 and 8-14 a greedy stream that departs from its reference must
 do so at a near tie: the plain path's top-2 logit gap there under 1e-3.
@@ -956,8 +985,8 @@ def _prefill_bf16(torch, np):
     return out
 
 
-def _top2_gap(torch, params, cfg, tokens):
-    """Top-2 logit gap of the plain (gather) path at the next position."""
+def _top2(torch, params, cfg, tokens):
+    """Top-2 logits of the plain (gather) path at the next position."""
     from ray_tpu_torch.models import generate
 
     P = 1024
@@ -968,14 +997,16 @@ def _top2_gap(torch, params, cfg, tokens):
     logits, _, _ = generate._forward_prefill_paged(
         params, padded, kp, vp, table, 0, len(tokens), cfg, 16,
         kernel="gather")
-    top = logits[0, len(tokens) - 1, :cfg.vocab_size].topk(2).values
-    return (top[0] - top[1]).item()
+    top = logits[0, len(tokens) - 1, :cfg.vocab_size].float().topk(2).values
+    return top[0].item(), top[1].item()
 
 
-def _same_greedy(torch, params, cfg, prompt, want, got, tag):
+def _same_greedy(torch, params, cfg, prompt, want, got, tag, bf16=False):
     """Each greedy stream of ``got`` (name -> tokens) equals ``want``, or
     first diverges at a near tie: the plain path's top-2 gap there below
-    ``TOP2_TIE``. Returns the ties."""
+    ``TOP2_TIE`` — in bf16 compute, below the bf16 tolerance of the top
+    logit plus one bf16 step (``TOL["bfloat16"] * |top| +
+    BF16_E2E_FLOOR``). Returns the ties."""
     ties = []
     for name, toks in got.items():
         if toks == want:
@@ -984,16 +1015,19 @@ def _same_greedy(torch, params, cfg, prompt, want, got, tag):
                  min(len(toks), len(want)))
         if i >= min(len(toks), len(want)):
             fail(f"{tag}: {name} gave {len(toks)} tokens, wanted {len(want)}")
-        gap = _top2_gap(torch, params, cfg, prompt + want[:i])
-        if gap >= TOP2_TIE:
+        first, second = _top2(torch, params, cfg, prompt + want[:i])
+        gap = first - second
+        tie = (TOL["bfloat16"] * abs(first) + BF16_E2E_FLOOR if bf16
+               else TOP2_TIE)
+        if gap >= tie:
             fail(f"{tag}: prompt of {len(prompt)} tokens, {name} diverges at "
                  f"token {i} ({toks[i]} vs {want[i]}) with a top-2 gap of "
-                 f"{gap:.2e} >= {TOP2_TIE}")
+                 f"{gap:.2e} >= {tie:.2e}")
         ties.append({"stream": name, "prompt_len": len(prompt),
                      "position": i, "gap": gap})
         log(f"[{tag}] prompt of {len(prompt)} tokens: {name}'s first "
             f"divergence at token {i} is a near tie (plain top-2 gap "
-            f"{gap:.2e} < {TOP2_TIE})")
+            f"{gap:.2e} < {tie:.2e})")
     return ties
 
 
@@ -5864,6 +5898,385 @@ def _data_trainer(torch, np, rt_data, rt_train, card, counts, train, trainer):
     return out
 
 
+# -- phase 19 ----------------------------------------------------------------
+LLM_RL_KW = dict(vocab_size=50304, d_model=768, n_layers=12, n_heads=12,
+                 d_ff=3072, max_seq_len=1024, vocab_multiple=128)
+LLM_RL_ITERS, LLM_RL_ROLLOUTS, LLM_RL_BATCH = 3, 8, 8
+LLM_RL_NEW, LLM_RL_LR = 32, 1e-5
+RL_T, RL_N, RL_RUNNERS, RL_STEPS = 50, 8, 4, 16
+
+
+def _lower_half_reward(prompt, completion):
+    """19a's reward: the share of completion tokens in the vocab's lower
+    half — a signal a random policy varies on, unlike the default reward's
+    single target token at this vocab."""
+    import numpy as np
+
+    if not len(completion):
+        return 0.0
+    return float(np.mean(np.asarray(completion) < LLM_RL_KW["vocab_size"] // 2))
+
+
+def _masked_rel(np, x, ref, mask):
+    sel = mask > 0
+    return float(np.abs(x[sel] - ref[sel]).max() / np.abs(ref[sel]).max())
+
+
+def _llm_rl(torch, np, rt, card, counts):
+    """19a: LLM-RL at GPT-2 124M widths; see the module docstring."""
+    from ray_tpu_torch.rllib.llm_rl import (GenerationActor, LLMRL,
+                                            LLMRLConfig, LLMRLLearner,
+                                            token_logps)
+
+    rng = np.random.default_rng(19)
+    V = LLM_RL_KW["vocab_size"]
+    prompts = [rng.integers(1, V, int(n)).tolist()
+               for n in rng.integers(32, 129, 2 * LLM_RL_ROLLOUTS)]
+    t0 = time.perf_counter()
+    algo = LLMRL(LLMRLConfig(
+        model_kwargs=dict(LLM_RL_KW, dtype=torch.bfloat16), prompts=prompts,
+        reward_fn=_lower_half_reward, num_generators=2,
+        rollouts_per_iter=LLM_RL_ROLLOUTS, max_new_tokens=LLM_RL_NEW,
+        temperature=1.0, train_batch=LLM_RL_BATCH, updates_per_iter=2,
+        lr=LLM_RL_LR, seed=0, learner_device=DEVICE))
+    cfg = algo.model_config
+    n = cfg.n_layers
+    gens = algo.generators
+    setup_s = time.perf_counter() - t0
+    try:
+        if algo.learner.device.type != torch.device(DEVICE).type:
+            fail(f"llm-rl: the learner is on {algo.learner.device}")
+        st0 = rt.get([g.kv_stats.remote() for g in gens])
+        counts.reset()                 # this path's counts: 0 just before
+        t_run = time.perf_counter()
+        results = []
+        for _ in range(LLM_RL_ITERS):
+            t_it = time.perf_counter()
+            r = algo.train()
+            torch.cuda.synchronize()
+            r["wall_s"] = time.perf_counter() - t_it
+            results.append(r)
+        run_s = time.perf_counter() - t_run
+        launches = counts.read()       # ... and read just after
+        st1 = rt.get([g.kv_stats.remote() for g in gens])
+
+        # (v) exact launches
+        d_pref, d_dec, k4 = _k4_by_route(cfg, st0, st1)
+        rollouts = LLM_RL_ITERS * LLM_RL_ROLLOUTS
+        updates = results[-1]["num_updates"]
+        want = {"paged_attention": k4["wgmma"] + k4["split"],
+                "paged_attention/wgmma": k4["wgmma"],
+                "paged_attention/split": k4["split"],
+                "flash_forward": n * (rollouts + updates),
+                "flash_dq": n * updates, "flash_dkv": n * updates}
+        if launches != want or not all(want.values()):
+            fail(f"llm-rl: launches {launches}, wanted {want} (prefills "
+                 f"{d_pref}, decode steps {d_dec}, {rollouts} behavior "
+                 f"forwards, {updates} updates)")
+        # (vi) finite rewards and losses
+        if not all(math.isfinite(r["reward_mean"]) and math.isfinite(r["loss"])
+                   for r in results):
+            fail(f"llm-rl: rewards {[r['reward_mean'] for r in results]}, "
+                 f"losses {[r['loss'] for r in results]}")
+
+        # (iv) the weight sync drains the pools; then a greedy rollout
+        # equals a fresh actor's on the learner's weights
+        before = rt.get([g.kv_stats.remote() for g in gens])
+        sync_s = algo.sync_weights()
+        after = rt.get([g.kv_stats.remote() for g in gens])
+        for b, a in zip(before, after):
+            if (a["kv_blocks_active"] or a["kv_blocks_cached"]
+                    or a["kv_blocks_free"] != a["kv_blocks_total"]):
+                fail(f"llm-rl: a generator's pool after the weight sync: {a}")
+        weights = algo.learner.get_weights()
+        fresh = GenerationActor(cfg, slots=2, params=weights)
+        greedy_p = prompts[:2]
+        seeds = list(range(len(greedy_p)))
+        synced = rt.get(gens[0].rollout.remote(greedy_p, seeds, LLM_RL_NEW,
+                                               0.0))
+        kern = fresh.rollout(greedy_p, seeds, LLM_RL_NEW, 0.0)
+        if not np.array_equal(synced["tokens"], kern["tokens"]):
+            fail("llm-rl: a greedy rollout after set_weights differs from a "
+                 "fresh GenerationActor's on the learner's weights")
+
+        # (i) the kernel's greedy batch against the plain (gather) path's
+        plain = GenerationActor(cfg, slots=2, params=weights,
+                                attention_kernel="gather")
+        ref = plain.rollout(greedy_p, seeds, LLM_RL_NEW, 0.0)
+        ties = []
+        for b, p in enumerate(greedy_p):
+            lo, hi = len(p), len(p) + LLM_RL_NEW
+            ties += _same_greedy(
+                torch, plain._engine.params, cfg, list(p),
+                ref["tokens"][b, lo:hi].tolist(),
+                {"kernel": kern["tokens"][b, lo:hi].tolist()}, "llm-rl",
+                bf16=True)
+        del plain
+
+        # (ii) behavior log-probs: flash and dense bf16 against f32 dense
+        toks = torch.as_tensor(kern["tokens"], device=DEVICE)
+        mask = kern["gen_mask"]
+        with torch.no_grad():
+            lp = {name: token_logps(params, toks, c).cpu().numpy()
+                  for name, params, c in (
+                      ("flash", fresh._engine.params, cfg),
+                      ("dense", fresh._engine.params,
+                       cfg.replace(attn_impl="dense")),
+                      ("f32", algo.learner.params, cfg.replace(
+                          attn_impl="dense", dtype=torch.float32)))}
+        lp_err = {k: _masked_rel(np, lp[k], lp["f32"], mask)
+                  for k in ("flash", "dense")}
+        if lp_err["flash"] > 2 * lp_err["dense"] + BF16_E2E_FLOOR:
+            fail(f"llm-rl: behavior log-probs through flash err "
+                 f"{lp_err['flash']:.2e} against f32 over twice dense bf16's "
+                 f"{lp_err['dense']:.2e} plus {BF16_E2E_FLOOR}")
+        # the behavior forward's time (flash, one padded sequence)
+        one = toks[:1]
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fresh._token_logps(fresh._engine.params, one)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        del fresh
+
+        # (iii) one learner update: flash and dense bf16 against f32 dense
+        batch = algo.buffer.sample(LLM_RL_BATCH)
+        batch = {"tokens": batch["tokens"], "gen_mask": batch["gen_mask"],
+                 "behavior_logp": batch["behavior_logp"],
+                 "advantage": batch["reward"] - float(np.mean(batch["reward"]))}
+        lcfg = {"lr": LLM_RL_LR, "clip_param": 0.3, "grad_clip": 1.0,
+                "device": DEVICE}
+        upd = {}
+        for name, c in (("flash", cfg), ("dense", cfg.replace(attn_impl="dense")),
+                        ("f32", cfg.replace(attn_impl="dense",
+                                            dtype=torch.float32))):
+            learner = LLMRLLearner(c, lcfg, seed=1)
+            upd[name] = learner.update(batch)
+            del learner
+            gc.collect()
+        # The loss is a sum of advantage-signed terms near 0: its error is
+        # taken relative to the advantages' mean size, the terms' scale.
+        ref_m = upd["f32"]
+        scale = {"loss": max(abs(ref_m["loss"]),
+                             float(np.abs(batch["advantage"]).mean())),
+                 "grad_norm": abs(ref_m["grad_norm"])}
+        upd_err = {k: {m: abs(upd[k][m] - ref_m[m]) / max(scale[m], 1e-30)
+                       for m in ("loss", "grad_norm")}
+                   for k in ("flash", "dense")}
+        for m in ("loss", "grad_norm"):
+            if upd_err["flash"][m] > 2 * upd_err["dense"][m] + BF16_E2E_FLOOR:
+                fail(f"llm-rl: one update's {m} through flash err "
+                     f"{upd_err['flash'][m]:.2e} against f32 over twice dense "
+                     f"bf16's {upd_err['dense'][m]:.2e} plus {BF16_E2E_FLOOR}")
+    finally:
+        algo.stop()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    upd_ms = [r["time_update_s"] * 1e3 / max(1, r["num_updates"] - prev)
+              for r, prev in zip(results,
+                                 [0] + [x["num_updates"] for x in results])]
+    out = {"setup_s": setup_s, "run_s": run_s, "launches": launches,
+           "prefills": d_pref, "decode_steps": d_dec, "updates": updates,
+           "rollouts": rollouts,
+           "iterations": [{k: r[k] for k in (
+               "reward_mean", "loss", "rollout_tokens", "time_weight_sync_s",
+               "time_rollout_s", "time_update_s", "wall_s")} for r in results],
+           "rollout_tokens_per_s": [r["rollout_tokens"] / r["time_rollout_s"]
+                                    for r in results],
+           "update_ms": upd_ms,
+           "update_tokens_per_s": [LLM_RL_BATCH * cfg.max_seq_len / (m / 1e3)
+                                   for m in upd_ms],
+           "behavior_forward_ms": ms, "weight_sync_s": sync_s,
+           "greedy_ties": ties, "logp_rel_err": lp_err,
+           "update_rel_err": upd_err, "lr": LLM_RL_LR}
+    log(f"[rl] 19a LLMRL at GPT-2 124M widths (vocab {V}, L "
+        f"{cfg.max_seq_len}, bf16 compute, f32 parameters): 2 generators "
+        f"on the card, the learner on {DEVICE}, lr {LLM_RL_LR}; set-up "
+        f"{setup_s:.1f} s; {LLM_RL_ITERS} iterations in {run_s:.1f} s  [{card}]")
+    for i, (r, tps, um) in enumerate(zip(results, out["rollout_tokens_per_s"],
+                                         upd_ms)):
+        log(f"[rl] 19a iteration {i + 1}: wall {r['wall_s']:.2f} s, rollouts "
+            f"{r['time_rollout_s']:.2f} s ({r['rollout_tokens']} tokens, "
+            f"{tps:.1f} tokens/s), updates {r['time_update_s'] * 1e3:.0f} ms "
+            f"({um:.1f} ms an update, "
+            f"{LLM_RL_BATCH * cfg.max_seq_len / (um / 1e3):.0f} tokens/s), "
+            f"weight sync {r['time_weight_sync_s']:.3f} s, reward "
+            f"{r['reward_mean']:.4f}, loss {r['loss']:.6f}  [{card}]")
+    log(f"[rl] 19a behavior forward (flash, [1, {cfg.max_seq_len}]) "
+        f"{_median(ms):.2f} ms median; weight sync learner -> 2 generators "
+        f"(reset included) {sync_s:.3f} s; pools drained by it  [{card}]")
+    log(f"[rl] 19a launches {launches} = K4 n_layers x (prefills {d_pref} "
+        f"wgmma, decode steps {d_dec} split), K1 n_layers x ({rollouts} "
+        f"behavior forwards + {updates} updates), K2 = K3 n_layers x "
+        f"{updates}")
+    log(f"[rl] 19a gates: greedy kernel == plain"
+        + (f" up to {len(ties)} near tie(s)" if ties else "")
+        + f"; after set_weights == a fresh actor; behavior logp err vs f32 "
+        f"flash {lp_err['flash']:.2e} dense {lp_err['dense']:.2e}; update "
+        f"loss/grad-norm err vs f32 flash {upd_err['flash']['loss']:.2e}/"
+        f"{upd_err['flash']['grad_norm']:.2e} dense "
+        f"{upd_err['dense']['loss']:.2e}/{upd_err['dense']['grad_norm']:.2e}")
+    return out
+
+
+def _impala_batch(np, T, N, seed):
+    """A synthetic [T, N] IMPALA batch, CartPole-shaped, with autoreset
+    steps (valids 0) after terminations."""
+    rng = np.random.default_rng(seed)
+    term = (rng.random((T, N)) < 0.05).astype(np.float32)
+    valids = np.ones((T, N), np.float32)
+    valids[1:][term[:-1] > 0] = 0.0
+    return {"obs": rng.standard_normal((T, N, 4)).astype(np.float32),
+            "actions": rng.integers(0, 2, (T, N)).astype(np.float32),
+            "logp": np.log(rng.uniform(0.2, 0.8, (T, N))).astype(np.float32),
+            "rewards": np.ones((T, N), np.float32),
+            "terminateds": term, "valids": valids,
+            "bootstrap_obs": rng.standard_normal((N, 4)).astype(np.float32)}
+
+
+def _impala_learners(torch, np, card):
+    """19b: IMPALA's and APPO's learner update, card against CPU."""
+    from ray_tpu_torch.rllib import (APPOLearner, ImpalaLearner,
+                                     RLModuleSpec)
+    from ray_tpu_torch.rllib.rl_module import tree_leaves
+
+    spec = RLModuleSpec(observation_dim=4, action_dim=2, hidden=(64, 64))
+    cfg = {"lr": 5e-4, "gamma": 0.99, "vf_loss_coeff": 0.5,
+           "entropy_coeff": 0.01, "clip_param": 0.2, "grad_clip": 40.0}
+    batch = _impala_batch(np, RL_T, RL_N, 50)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for cls in (ImpalaLearner, APPOLearner):
+            host = cls(spec, dict(cfg, device="cpu"), seed=0)
+            card_l = cls(spec, dict(cfg, device=DEVICE), seed=1)
+            card_l.set_weights(host.get_weights())
+            m_host = host.update(batch)
+            ms = []
+            for i in range(4):        # the compared update, then 3 more
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = card_l.update(batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if i == 0:
+                    m_card, got = m, card_l.get_weights()
+            worst = 0.0
+            for a, b in zip(tree_leaves(got), tree_leaves(host.get_weights())):
+                worst = max(worst, float(np.abs(a - b).max()
+                                         / max(np.abs(b).max(), 1e-30)))
+            loss_rel = abs(m_card["loss"] - m_host["loss"]) / abs(m_host["loss"])
+            if worst > LEARNER_CARD_TOL or loss_rel > LEARNER_CARD_TOL:
+                fail(f"rl 19b: {cls.__name__}'s update on the card against "
+                     f"the CPU's: worst leaf {worst:.3g}, loss "
+                     f"{m_card['loss']} vs {m_host['loss']} (tolerance "
+                     f"{LEARNER_CARD_TOL})")
+            out[cls.__name__] = {"worst_leaf_rel": worst, "loss_rel": loss_rel,
+                                 "update_ms": ms}
+            log(f"[rl] 19b {cls.__name__} update on {card_l.device} "
+                f"([T={RL_T}, N={RL_N}] CartPole-shaped, autoreset steps): "
+                f"worst leaf {worst:.3g}, loss {loss_rel:.3g} relative to "
+                f"the CPU's (tolerance {LEARNER_CARD_TOL}, TF32 off); "
+                f"{_median(ms[1:]):.2f} ms an update (the first "
+                f"{ms[0]:.1f} ms)  [{card}]")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return out
+
+
+def _inference_pool(torch, np, rt, card):
+    """19c: an InferencePool serving 4 runners' steps, against
+    each runner sampling locally with its own generator."""
+    from ray_tpu_torch.rllib import InferencePool, RLModule, RLModuleSpec
+    from ray_tpu_torch.rllib.rl_module import tree_map
+
+    spec = RLModuleSpec(observation_dim=4, action_dim=2, hidden=(64, 64))
+    module = RLModule(spec)
+    params = module.init_params(3, "cpu")
+    pool = InferencePool(1, spec, seed=0, num_clients=RL_RUNNERS)
+    try:
+        pool.set_weights(tree_map(lambda t: t.numpy().copy(), params))
+        actor = pool.handle_for(0)
+
+        def gens():
+            out = []
+            for i in range(RL_RUNNERS):
+                g = torch.Generator()
+                g.manual_seed(10_000 + 1000 * i)
+                out.append(g)
+            return out
+
+        remote_g, local_g = gens(), gens()
+        rng = np.random.default_rng(7)
+        mismatched = 0
+        t_pool = t_local = 0.0
+        for _ in range(RL_STEPS):
+            obs = [rng.standard_normal((RL_N, 4)).astype(np.float32)
+                   for _ in range(RL_RUNNERS)]
+            noise = [module.draw_noise(RL_N, g).numpy() for g in remote_g]
+            t0 = time.perf_counter()
+            got = rt.get([actor.infer.remote(o, z, False)
+                          for o, z in zip(obs, noise)])
+            t_pool += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                want = [module.sample_action(params, torch.from_numpy(o), g)
+                        for o, g in zip(obs, local_g)]
+            t_local += time.perf_counter() - t0
+            for (a, lp, v), (wa, wlp, wv) in zip(got, want):
+                if not (np.array_equal(a, wa.numpy())
+                        and np.array_equal(lp, wlp.numpy())
+                        and np.array_equal(v, wv.numpy())):
+                    mismatched += 1
+    finally:
+        pool.stop()
+    if mismatched:
+        fail(f"rl 19c: {mismatched} of {RL_STEPS * RL_RUNNERS} pooled steps "
+             f"differ from runner-local sampling")
+    out = {"steps": RL_STEPS, "runners": RL_RUNNERS,
+           "pool_ms_a_step": t_pool / RL_STEPS * 1e3,
+           "local_ms_a_step": t_local / RL_STEPS * 1e3}
+    log(f"[rl] 19c InferencePool: {RL_STEPS} steps of {RL_RUNNERS} runners x "
+        f"{RL_N} envs; actions, log-probs and values "
+        f"bit for bit runner-local; {out['pool_ms_a_step']:.2f} ms a step "
+        f"through the pool, {out['local_ms_a_step']:.2f} ms locally (host "
+        f"CPU)  [{card}]")
+    return out
+
+
+def phase_rl(torch, np, card, counts):
+    """19a, 19b and 19c on the in-process runtime (after phase 18)."""
+    import importlib.util
+
+    import ray_tpu_torch as rt
+
+    t_phase = time.perf_counter()
+    summary = {}
+    rt.init()
+    try:
+        summary["a"] = _llm_rl(torch, np, rt, card, counts)
+        summary["b"] = _impala_learners(torch, np, card)
+        summary["c"] = _inference_pool(torch, np, rt, card)
+    finally:
+        rt.shutdown()
+    if importlib.util.find_spec("gymnasium") is None:
+        log("[rl] gymnasium is absent here: the env loops of IMPALA, APPO, "
+            "DQN, SAC, CQL and the multi-agent PPO wait for it; 19a-19c ran")
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["launches"] = summary["a"]["launches"]
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"[rl] phase 19 (19a, 19b, 19c) took {summary['phase_s']:.1f} s")
+    return summary
+
+
 def _leaf_names(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -5926,6 +6339,8 @@ def main() -> None:
     data = phase_data(torch, np, card, counts, train, trainer,
                       cluster.pop("data"))
     done(18)
+    rl = phase_rl(torch, np, card, counts)
+    done(19)
 
     def bf16_case(label):
         return next(c for c in cases
@@ -5968,6 +6383,10 @@ def main() -> None:
             for r in ("wgmma", "split")},
         "tier_launches_by_route": tier["launches"],
         "dag_launches_by_route": dag["launches"],
+        "llm_rl_launches": rl["launches"]["paged_attention"],
+        "llm_rl_launches_by_route": {
+            r: rl["launches"][f"paged_attention/{r}"]
+            for r in ("wgmma", "split")},
     }]
     for name, (replaces, _) in FLASH.items():
         mine = [c for c in flash_cases if c["kernel"] == name]
@@ -5979,6 +6398,7 @@ def main() -> None:
             "mesh_launches": mesh["launches"][name],
             "trainer_launches": trainer["launches"][name],
             "data_trainer_launches": data["launches"][name],
+            "llm_rl_launches": rl["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
@@ -5996,7 +6416,7 @@ def main() -> None:
          "spec": spec,
          "disagg": disagg, "runtime": runtime, "serve": serving,
          "cluster": cluster, "tier": tier, "dag": dag, "trainer": trainer,
-         "data": data},
+         "data": data, "rl": rl},
         indent=1))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

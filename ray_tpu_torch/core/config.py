@@ -257,6 +257,22 @@ class Config:
     # p99 override (one read per deployment).
     serve_slo_rollup_interval_s = _Flag(1.0)
 
+    # -- rllib ----------------------------------------------------------------
+    # Rollout transport of IMPALA/APPO: 1 parks the env runners in a
+    # compiled-DAG rollout lane (rllib/rollout_lanes.py), fragments fanning
+    # in over multi-slot shm channels with deferred acks, so a slow learner
+    # backpressures the runners instead of dropping work. 0 keeps the
+    # per-fragment task path (ray_tpu_torch.wait + an ObjectRef hop).
+    rollout_lanes_enabled = _Flag(True)
+    # The JAX package's InferenceActor flush quorum and wait window, kept
+    # with its names and defaults so one configuration serves both
+    # packages. The port reads neither: its InferenceActor
+    # (rllib/inference.py) fuses no requests, since a fused CPU forward
+    # would break bit-identity with runner-local sampling, so it runs each
+    # request on arrival and waits for nothing.
+    rl_inference_max_batch = _Flag(0)
+    rl_inference_window_s = _Flag(0.001)
+
     # -- timeouts -------------------------------------------------------------
     # Wait budget of internal loops that re-check a predicate; a blocked
     # channel endpoint is recorded as stalled after a quarter of it.

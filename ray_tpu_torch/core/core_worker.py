@@ -2545,6 +2545,7 @@ class CoreWorker:
             if _app_error_should_retry(spec, task.attempt, result):
                 self._redispatch_later(task, delay=0.0)
             else:
+                self._merge_streamed(spec, result)
                 self._finish_task(task, error=error)
         if final_lease is None:
             # Blocked-release shed the lease and never got it back: the
@@ -2743,6 +2744,7 @@ class CoreWorker:
                 error = serialization.loads(result["error"])
                 if _app_error_should_retry(spec, attempt, result):
                     continue
+                self._merge_streamed(spec, result)
                 self._record_task_error(spec, pending, error)
                 return
         finally:
@@ -2792,6 +2794,21 @@ class CoreWorker:
                     state.total = len(ids)
                     state.cv.notify_all()
         pending.done.set()
+
+    def _merge_streamed(self, spec: TaskSpec, result: dict) -> None:
+        """A generator task that raised lists in its error reply the items
+        it streamed first. They are merged before the error is sealed, so
+        the error lands after them even when an item's own report (another
+        connection) is still in flight; the report then only delivers the
+        payload."""
+        ids = result.get("generator_items")
+        if not ids:
+            return
+        state = self._generator_state(spec.task_id)
+        with state.cv:
+            if not state.released and state.error_at is None:
+                for i, oid_bytes in enumerate(ids):
+                    state.items.setdefault(i, ObjectID(oid_bytes))
 
     def _record_task_error(self, spec: TaskSpec, pending: _PendingTask,
                            error) -> None:
@@ -3098,6 +3115,7 @@ class CoreWorker:
             if result.get("ok"):
                 self._record_task_results(call.spec, call.pending, result)
             else:
+                self._merge_streamed(call.spec, result)
                 self._record_task_error(call.spec, call.pending,
                                         serialization.loads(result["error"]))
         except BaseException as exc:  # noqa: BLE001 — keep the read loop

@@ -178,9 +178,13 @@ class GcsService:
         self._leases: Dict[str, _Lease] = {}
         self._next_lease = 0
         # Capacity blocks: batched lease grants carved locally by daemons
-        # (the daemon-local scheduling plane). Keyed "cap-N".
+        # (the daemon-local scheduling plane). Keyed "cap-<epoch>-N".
         self._blocks: Dict[str, _CapacityBlock] = {}
         self._next_block = 0
+        # Block ids carry this GCS incarnation's epoch: a restarted GCS
+        # counts from 1 again, and a daemon's lease table refuses an id it
+        # already swept or revoked (``LocalLeaseTable``'s tombstones).
+        self._block_epoch = os.urandom(4).hex()
         self._pgs: Dict[PlacementGroupID, _PlacementGroup] = {}
         self._pg_seq = 0
         # Placement groups removed while their creation was still mid-wait:
@@ -698,7 +702,7 @@ class GcsService:
         while granted < count and self.scheduler.try_allocate(node_id, request):
             granted += 1
         self._next_block += 1
-        block_id = f"cap-{self._next_block}"
+        block_id = f"cap-{self._block_epoch}-{self._next_block}"
         self._blocks[block_id] = _CapacityBlock(
             block_id, node_id, request, granted, client_id=client_id)
         flightrec.record("lease", block_id,
@@ -991,7 +995,7 @@ class GcsService:
         pushes: List[tuple] = []
         for (node_id, _shape_key), (req, count) in groups.items():
             self._next_block += 1
-            block_id = f"cap-{self._next_block}"
+            block_id = f"cap-{self._block_epoch}-{self._next_block}"
             self._blocks[block_id] = _CapacityBlock(
                 block_id, node_id, req, count, pg_id=pg_id)
             addr = self._node_addr.get(node_id)

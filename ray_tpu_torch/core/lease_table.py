@@ -9,12 +9,19 @@ so a deep scheduling-key queue costs one GCS round trip instead of one per
 task. Unused capacity flows back on idle TTL (``sweep_idle``) or on explicit
 GCS revocation (client death reclaim, ``revoke``).
 
+A block id that the sweep or a revocation dropped is remembered in a
+bounded tombstone set: its units already belong to the GCS again, so a late
+adopt (the GCS push) or a late carve carrying the adopt hint must not
+re-create it. The carve gets None and the submitter asks the GCS anew. The
+JAX package's table has no tombstone and re-adopts such a block.
+
 Single-lock design: every block mutation is a dict/int update under one
 plain ``Lock``; nothing blocks under it.
 """
 
 from __future__ import annotations
 
+import collections
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
@@ -25,6 +32,9 @@ from ray_tpu_torch.util import flightrec
 # lease to the right authority: "lease-N" → GCS release_lease, "cap-N#k" →
 # daemon-local LocalLeaseTable.release.
 BLOCK_PREFIX = "cap-"
+# Block ids remembered as dropped (an id carries its GCS incarnation's
+# epoch, so it never comes back); the oldest are forgotten first.
+TOMBSTONE_CAP = 4096
 
 
 def is_block_lease(lease_id: Optional[str]) -> bool:
@@ -62,14 +72,26 @@ class LocalLeaseTable:
     def __init__(self):
         self._lock = threading.Lock()
         self._blocks: Dict[str, _BlockState] = {}
+        # Swept or revoked block ids, insertion-ordered (see the module
+        # docstring). Mutated under _lock.
+        self._dead: "collections.OrderedDict[str, None]" = (
+            collections.OrderedDict())
+
+    def _bury_locked(self, block_id: str) -> None:
+        """Drop ``block_id`` and remember it as dead. Caller holds _lock."""
+        self._blocks.pop(block_id, None)
+        self._dead[block_id] = None
+        while len(self._dead) > TOMBSTONE_CAP:
+            self._dead.popitem(last=False)
 
     def adopt(self, block_id: str, shape: Dict[str, float], total: int,
               pinned: bool = False) -> None:
         """Record a GCS-granted block. Idempotent — the grant may arrive both
         as a GCS push and as the first client carve's inline hint. Gang
-        bundle blocks arrive ``pinned`` (exempt from the idle sweep)."""
+        bundle blocks arrive ``pinned`` (exempt from the idle sweep). A
+        block already swept or revoked stays dead."""
         with self._lock:
-            if block_id in self._blocks:
+            if block_id in self._blocks or block_id in self._dead:
                 return
             self._blocks[block_id] = _BlockState(block_id, shape, total, pinned)
         flightrec.record("lease", block_id,
@@ -79,10 +101,12 @@ class LocalLeaseTable:
               total: Optional[int] = None) -> Optional[str]:
         """Carve one per-task lease out of ``block_id``; None when the block
         is unknown/revoked/exhausted. ``shape``/``total`` let the first
-        client touch adopt the block when the GCS push lost the race."""
+        client touch adopt the block when the GCS push lost the race, unless
+        the block was already swept or revoked."""
         with self._lock:
             st = self._blocks.get(block_id)
-            if st is None and shape is not None and total is not None:
+            if (st is None and shape is not None and total is not None
+                    and block_id not in self._dead):
                 st = _BlockState(block_id, shape, total)
                 self._blocks[block_id] = st
             if st is None or st.revoked or st.free <= 0:
@@ -108,7 +132,7 @@ class LocalLeaseTable:
                 st.free += 1
                 st.last_activity = time.monotonic()
             elif not st.in_use:
-                self._blocks.pop(st.block_id, None)
+                self._bury_locked(st.block_id)
         flightrec.record("lease", lease_id, "release")
         return True
 
@@ -118,11 +142,13 @@ class LocalLeaseTable:
         with self._lock:
             st = self._blocks.get(block_id)
             if st is None:
+                # Revoked before any adopt landed: a late one stays dead.
+                self._bury_locked(block_id)
                 return
             st.revoked = True
             st.free = 0
             if not st.in_use:
-                self._blocks.pop(block_id, None)
+                self._bury_locked(block_id)
         flightrec.record("lease", block_id, "revoke")
 
     def sweep_idle(self, ttl_s: float) -> List[Tuple[str, int]]:
@@ -139,7 +165,7 @@ class LocalLeaseTable:
                     out.append((st.block_id, st.free))
                     st.free = 0
                     if not st.in_use:
-                        self._blocks.pop(st.block_id, None)
+                        self._bury_locked(st.block_id)
         return out
 
     def unsweep(self, block_id: str, n: int) -> None:

@@ -127,6 +127,19 @@ def serve_batch_hist() -> um.Histogram:
                    "Serve @batch flush sizes", boundaries=_BATCH_BOUNDS)
 
 
+def rl_env_steps_total() -> um.Counter:
+    return _metric(um.Counter, "ray_tpu_rl_env_steps_total",
+                   "Environment steps consumed by RL training")
+
+
+def rl_learner_idle_hist() -> um.Histogram:
+    return _metric(
+        um.Histogram, "ray_tpu_rl_learner_idle_s",
+        "Time the RL learner waits for a sample batch per consume "
+        "(sum/total-time is the sampling-bound fraction)",
+        boundaries=_LATENCY_BOUNDS)
+
+
 def serve_ttft_hist() -> um.Histogram:
     return _metric(
         um.Histogram, "ray_tpu_serve_ttft_s",

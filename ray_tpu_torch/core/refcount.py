@@ -20,8 +20,9 @@ extend it without API change.
 
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 from ray_tpu_torch.core.ids import ObjectID
 
@@ -44,41 +45,65 @@ class ReferenceCounter:
         self._lock = threading.Lock()
         self._refs: Dict[ObjectID, _Ref] = {}
         self._on_release = on_release
+        # An allocation inside a critical section can start a GC pass that
+        # runs an ObjectRef finalizer on the thread holding _lock; its
+        # release must not take the (non-reentrant) lock again. Such
+        # decrements wait in _deferred until the section ends.
+        self._holder: Optional[int] = None
+        self._deferred: List[Tuple[ObjectID, str]] = []
+
+    @contextlib.contextmanager
+    def _locked(self):
+        with self._lock:
+            self._holder = threading.get_ident()
+            try:
+                yield
+            finally:
+                self._holder = None
+        while self._deferred:
+            try:
+                object_id, field = self._deferred.pop()
+            except IndexError:  # another thread drained it
+                break
+            self._dec(object_id, field)
 
     def add_local_reference(self, object_id: ObjectID,
                             owner_hint: Optional[str] = None) -> None:
         # owner_hint is part of the shared ObjectRef contract; in-process
         # mode has a single owner so the borrow protocol collapses here.
-        with self._lock:
+        with self._locked():
             self._refs.setdefault(object_id, _Ref()).local += 1
 
     def remove_local_reference(self, object_id: ObjectID) -> None:
         self._dec(object_id, "local")
 
     def add_submitted_task_reference(self, object_id: ObjectID) -> None:
-        with self._lock:
+        with self._locked():
             self._refs.setdefault(object_id, _Ref()).submitted += 1
 
     def remove_submitted_task_reference(self, object_id: ObjectID) -> None:
         self._dec(object_id, "submitted")
 
     def set_lineage(self, object_id: ObjectID, task_spec) -> None:
-        with self._lock:
+        with self._locked():
             self._refs.setdefault(object_id, _Ref()).lineage = task_spec
 
     def get_lineage(self, object_id: ObjectID):
-        with self._lock:
+        with self._locked():
             ref = self._refs.get(object_id)
             return ref.lineage if ref else None
 
     def num_references(self, object_id: ObjectID) -> int:
-        with self._lock:
+        with self._locked():
             ref = self._refs.get(object_id)
             return ref.total() if ref else 0
 
     def _dec(self, object_id: ObjectID, field: str) -> None:
+        if self._holder == threading.get_ident():
+            self._deferred.append((object_id, field))
+            return
         release = False
-        with self._lock:
+        with self._locked():
             ref = self._refs.get(object_id)
             if ref is None:
                 return

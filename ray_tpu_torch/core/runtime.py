@@ -32,6 +32,7 @@ for (``num_gpus=1``). With no card, no ``GPU`` resource is registered, and
 
 from __future__ import annotations
 
+import gc
 import os
 import threading
 import time
@@ -71,6 +72,20 @@ logger = get_logger("runtime")
 
 _global_runtime: Optional["Runtime"] = None
 _init_lock = threading.Lock()
+
+# A GC pass starts at whatever allocation crossed its threshold, possibly on
+# a thread holding a runtime or store lock, and runs the finalizers of the
+# garbage it found there: an ObjectRef released from such a pass must take
+# no lock. GC callbacks mark the collecting thread; its releases go to the
+# runtime's drainer thread.
+_gc_pass = threading.local()
+
+
+def _note_gc_pass(phase: str, info: dict) -> None:
+    _gc_pass.active = phase == "start"
+
+
+gc.callbacks.append(_note_gc_pass)
 
 
 class _WorkerContext(threading.local):
@@ -397,6 +412,14 @@ class Runtime:
         self._arg_pool = ThreadPoolExecutor(
             max_workers=max(1, config().get_fanout),
             thread_name_prefix="arg-fetch")
+        # Releases made inside a GC pass (``release_local_ref``), applied by
+        # the drainer thread outside every lock.
+        self._gc_releases: deque = deque()
+        self._closing = threading.Event()
+        self._gc_drainer = threading.Thread(
+            target=self._drain_gc_releases, name="gc-release-drainer",
+            daemon=True)
+        self._gc_drainer.start()
 
         base = dict(resources or {})
         if "CPU" not in base:
@@ -1006,8 +1029,26 @@ class Runtime:
     def release_local_ref(self, oid: ObjectID) -> None:
         """``ObjectRef.__del__`` entry point. In-process the release is
         synchronous (the store's free path holds no lock across other
-        acquisitions); the CoreWorker counterpart defers to a drainer."""
+        acquisitions), except inside a GC pass, which may have started under
+        any lock: that release waits for the drainer thread. The CoreWorker
+        counterpart always defers to a drainer."""
+        if getattr(_gc_pass, "active", False):
+            self._gc_releases.append(oid)
+            return
         self.reference_counter.remove_local_reference(oid)
+
+    def _drain_gc_releases(self) -> None:
+        while not self._closing.wait(0.05):
+            self._flush_gc_releases()
+        self._flush_gc_releases()
+
+    def _flush_gc_releases(self) -> None:
+        while self._gc_releases:
+            try:
+                oid = self._gc_releases.popleft()
+            except IndexError:
+                return
+            self.reference_counter.remove_local_reference(oid)
 
     # -- actors (core_worker.cc:2139 CreateActor, :2377 SubmitActorTask) ------
 
@@ -1386,6 +1427,8 @@ class Runtime:
                 log_swallowed(logger, "kill_actor at shutdown")
         self.gcs.finish_job(self.job_id)
         self._arg_pool.shutdown(wait=False, cancel_futures=True)
+        self._closing.set()
+        self._gc_drainer.join(timeout=5.0)
         try:
             self.store.close()
         except Exception:  # noqa: BLE001 — shutdown is best-effort

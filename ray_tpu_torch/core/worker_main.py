@@ -49,6 +49,16 @@ class _DependencyFailed(Exception):
         self.error = error
 
 
+class _StreamFailed(Exception):
+    """A generator task raised ``cause`` after streaming ``items`` (their
+    ids): the error reply lists them, so the owner seals the error after
+    every item yielded before it."""
+
+    def __init__(self, cause: BaseException, items: List[bytes]):
+        self.cause = cause
+        self.items = items
+
+
 def _lineage_bytes(spec: "TaskSpec") -> bytes:
     """Re-pickle a decoded spec for the lineage record, inside a PRIVATE
     ref-collection scope: the lazy materialization runs under
@@ -336,6 +346,11 @@ class WorkerService:
             result = None
         except _DependencyFailed as df:
             out = self._package_error(spec, df.error)
+        except _StreamFailed as sf:
+            out = self._package_error(
+                spec, TaskError.from_exception(spec.function_name, sf.cause),
+                first_index=len(sf.items))
+            out["generator_items"] = sf.items
         except BaseException as exc:  # noqa: BLE001 — wire to the caller
             out = self._package_error(
                 spec, TaskError.from_exception(spec.function_name, exc))
@@ -484,9 +499,19 @@ class WorkerService:
                 owner = self.core._owner_clients.get(spec.owner_addr)
             except Exception:  # noqa: BLE001 — buffered fallback below
                 owner = None
+        items: List[bytes] = []
+        try:
+            self._stream_items(spec, result, lineage, owner, items)
+        except BaseException as exc:  # noqa: BLE001 — wired to the caller
+            raise _StreamFailed(exc, items) from exc
+        return {"ok": True, "returns": [], "generator_items": items}
+
+    def _stream_items(self, spec: TaskSpec, result, lineage, owner,
+                      items: List[bytes]) -> None:
+        """``_stream_generator``'s loop: appends each reported item's id to
+        ``items``."""
         window = config().streaming_backpressure_items
         inline_cap = config().max_inline_object_size
-        items: List[bytes] = []
         for i, item in enumerate(result):
             oid = ObjectID.for_task_return(spec.task_id, i)
             ser = serialization.serialize(item)
@@ -524,7 +549,6 @@ class WorkerService:
                     if inline is not None:
                         # The report never landed — seal so the id resolves.
                         self.core.seal_payload(oid, inline)
-        return {"ok": True, "returns": [], "generator_items": items}
 
     def _seal_return(self, oid: ObjectID, value,
                      lineage=None,
@@ -568,13 +592,17 @@ class WorkerService:
         core.seal_serialized(oid, ser, lineage)
         return None
 
-    def _package_error(self, spec: TaskSpec, error) -> dict:
+    def _package_error(self, spec: TaskSpec, error,
+                       first_index: int = 0) -> dict:
         error_bytes = serialization.dumps(error)
         # Seal the error under every return id so dependent tasks (arg refs)
-        # fail with the propagated error, matching in-process semantics.
+        # fail with the propagated error, matching in-process semantics. A
+        # generator's error takes the index after the items it streamed
+        # (``first_index``), where the owner seals it too: sealed at index
+        # 0 it would shadow item 0, whose value rides the owner's report.
         n = spec.options.num_returns
         num = n if isinstance(n, int) else 1
-        for i in range(max(num, 1)):
+        for i in range(first_index, first_index + max(num, 1)):
             oid = ObjectID.for_task_return(spec.task_id, i)
             try:
                 self.core._local_daemon.notify("put_object", oid.binary(),
@@ -708,6 +736,12 @@ class WorkerService:
             result = None
         except _DependencyFailed as df:
             out = self._package_error(spec, df.error)
+        except _StreamFailed as sf:
+            out = self._package_error(
+                spec, TaskError.from_exception(
+                    f"{spec.function_name}.{spec.actor_method}", sf.cause),
+                first_index=len(sf.items))
+            out["generator_items"] = sf.items
         except BaseException as exc:  # noqa: BLE001
             out = self._package_error(
                 spec,

@@ -40,8 +40,8 @@ import torch
 
 __all__ = [
     "install", "uninstall", "installed", "maybe_install",
-    "steady_state", "SteadyStateViolation", "device_get", "note_build",
-    "violations", "clear_violations", "build_counts",
+    "steady_state", "SteadyStateViolation", "device_get", "host_reads",
+    "note_build", "violations", "clear_violations", "build_counts",
 ]
 
 _ENV_KNOB = "RAY_TPU_JIT_CHECK_ENABLED"
@@ -88,6 +88,10 @@ def _reads_allowed() -> bool:
     return getattr(_tls, "allow_reads", 0) > 0
 
 
+def _host_reads_allowed() -> bool:
+    return getattr(_tls, "host_reads", 0) > 0
+
+
 def _record_violation(text: str) -> None:
     with _lock:
         _violations.append(text)
@@ -99,7 +103,8 @@ def _record_violation(text: str) -> None:
 def _guarded(name: str, orig, cuda_only: bool):
     def guard(self, *args, **kwargs):
         if (_steady_depth() > 0 and not _reads_allowed()
-                and (not cuda_only or self.is_cuda)):
+                and (self.is_cuda
+                     or not (cuda_only or _host_reads_allowed()))):
             _record_violation(
                 f"implicit device->host read ({name}) inside steady_state "
                 f"at {_caller_site()} — use jitcheck.device_get")
@@ -119,6 +124,19 @@ def device_get(x: Any) -> Any:
         return x.cpu()
     finally:
         _tls.allow_reads -= 1
+
+
+@contextlib.contextmanager
+def host_reads():
+    """A scope in which reading a CPU tensor's value is host bookkeeping,
+    not a device->host read — ``torch.optim``'s step counters are CPU
+    tensors its ``step`` reads with ``item``. A CUDA tensor's read stays a
+    violation here."""
+    _tls.host_reads = getattr(_tls, "host_reads", 0) + 1
+    try:
+        yield
+    finally:
+        _tls.host_reads -= 1
 
 
 def note_build(name: str) -> None:

@@ -8,8 +8,11 @@ learners). Episode returns are tracked per sub-env for metrics.
 
 Counterpart of ``ray_tpu/rllib/env_runner.py``: the runner samples on the
 host CPU as the JAX package's does, with a per-runner ``torch.Generator``
-(seeded ``seed + 10_000``) in place of its key. The shared inference actor
-(``inference=``) waits for the rollout-lane algorithms.
+(seeded ``seed + 10_000``) in place of its key. With ``inference=`` (an
+``InferenceActor`` handle) the forward moves to the shared actor; the runner
+still draws each step's noise on its own generator and ships it with the
+observations, so its actions and log-probs are bit for bit those of
+sampling locally.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ class SingleAgentEnvRunner:
         seed: int = 0,
         spec: Optional[RLModuleSpec] = None,
         module_factory: Optional[Callable[[RLModuleSpec], Any]] = None,
+        inference: Optional[Any] = None,
     ):
         import gymnasium as gym
 
@@ -55,6 +59,11 @@ class SingleAgentEnvRunner:
         self._params = self.module.init_params(seed, "cpu")
         self._gen = torch.Generator()
         self._gen.manual_seed(seed + 10_000)
+        # Sebulba mode: an InferenceActor handle. The runner keeps its
+        # generator (each step's noise ships with the obs), so the sampled
+        # actions are bit for bit runner-local ones; only the forward moves
+        # to the shared, batched actor.
+        self._inference = inference
         # Value-based algorithms (DQN family) explore epsilon-greedily over
         # the argmax policy instead of sampling the softmax
         # (rllib/utils/exploration/epsilon_greedy.py analog).
@@ -122,24 +131,10 @@ class SingleAgentEnvRunner:
 
         for t in range(T):
             obs = np.asarray(self._obs, obs_dtype).reshape(N, -1)
-            with torch.inference_mode():
-                if self._greedy:
-                    logits = self.module.forward_inference(
-                        self._params, torch.from_numpy(obs))[
-                            "action_dist_inputs"]
-                    action_np = torch.argmax(logits, dim=-1).numpy()
-                    logp_np = np.zeros(N, np.float32)
-                    val_np = np.zeros(N, np.float32)
-                    if self._epsilon > 0:
-                        explore = self._np_rng.random(N) < self._epsilon
-                        randoms = self._np_rng.integers(
-                            0, self.spec.action_dim, N)
-                        action_np = np.where(explore, randoms, action_np)
-                else:
-                    action, logp, value = self.module.sample_action(
-                        self._params, torch.from_numpy(obs), self._gen)
-                    action_np, logp_np, val_np = (
-                        action.numpy(), logp.numpy(), value.numpy())
+            if self._inference is not None:
+                action_np, logp_np, val_np = self._infer_remote(obs)
+            else:
+                action_np, logp_np, val_np = self._infer_local(obs)
             env_action = action_np.astype(np.int64) if self.spec.discrete else action_np
             next_obs, reward, terminated, truncated, _ = self._envs.step(env_action)
             done = np.logical_or(terminated, truncated)
@@ -169,9 +164,16 @@ class SingleAgentEnvRunner:
 
         # bootstrap value of the final observation
         last_obs = np.asarray(self._obs, obs_dtype).reshape(N, -1)
-        with torch.inference_mode():
-            last_val = self.module.forward_inference(
-                self._params, torch.from_numpy(last_obs))["vf_preds"].numpy()
+        if self._inference is not None:
+            import ray_tpu_torch
+
+            last_val = np.asarray(ray_tpu_torch.get(
+                self._inference.values.remote(last_obs)))
+        else:
+            with torch.inference_mode():
+                last_val = self.module.forward_inference(
+                    self._params, torch.from_numpy(last_obs))[
+                        "vf_preds"].numpy()
 
         return {
             "obs": obs_buf,
@@ -186,6 +188,39 @@ class SingleAgentEnvRunner:
             # the CURRENT policy — they need the obs, not our stale value.
             "bootstrap_obs": last_obs,
         }
+
+    def _explore(self, action_np: np.ndarray) -> np.ndarray:
+        """Epsilon-greedy: a uniform random action with prob epsilon."""
+        if self._epsilon > 0:
+            N = len(action_np)
+            explore = self._np_rng.random(N) < self._epsilon
+            randoms = self._np_rng.integers(0, self.spec.action_dim, N)
+            action_np = np.where(explore, randoms, action_np)
+        return action_np
+
+    def _infer_local(self, obs: np.ndarray):
+        N = len(obs)
+        with torch.inference_mode():
+            if self._greedy:
+                logits = self.module.forward_inference(
+                    self._params, torch.from_numpy(obs))["action_dist_inputs"]
+                action_np = self._explore(torch.argmax(logits, dim=-1).numpy())
+                return (action_np, np.zeros(N, np.float32),
+                        np.zeros(N, np.float32))
+            action, logp, value = self.module.sample_action(
+                self._params, torch.from_numpy(obs), self._gen)
+            return action.numpy(), logp.numpy(), value.numpy()
+
+    def _infer_remote(self, obs: np.ndarray):
+        import ray_tpu_torch
+
+        noise = (None if self._greedy else
+                 self.module.draw_noise(len(obs), self._gen).numpy())
+        action_np, logp_np, val_np = ray_tpu_torch.get(
+            self._inference.infer.remote(obs, noise, self._greedy))
+        if self._greedy:
+            action_np = self._explore(action_np)
+        return action_np, logp_np, val_np
 
     def sample_dag(self, payload: Dict[str, Any]) -> Dict[str, np.ndarray]:
         """One rollout-lane tick (the compiled DAG's rollout lanes). A lane-parked

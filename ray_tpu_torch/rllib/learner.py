@@ -25,22 +25,31 @@ import numpy as np
 import torch
 
 import ray_tpu_torch
+from ray_tpu_torch.devtools import jitcheck
 from ray_tpu_torch.rllib.rl_module import (RLModule, RLModuleSpec, tree_leaves,
                                            tree_map)
 from ray_tpu_torch.utils.device import resolve_device
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy().copy()
+    # jitcheck's sanctioned read: a learner on the card is read inside the
+    # IMPALA loop's steady state
+    return jitcheck.device_get(t.detach()).numpy().copy()
+
+
+def device_for(n_params: int, dev_cfg: Any) -> torch.device:
+    """The device policy (see the module docstring) for a model of
+    ``n_params`` parameters."""
+    if dev_cfg == "cpu" or (dev_cfg == "auto" and n_params < 1_000_000):
+        return torch.device("cpu")
+    return resolve_device(None if dev_cfg == "auto" else dev_cfg)
 
 
 def learner_device(spec: RLModuleSpec, dev_cfg: Any) -> torch.device:
     """The JAX package's device policy (see the module docstring)."""
     n_params = (spec.observation_dim * sum(spec.hidden)
                 + spec.hidden[-1] * spec.action_dim)
-    if dev_cfg == "cpu" or (dev_cfg == "auto" and n_params < 1_000_000):
-        return torch.device("cpu")
-    return resolve_device(None if dev_cfg == "auto" else dev_cfg)
+    return device_for(n_params, dev_cfg)
 
 
 class Learner:
@@ -81,14 +90,17 @@ class Learner:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         norm = torch.nn.utils.clip_grad_norm_(self._leaves, self.grad_clip)
-        self.optimizer.step()
+        # Adam reads its step counters (CPU tensors) on the host.
+        with jitcheck.host_reads():
+            self.optimizer.step()
         return norm
 
     def update(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:
         loss = self.compute_grads(self._device_batch(batch))
         norm = self.apply_grads()
         # one read back of both metrics, as the JAX package's one device_get
-        loss_v, norm_v = torch.stack([loss, norm.detach()]).tolist()
+        loss_v, norm_v = jitcheck.device_get(
+            torch.stack([loss, norm.detach()])).numpy().tolist()
         return {"loss": loss_v, "grad_norm": norm_v}
 
     def get_weights(self):
@@ -104,20 +116,9 @@ class Learner:
         """The optimizer state as optax's ``chain(clip, adam)`` holds it:
         ``(EmptyState(), (ScaleByAdamState(count, mu, nu), EmptyState()))``
         as numpy, the moments shaped like the parameters."""
-        from ray_tpu_torch.models.training import EmptyState, ScaleByAdamState
+        from ray_tpu_torch.models.training import EmptyState
 
-        def moment(name):
-            def of(p):
-                st = self.optimizer.state.get(p, {})
-                return _host(st[name]) if name in st else np.zeros(
-                    tuple(p.shape), np.float32)
-            return tree_map(of, self.params)
-
-        first = self.optimizer.state.get(self._leaves[0], {})
-        count = int(first["step"].item()) if "step" in first else 0
-        return (EmptyState(), (ScaleByAdamState(
-            count=np.asarray(count, np.int32), mu=moment("exp_avg"),
-            nu=moment("exp_avg_sq")), EmptyState()))
+        return (EmptyState(), adam_state_tree(self.optimizer, self.params))
 
     def get_state(self) -> Dict:
         return {"params": self.get_weights(), "opt_state": self._opt_tree()}
@@ -126,17 +127,43 @@ class Learner:
         """Load ``get_state``'s tree, or optax's ``chain(clip, adam)``
         state as numpy arrays."""
         self.set_weights(state["params"])
-        adam = state["opt_state"][1][0]
-        count = int(np.asarray(adam[0]))
-        self.optimizer.state.clear()
-        if count:
-            for p, m, v in zip(self._leaves, tree_leaves(adam[1]),
-                               tree_leaves(adam[2])):
-                self.optimizer.state[p] = {
-                    "step": torch.tensor(float(count)),
-                    "exp_avg": torch.as_tensor(np.array(m)).to(p.device),
-                    "exp_avg_sq": torch.as_tensor(np.array(v)).to(p.device)}
+        load_adam_state(self.optimizer, self._leaves, state["opt_state"][1])
         return True
+
+
+def adam_state_tree(optimizer: torch.optim.Adam, params) -> tuple:
+    """``optimizer``'s state over the tree ``params`` as optax's ``adam``
+    holds it: ``(ScaleByAdamState(count, mu, nu), EmptyState())`` as numpy,
+    the moments shaped like the parameters."""
+    from ray_tpu_torch.models.training import EmptyState, ScaleByAdamState
+
+    def moment(name):
+        def of(p):
+            st = optimizer.state.get(p, {})
+            return _host(st[name]) if name in st else np.zeros(
+                tuple(p.shape), np.float32)
+        return tree_map(of, params)
+
+    first = optimizer.state.get(tree_leaves(params)[0], {})
+    count = int(first["step"].item()) if "step" in first else 0
+    return (ScaleByAdamState(count=np.asarray(count, np.int32),
+                             mu=moment("exp_avg"), nu=moment("exp_avg_sq")),
+            EmptyState())
+
+
+def load_adam_state(optimizer: torch.optim.Adam, leaves, adam) -> None:
+    """Load optax's ``adam`` state (``adam_state_tree``'s form) into
+    ``optimizer`` over ``leaves``."""
+    adam = adam[0]
+    count = int(np.asarray(adam[0]))
+    optimizer.state.clear()
+    if count:
+        for p, m, v in zip(leaves, tree_leaves(adam[1]),
+                           tree_leaves(adam[2])):
+            optimizer.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": torch.as_tensor(np.array(m)).to(p.device),
+                "exp_avg_sq": torch.as_tensor(np.array(v)).to(p.device)}
 
 
 class _DistributedLearnerActor:

@@ -159,30 +159,49 @@ class RLModule:
     forward_exploration = forward_train
 
     # -- distributions -------------------------------------------------------
+    def draw_noise(self, n: int, generator: torch.Generator,
+                   device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.Tensor:
+        """The exploration noise of one step of ``n`` rows, drawn on
+        ``generator``: uniforms for the Gumbel-max draw (discrete), standard
+        normals (continuous). A runner that samples through a shared
+        inference actor draws it here and ships it with the observations,
+        so its stream stays its own."""
+        shape = (n, self.spec.action_dim)
+        if self.spec.discrete:
+            u = torch.rand(shape, generator=generator, device=device)
+            return u.clamp_min(torch.finfo(u.dtype).tiny)
+        return torch.randn(shape, generator=generator, device=device)
+
+    def sample_with_noise(
+        self, params: Dict, obs: torch.Tensor, noise: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(action, logp, value) under the exploration policy for the given
+        noise (:meth:`draw_noise`)."""
+        out = self.forward_exploration(params, obs)
+        logits = out["action_dist_inputs"]
+        noise = noise.to(logits.dtype)
+        if self.spec.discrete:
+            # Gumbel-max: argmax(logits + Gumbel noise) is a categorical
+            # draw, as jax.random.categorical makes it.
+            action = torch.argmax(logits - torch.log(-torch.log(noise)),
+                                  dim=-1)
+            logp = torch.log_softmax(logits, dim=-1).gather(
+                -1, action[:, None])[:, 0]
+        else:
+            std = torch.exp(out["log_std"])
+            action = logits + std * noise
+            logp = torch.sum(-0.5 * noise ** 2 - out["log_std"]
+                             - 0.5 * math.log(2 * math.pi), dim=-1)
+        return action, logp, out["vf_preds"]
+
     def sample_action(
         self, params: Dict, obs: torch.Tensor, generator: torch.Generator
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(action, logp, value) under the exploration policy; the draws
         come from ``generator`` (on the device of ``obs``)."""
-        out = self.forward_exploration(params, obs)
-        logits = out["action_dist_inputs"]
-        if self.spec.discrete:
-            # Gumbel-max: argmax(logits + Gumbel noise) is a categorical
-            # draw, as jax.random.categorical makes it.
-            u = torch.rand(logits.shape, generator=generator,
-                           device=logits.device, dtype=logits.dtype)
-            u = u.clamp_min(torch.finfo(logits.dtype).tiny)
-            action = torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
-            logp = torch.log_softmax(logits, dim=-1).gather(
-                -1, action[:, None])[:, 0]
-        else:
-            std = torch.exp(out["log_std"])
-            noise = torch.randn(logits.shape, generator=generator,
-                                device=logits.device, dtype=logits.dtype)
-            action = logits + std * noise
-            logp = torch.sum(-0.5 * noise ** 2 - out["log_std"]
-                             - 0.5 * math.log(2 * math.pi), dim=-1)
-        return action, logp, out["vf_preds"]
+        return self.sample_with_noise(
+            params, obs, self.draw_noise(obs.shape[0], generator, obs.device))
 
     def logp_and_entropy(
         self, params: Dict, obs: torch.Tensor, actions: torch.Tensor

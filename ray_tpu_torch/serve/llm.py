@@ -881,6 +881,21 @@ class PagedLLMEngine(LLMEngine):
         self._spec_proposed_total = 0
         self._spec_accepted_total = 0
 
+    def set_params(self, params) -> None:
+        """Swap in new weights: cast to the compute dtype and moved to the
+        engine's device once, as at construction, then the device state is
+        reset, since cached K/V computed under the old weights would
+        otherwise reach later requests through the prefix cache. Call with
+        no request in flight. Refused under the cluster KV tier, whose
+        published chains hold K/V of the old weights."""
+        if self._tier is not None:
+            raise RuntimeError(
+                f"{self.name}: set_params under the cluster KV tier would "
+                f"serve K/V computed under the old weights")
+        self.params = _to_device(params, self.device, self.config.dtype)
+        self._pg.params = self.params
+        self._reset_device_state()
+
     def _reset_device_state(self) -> None:
         (self._k_pool, self._v_pool,
          self._last, self._gens) = self._pg.init_state()

@@ -4,7 +4,9 @@
   count (hypothesis), and the sharded object directory and pubsub give the
   same answers to one sequence of calls;
 - ``LocalLeaseTable``: the same carve, release, revoke, sweep and unsweep
-  sequences (hypothesis) give the same outcomes and the same free units;
+  sequences (hypothesis) give the same outcomes and the same free units,
+  with one difference named: a block the port swept or revoked stays dead,
+  where JAX's table re-adopts it on a late adopt or hinted carve;
 - ``HealthWatchdog``: the same heartbeat and report traces give the same
   transitions and states;
 - ``SpecEncoder``/``SpecTemplateStore``: a spec encoded by either package
@@ -99,21 +101,29 @@ _OPS = st.lists(st.tuples(
     st.integers(0, 2), st.integers(1, 4)), max_size=40)
 
 
-def _lease_trace(mod, ops):
+def _lease_trace(mod, ops, tombstones=False):
+    """The outcomes of ``ops`` on ``mod``'s table. ``tombstones`` drives
+    JAX's table as the port's behaves: an adopt or hinted carve of a block
+    that a sweep, a revocation or a release after one dropped is refused
+    (None) instead of reaching the table."""
     t = mod.LocalLeaseTable()
     leases = []
+    dead = set()
     out = []
     for op, b, n in ops:
         block = f"cap-{b}"
+        known = set(t.stats())
+        buried = tombstones and block in dead
         if op == "adopt":
-            out.append(t.adopt(block, {"CPU": 1.0}, n))
+            out.append(None if buried else t.adopt(block, {"CPU": 1.0}, n))
         elif op == "carve":
             lid = t.carve(block)
             out.append(lid)
             if lid:
                 leases.append(lid)
         elif op == "carve_hint":
-            lid = t.carve(block, shape={"CPU": 1.0}, total=n)
+            lid = None if buried else t.carve(block, shape={"CPU": 1.0},
+                                              total=n)
             out.append(lid)
             if lid:
                 leases.append(lid)
@@ -124,10 +134,13 @@ def _lease_trace(mod, ops):
             out.append(t.release(lid))
         elif op == "revoke":
             out.append(t.revoke(block))
+            if block not in known:
+                dead.add(block)
         elif op == "sweep":
             out.append(sorted(t.sweep_idle(0.0)))
         elif op == "unsweep":
             out.append(t.unsweep(block, 1))
+        dead |= known - set(t.stats())
         out.append(tuple(t.free_units(f"cap-{i}") for i in range(3)))
         out.append(sorted((k, sorted(v.items())) for k, v in
                           t.stats().items()))
@@ -137,7 +150,39 @@ def _lease_trace(mod, ops):
 @settings(max_examples=150, deadline=None)
 @given(ops=_OPS)
 def test_lease_table_outcomes_are_the_same(ops):
-    assert _lease_trace(tlease, ops) == _lease_trace(jlease, ops)
+    assert (_lease_trace(tlease, ops)
+            == _lease_trace(jlease, ops, tombstones=True))
+
+
+@pytest.mark.parametrize("drop", ["sweep", "revoke", "revoke_unknown"])
+def test_late_carve_after_a_drop_gets_no_lease(drop):
+    """A carve with the adopt hint that lands after the sweep (or a
+    revocation) dropped its block gets no lease, and no capacity comes back:
+    the GCS owns those units again. A late adopt is refused the same way."""
+    t = tlease.LocalLeaseTable()
+    if drop != "revoke_unknown":
+        t.adopt("cap-0", {"CPU": 1.0}, 2)
+    if drop == "sweep":
+        time.sleep(0.001)
+        assert t.sweep_idle(0.0) == [("cap-0", 2)]
+    else:
+        t.revoke("cap-0")
+    assert t.carve("cap-0", shape={"CPU": 1.0}, total=2) is None
+    t.adopt("cap-0", {"CPU": 1.0}, 2)
+    assert t.carve("cap-0") is None
+    assert t.free_units("cap-0") == 0
+    assert t.stats() == {}
+    assert t.sweep_idle(0.0) == []
+
+
+def test_tombstones_are_bounded():
+    t = tlease.LocalLeaseTable()
+    for i in range(tlease.TOMBSTONE_CAP + 5):
+        t.revoke(f"cap-{i}")
+    assert len(t._dead) == tlease.TOMBSTONE_CAP
+    # the oldest are forgotten first
+    assert "cap-0" not in t._dead
+    assert f"cap-{tlease.TOMBSTONE_CAP + 4}" in t._dead
 
 
 def test_lease_ids_are_the_same():

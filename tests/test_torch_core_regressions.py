@@ -174,3 +174,98 @@ def test_hard_node_affinity_queues_when_busy(ray_start_cluster):
     a = busy.remote()
     b = busy.remote()  # node busy now; must queue, not fail
     assert rt.get([a, b], timeout=15) == [target.hex(), target.hex()]
+
+
+def test_finalizer_release_inside_the_refcount_lock_does_not_deadlock():
+    """An allocation inside the reference counter's critical section can
+    start a GC pass that runs an ``ObjectRef`` finalizer on the same thread;
+    its release re-entered the non-reentrant lock and hung the process
+    (seen as a whole-suite stall in the JAX package's twin). The release is
+    now deferred to the section's end."""
+    import gc
+    import threading
+
+    from ray_tpu_torch.core.ids import ObjectID
+    from ray_tpu_torch.core.refcount import ReferenceCounter
+
+    released = []
+    rc = ReferenceCounter(on_release=released.append)
+    a, b, c = (ObjectID.for_put() for _ in range(3))
+    rc.add_local_reference(a)
+    rc.add_local_reference(c)
+
+    class _Cycle:
+        def __init__(self):
+            self.me = self
+
+        def __del__(self):
+            rc.remove_local_reference(a)
+
+    done = threading.Event()
+
+    def run():
+        # A collection at the next tracked allocation: the one inside the
+        # counter's critical section.
+        thresholds = gc.get_threshold()
+        gc.disable()
+        try:
+            _Cycle()
+            gc.set_threshold(1)
+            gc.enable()
+            rc.add_local_reference(b)
+            # The same re-entry, made directly: a release from the thread
+            # holding the section waits for its end.
+            with rc._locked():
+                rc.remove_local_reference(c)
+                assert c not in released
+        finally:
+            gc.set_threshold(*thresholds)
+            gc.enable()
+        done.set()
+
+    threading.Thread(target=run, daemon=True).start()
+    assert done.wait(30.0), "the release deadlocked on the counter's lock"
+    assert set(released) == {a, c} and len(released) == 2
+    assert rc.num_references(a) == rc.num_references(c) == 0
+    assert rc.num_references(b) == 1
+
+
+def test_gc_pass_release_under_the_store_lock_is_deferred(ray_start_regular):
+    """A GC pass can start at an allocation inside the object store's
+    critical section; an ``ObjectRef`` it finalizes there used to release
+    synchronously into ``store.delete``, which takes the same lock. The
+    release now waits for the runtime's drainer thread."""
+    import gc
+    import threading
+
+    from ray_tpu_torch.core import runtime as runtime_mod
+
+    rt = runtime_mod.get_runtime()
+
+    class _Cycle:
+        def __init__(self, ref):
+            self.me = self
+            self.ref = ref
+
+    done = threading.Event()
+    gc.disable()
+    try:
+        ref = ray_tpu_torch.put(b"x" * 64)
+        oid = ref.id
+        _Cycle(ref)
+        del ref
+
+        def run():
+            with rt.store._lock:
+                gc.collect()
+            done.set()
+
+        threading.Thread(target=run, daemon=True).start()
+        assert done.wait(30.0), "the release deadlocked on the store's lock"
+    finally:
+        gc.enable()
+    deadline = time.time() + 10.0
+    while rt.store.contains(oid) and time.time() < deadline:
+        time.sleep(0.02)
+    assert not rt.store.contains(oid)
+    assert rt.reference_counter.num_references(oid) == 0

@@ -216,6 +216,66 @@ def test_streaming_generator_error_surfaces_mid_stream(driver):
         ray_tpu.get(refs[1], timeout=120)
 
 
+def test_streaming_error_reply_ahead_of_its_item_keeps_the_item(driver):
+    """Item reports and the task's error reply reach the owner over
+    different connections. When the reply lands first, the error must
+    still be sealed after every item yielded before it: the reply lists
+    their ids, and the late report only delivers the payload. (Sealing the
+    error at the gap-free prefix lost item 0 and raised at ``refs[0]``.)"""
+    from types import SimpleNamespace
+
+    from ray_tpu_torch.core import serialization
+    from ray_tpu_torch.core.core_worker import _OwnerService, _PendingTask
+    from ray_tpu_torch.core.exceptions import TaskError
+    from ray_tpu_torch.core.ids import ObjectID, TaskID
+
+    core = driver
+    task_id = TaskID(os.urandom(TaskID.SIZE))
+    spec = SimpleNamespace(task_id=task_id,
+                           options=SimpleNamespace(num_returns="streaming"))
+    item0 = ObjectID.for_task_return(task_id, 0)
+    reply = {"ok": False, "generator_items": [item0.binary()]}
+    core._merge_streamed(spec, reply)
+    core._record_task_error(spec, _PendingTask([]), TaskError.from_exception(
+        "bad", ValueError("stream kaboom")))
+    _OwnerService(core).report_generator_item(
+        task_id.binary(), 0, item0.binary(),
+        serialization.serialize(1).to_bytes())
+    refs = [core.next_generator_item(task_id, i) for i in range(2)]
+    assert core.next_generator_item(task_id, 2) is None
+    assert ray_tpu.get(refs[0], timeout=30) == 1
+    with pytest.raises(ValueError, match="stream kaboom"):
+        ray_tpu.get(refs[1], timeout=30)
+
+
+def test_streaming_error_is_sealed_after_the_streamed_items(driver):
+    """A failed generator's worker seals the error under the index after
+    the items it streamed, where the owner seals it. Sealed under index 0,
+    as before, it shadowed item 0 (whose value rides the owner's report): a
+    get of item 0 that located the sealed error first raised."""
+
+    @ray_tpu.remote(num_returns="streaming", max_retries=0)
+    def bad():
+        yield 1
+        raise ValueError("stream kaboom")
+
+    refs = list(bad.remote())
+    assert len(refs) == 2
+    daemons = [RpcClient(n["Address"]) for n in ray_tpu.nodes()
+               if n["Alive"]]
+    try:
+        def sealed(ref):
+            return any(d.call("has_object", ref.id.binary(), timeout=10.0)
+                       for d in daemons)
+
+        assert _wait_for(lambda: sealed(refs[1]), timeout=30.0, interval=0.05)
+        assert not sealed(refs[0])
+        assert ray_tpu.get(refs[0], timeout=60) == 1
+    finally:
+        for d in daemons:
+            d.close()
+
+
 def test_streaming_generator_backpressure_bounds_producer(driver, mp_cluster):
     """A fast producer stalls once it runs a full window ahead of a slow
     consumer (reference: _generator_backpressure_num_objects)."""

@@ -43,8 +43,11 @@ on the card, equal to the torch sum.
 
 Data and RLlib on the card: ``iter_torch_batches`` lands batches on the
 card by default (dtype, device, values; through a streaming split too), and
-one update of the conv PPO learner on the card equals the CPU's within 1e-4
-of each leaf's scale, TF32 off.
+one update of the conv PPO learner, and of the IMPALA and APPO learners, on
+the card equals the CPU's within 1e-4 of each leaf's scale, TF32 off. The
+LLM-RL learner's update at L=1024 through flash (K1-K3) equals dense
+attention's (f32, 1e-4), and a ``GenerationActor`` on K4 gives the gather
+path's greedy tokens and behavior log-probs (f32, 1e-4).
 """
 
 import time
@@ -1248,3 +1251,107 @@ def test_learner_update_on_the_card_equals_the_cpu(cuda):
     for a, b in zip(tree_leaves(card.get_weights()),
                     tree_leaves(host.get_weights())):
         assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max()
+
+
+def _impala_batch(T=50, N=8, seed=50):
+    rng = np.random.default_rng(seed)
+    term = (rng.random((T, N)) < 0.05).astype(np.float32)
+    valids = np.ones((T, N), np.float32)
+    valids[1:][term[:-1] > 0] = 0.0
+    return {"obs": rng.standard_normal((T, N, 4)).astype(np.float32),
+            "actions": rng.integers(0, 2, (T, N)).astype(np.float32),
+            "logp": np.log(rng.uniform(0.2, 0.8, (T, N))).astype(np.float32),
+            "rewards": np.ones((T, N), np.float32),
+            "terminateds": term, "valids": valids,
+            "bootstrap_obs": rng.standard_normal((N, 4)).astype(np.float32)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["ImpalaLearner", "APPOLearner"])
+def test_impala_learner_update_on_the_card_equals_the_cpu(cuda, name):
+    """IMPALA's (V-trace) and APPO's learner: one update on the card from a
+    CPU learner's parameters equals the CPU's, within 1e-4 of each leaf's
+    scale, TF32 off."""
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib.rl_module import tree_leaves
+
+    cls = getattr(rllib, name)
+    spec = rllib.RLModuleSpec(observation_dim=4, action_dim=2,
+                              hidden=(64, 64))
+    cfg = {"lr": 5e-4, "gamma": 0.99, "vf_loss_coeff": 0.5,
+           "entropy_coeff": 0.01, "clip_param": 0.2, "grad_clip": 40.0}
+    host = cls(spec, dict(cfg, device="cpu"), seed=0)
+    card = cls(spec, dict(cfg, device="cuda"), seed=1)
+    card.set_weights(host.get_weights())
+    batch = _impala_batch()
+    mh, mc = host.update(batch), card.update(batch)
+    assert abs(mc["loss"] - mh["loss"]) <= 1e-4 * abs(mh["loss"])
+    for a, b in zip(tree_leaves(card.get_weights()),
+                    tree_leaves(host.get_weights())):
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max()
+
+
+def _llm_cfg(**kw):
+    return transformer.tiny(**dict(dict(
+        vocab_size=512, d_model=128, n_layers=2, n_heads=2, d_ff=256,
+        max_seq_len=1024, vocab_multiple=128, dtype=torch.float32), **kw))
+
+
+@pytest.mark.gpu
+def test_llm_rl_learner_update_flash_equals_dense(cuda):
+    """The LLM-RL learner on the card at L=1024 (flash: K1 forward, K2/K3
+    backward) against the same update through dense attention, f32: loss
+    and grad norm 1e-4 relative; each gradient leaf within 1e-4 of its
+    largest entry, floored at 1e-3 of the model's largest (bk's gradient is
+    0 in exact arithmetic: both paths give rounding noise there)."""
+    from ray_tpu_torch.rllib.llm_rl import LLMRLLearner
+
+    cfg = {"lr": 1e-3, "clip_param": 0.3, "grad_clip": 1.0, "device": "cuda"}
+    rng = np.random.default_rng(0)
+    B, L = 2, 1024
+    mask = np.zeros((B, L), np.float32)
+    mask[:, 100:140] = 1.0
+    batch = {"tokens": rng.integers(0, 512, (B, L)).astype(np.int32),
+             "gen_mask": mask,
+             "behavior_logp": (mask * -6.0).astype(np.float32),
+             "advantage": np.array([1.0, -1.0], np.float32)}
+    out = {}
+    for attn in ("flash", "dense"):
+        learner = LLMRLLearner(_llm_cfg(attn_impl=attn), cfg, seed=0)
+        before = fa.dq_launches
+        loss = learner.compute_grads(learner._device_batch(batch))
+        grads = [p.grad.clone() for p in learner._leaves]
+        norm = learner.apply_grads()
+        if attn == "flash":
+            assert fa.dq_launches - before == 2
+        out[attn] = (loss.item(), norm.item(), grads)
+    (lf, nf, gf), (ld, nd, gd) = out["flash"], out["dense"]
+    assert abs(lf - ld) <= 1e-4 * abs(ld)
+    assert abs(nf - nd) <= 1e-4 * nd
+    floor = 1e-3 * max(g.abs().max().item() for g in gd)
+    for a, b in zip(gf, gd):
+        assert ((a - b).abs().max().item()
+                <= 1e-4 * max(b.abs().max().item(), floor))
+
+
+@pytest.mark.gpu
+def test_generation_actor_on_the_kernel_matches_plain(cuda):
+    """A ``GenerationActor`` on the paged kernel against one on the gather
+    path, same weights, f32: greedy tokens equal, behavior log-probs 1e-4,
+    K4 launched."""
+    from ray_tpu_torch.rllib.llm_rl import GenerationActor
+
+    cfg = _llm_cfg(n_heads=2, max_seq_len=256)
+    params = transformer.init_params(cfg, 0, device="cpu")
+    kern = GenerationActor(cfg, params=params, device="cuda",
+                           attention_kernel="cuda")
+    plain = GenerationActor(cfg, params=params, device="cuda",
+                            attention_kernel="gather")
+    prompts = [list(range(1, 40)), list(range(7, 12))]
+    before = pa.launches
+    a = kern.rollout(prompts, [0, 1], 16, 0.0)
+    assert pa.launches > before
+    b = plain.rollout(prompts, [0, 1], 16, 0.0)
+    np.testing.assert_array_equal(a["tokens"], b["tokens"])
+    np.testing.assert_allclose(a["behavior_logp"], b["behavior_logp"],
+                               atol=1e-4, rtol=1e-4)

@@ -13,6 +13,7 @@ cluster's workers cannot import it.
 """
 
 import sys
+import threading
 import time
 
 import cloudpickle
@@ -307,15 +308,73 @@ def test_pull_into_multi_reassigns_and_aborts(two_nodes):
 # ====================== location-push wakeups ======================
 
 
-def test_sealed_late_get_wakes_on_push_not_poll(two_nodes):
-    _cluster, core = two_nodes
-    owner = _Owner.remote()
+def test_sealed_late_get_wakes_on_push_not_poll(two_nodes, monkeypatch):
+    cluster, core = two_nodes
+    # The owner seals on the other node: a seal into this node's arena is
+    # found by the get's local probe, with no location needed.
+    other = next(h for h in cluster.nodes
+                 if h.node_id != core.current_node_id)
+    owner = _Owner.options(
+        scheduling_strategy=ray_tpu.NodeAffinitySchedulingStrategy(
+            node_id=other.node_id, soft=False)).remote()
     ray_tpu.get(owner.make.remote(1, 8), timeout=120)  # actor warm
     before = core.get_stats()
     oid = ObjectID.for_put()
-    seal_fut = owner.seal_after.remote(oid.binary(), 0.15, 256 * 1024)
-    value = ray_tpu.get(ObjectRef(oid), timeout=60)
-    t_return = time.monotonic()
+    got = {}
+    # The GCS calls, ordered: a long poll of the location channel whose
+    # server-side filter holds this object (the subscriber's parked poll,
+    # which the seal's push ends) is noted; once the seal is asked for, a
+    # fallback locate of the object waits for that push to be delivered
+    # and answers as of before the seal (no location) — a loaded host's
+    # slow push must not lose to the quarter-second fallback poll. A push
+    # that never comes releases it after 10 s and fails the assertions.
+    key = oid.binary()
+    parked = []
+    sealing, pushed = threading.Event(), threading.Event()
+    call = core._gcs_rpc.call
+
+    def ordered(method, *args, **kw):
+        if method == "locate_object" and args[0] == key and sealing.is_set():
+            pushed.wait(10.0)
+            return []
+        if (method == "subscribe_object_locations" and args[1] > 0
+                and key in args[2]):
+            parked.append(time.monotonic())
+        out = call(method, *args, **kw)
+        if method == "subscribe_object_locations" and any(
+                m[0] == key for m in out[1]):
+            pushed.set()
+        return out
+
+    monkeypatch.setattr(core._gcs_rpc, "call", ordered)
+
+    def waiter():
+        got["value"] = ray_tpu.get(ObjectRef(oid), timeout=60)
+        got["t"] = time.monotonic()
+
+    getter = threading.Thread(target=waiter, daemon=True)
+    getter.start()
+    # The seal is asked for only once the get's waiter is registered, a
+    # poll carrying its object is parked at the GCS, and the get's own
+    # fallback locate has just run: a locate in flight at the seal could
+    # find the object, and no push would be needed.
+    deadline = time.monotonic() + 30.0
+    while True:
+        with core._loc_lock:
+            registered = oid in core._loc_waiters
+        if registered and parked:
+            break
+        assert time.monotonic() < deadline, "the get never armed its waiter"
+        time.sleep(0.002)
+    locates = core.get_stats()["locate_calls"]
+    while core.get_stats()["locate_calls"] == locates:
+        assert time.monotonic() < deadline, "no fallback locate ran"
+        time.sleep(0.002)
+    sealing.set()
+    seal_fut = owner.seal_after.remote(oid.binary(), 0.0, 256 * 1024)
+    getter.join(timeout=60)
+    assert not getter.is_alive()
+    value, t_return = got["value"], got["t"]
     t_seal = ray_tpu.get(seal_fut, timeout=60)
     assert value == b"s" * 256 * 1024
     after = core.get_stats()

@@ -194,11 +194,11 @@ def test_serve_knobs_match_the_jax_defaults(monkeypatch):
     port = config()
     names = [n for n, v in vars(Config).items()
              if type(v).__name__ == "_Flag"]
-    assert len(names) == 83   # 21 serve knobs (the KV tier's 5 among
+    assert len(names) == 86   # 21 serve knobs (the KV tier's 5 among
     #                           them), 9 of the transport and observability
     #                           modules, 14 of the runtime, 34 of the
     #                           multi-process cluster, 5 of the compiled
-    #                           DAG and the collectives
+    #                           DAG and the collectives, 3 of RLlib
     for n in names:
         if n == "object_spilling_dir":  # by design: "" = under TMPDIR
             assert port.object_spilling_dir == ""
@@ -251,7 +251,7 @@ def test_env_spec_tokens_without_a_draft_raises_as_in_jax(monkeypatch):
                        **GEOM)
 
 
-def test_env_kv_tier_raises_not_yet_ported(monkeypatch):
+def test_env_kv_tier_builds_the_engine_with_a_tier(monkeypatch):
     """``RAY_TPU_KV_TIER_ENABLED=1`` turns the cluster KV tier on, in JAX
     and now in the port (whose paged engine once refused it): the engine
     builds with a tier client, reports the tier's stats, and ``close``
