@@ -324,6 +324,36 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    locally with its own generator. The env loops of IMPALA, APPO, DQN,
    SAC, CQL and the multi-agent PPO wait for gymnasium where it is absent.
 
+20. cluster operations — last on phase 13's cluster, before its teardown.
+   20a: a driver script written into ``build/phase20/`` is submitted with
+   ``JobSubmissionClient.submit_job`` (``working_dir`` that directory, both
+   runtime checkers on through ``env_vars``, the GCS address on its command
+   line); it attaches, builds phase 13's engine actor (``num_gpus=1``,
+   gpt2_small at full width, bf16, seed-0 weights, K4), serves phase 4's six
+   greedy requests, then phase 13's eight (their decode rate set beside
+   phase 13's actor's), and prints one line: the streams (equal to phase 13's
+   actor's), K4's launches by route read in the actor (= 12 x prefills,
+   decode steps), its lock-order violations and its leaks after
+   ``shutdown()`` (none of either); the job ends ``SUCCEEDED`` and the
+   card's ``GPU`` is free again. A job exiting 3 ends ``FAILED``, a sleeping
+   one ``STOPPED`` under ``stop_job`` with its process group gone (the
+   seconds to that, and its members if it outlived SIGTERM). 20b,
+   where aiohttp imports: the dashboard's ``/api/nodes`` (the card node,
+   ``GPU`` 1, no ``TPU`` key), ``/api/jobs`` (the three end states),
+   ``/api/node_stats`` (both daemons) and ``/metrics`` (the job actor's
+   ``ray_tpu_serve_tokens_total`` and TTFT count). 20c: ``python -m
+   ray_tpu_torch.scripts status --gcs --json`` (both nodes, ``GPU`` 1) and
+   ``debug --session --gcs --json`` (phase 13's SIGKILLed worker DEAD, the
+   job's driver a clean exit, the job's actor worker, which ``rt.kill``
+   SIGKILLs, DEAD). 20d: the ``Autoscaler`` over
+   ``GcsAutoscalerView`` and ``LocalDaemonNodeProvider``, one CPU node type
+   with a probe resource (``max_workers`` 1, idle 5 s): a task needing the
+   probe parks as a demand, a daemon is launched, registers and runs it
+   (its worker imports no torch), then idles out and leaves the alive set;
+   the card node untouched. Phase 13 ends by printing the GCS's late health
+   ticks (``health_loop_stats``) and copies its stall stacks, if any, to
+   ``chiprun_out/gcs_stall_stacks.txt``.
+
 In phases 5 and 8-14 a greedy stream that departs from its reference must
 do so at a near tie: the plain path's top-2 logit gap there under 1e-3.
 
@@ -2381,6 +2411,13 @@ class _EngineActor:
     def active_blocks(self):
         return self.eng.kv.active_blocks()
 
+    def flush_metrics(self):
+        """Export this process's metrics to the GCS now, not at the next
+        tick."""
+        from ray_tpu_torch.core.runtime import get_runtime
+
+        get_runtime()._metrics_exporter.flush()
+
     def noop(self):
         return None
 
@@ -3457,7 +3494,8 @@ def phase_cluster(torch, np, card, counts, runtime_summary, serve_summary,
     actor = _serve_summary(None, reqs, results, wall, rate=rate)
     actor.update(prefill_forwards=d_pref, decode_forwards=d_dec,
                  launches=got, pid=info["pid"], setup_s=info["setup_s"],
-                 held_bytes=held)
+                 held_bytes=held, greedy_streams={
+                     n: results[n]["tokens"] for n in GREEDY})
     actor["noop_round_trip_us"] = _noop_round_trip_us(rt, a)
     summary["actor"] = actor
     log(f"[cluster] {len(reqs)} requests as streaming .remote() calls into "
@@ -3662,6 +3700,24 @@ def phase_cluster(torch, np, card, counts, runtime_summary, serve_summary,
                                                procs, train, mesh)
     # Phase 18c, the Data pipeline across processes, after it.
     summary["data"] = phase_data_cluster(torch, np, rt, card, node_b)
+    # Phase 20, cluster operations, last on this cluster.
+    summary["ops"] = phase_cluster_ops(torch, np, rt, card, cluster, node_a,
+                                       node_b, procs, summary)
+
+    # The GCS's own punctuality over the whole cluster run: health ticks
+    # that woke more than a period late, and its stacks when one did.
+    late = _gcs_call(cluster, "health_loop_stats")
+    summary["gcs_health_ticks"] = late
+    log(f"[cluster] the GCS's health loop: {late['late_ticks']} ticks woke "
+        f"more than a period late, the worst by {late['worst_late_s']:.3f} s"
+        + (f" (stacks in {late['stacks_path']})" if late["late_ticks"]
+           else ""))
+    if late["late_ticks"] and late["stacks_path"]:
+        import shutil
+
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        shutil.copy(late["stacks_path"],
+                    ROOT / "chiprun_out" / "gcs_stall_stacks.txt")
 
     # 7. Tear down.
     for i in range(2):
@@ -6277,6 +6333,454 @@ def phase_rl(torch, np, card, counts):
     return summary
 
 
+# -- phase 20: cluster operations ---------------------------------------------
+JOB_TIMEOUT_S = 600                    # submit -> SUCCEEDED, a cold GPU worker
+JOB_RESULT = "JOB_RESULT "             # the job driver's one result line
+JOB_SCRIPT = "job_driver.py"
+JOB_ENV = {"RAY_TPU_LOCK_ORDER_CHECK_ENABLED": "1",
+           "RAY_TPU_LEAK_CHECK_ENABLED": "1"}
+JOB_DTYPE = "bfloat16"                 # the job's model: gpt2_small in bf16
+AUTOSCALE_PROBE = "autoscale-probe"    # a resource only the launched node has
+AUTOSCALE_IDLE_S = 5.0
+
+
+def _job_driver_source():
+    """A submitted job's driver script (written into the run directory; not
+    a file of the package). Its argv: GCS address, n_layers, dtype name."""
+    return ("import sys\n"
+            "import chip_smoke\n"
+            "sys.exit(chip_smoke._job_main(sys.argv[1:]))\n")
+
+
+def _job_main(argv):
+    """The job's driver: attach to the cluster, build phase 13's engine
+    actor (``num_gpus=1``, seed-0 weights) at ``n_layers`` in ``dtype``,
+    serve phase 4's six greedy requests through it, then phase 13's eight
+    (their decode rate set beside phase 13's), and print one
+    ``JOB_RESULT`` line: the streams, K4's launches by route read in the
+    actor's process, this process's lock-order violations, and its leaks
+    after ``shutdown()``. This process holds no card."""
+    import types
+
+    from ray_tpu_torch.devtools import leakcheck, lockcheck
+
+    before = leakcheck.snapshot()
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models import transformer
+
+    address, n_layers, dtype = argv
+    t0 = time.time()
+    rt.init(address=address)
+    cfg = transformer.gpt2_small(n_layers=int(n_layers),
+                                 dtype=getattr(torch, dtype))
+    a = rt.remote(num_gpus=1, max_concurrency=8)(_EngineActor).remote(
+        cfg, 0, "job-actor")
+    info = rt.get(a.info.remote(), timeout=JOB_TIMEOUT_S)
+    info["setup_s"]["to_init"] = info["setup_s"].pop("init_at") - t0
+    reqs = _pipeline_requests(np)
+    st0 = rt.get(a.stats.remote())
+    dec0 = rt.get(a.decode_counters.remote())
+    rt.get(a.reset_launches.remote())
+    no_card = types.SimpleNamespace(
+        cuda=types.SimpleNamespace(synchronize=lambda: None))
+    results, wall = _serve(no_card, _ActorStreams(rt, a), reqs, "job")
+    dec6 = rt.get(a.decode_counters.remote())
+    # Then phase 13's eight requests (the six beside two sampled ones), as
+    # phase 13's actor serves them: the decode rate to set beside its own.
+    res8, wall8 = _serve(no_card, _ActorStreams(rt, a), _requests(np),
+                         "job-8")
+    launches = rt.get(a.launches.remote())
+    st1 = rt.get(a.stats.remote())
+    dec1 = rt.get(a.decode_counters.remote())
+    rt.get(a.flush_metrics.remote())
+    rt.kill(a)
+    rt.shutdown()
+    leaks = leakcheck.check(before)
+    out = {"pid": os.getpid(), "actor": info,
+           "streams": {n: r["tokens"] for n, r in results.items()},
+           "launches": {r: launches[f"paged_attention/{r}"]
+                        for r in ("wgmma", "split")},
+           "prefills": int(st1["prefill_forwards"] - st0["prefill_forwards"]),
+           "decode_steps": int(st1["decode_forwards"]
+                               - st0["decode_forwards"]),
+           "n_layers": cfg.n_layers, "wall_s": wall, "wall8_s": wall8,
+           "tokens8": sum(len(r["tokens"]) for r in res8.values()),
+           "requests8": len(res8),
+           "decode_tokens_per_s": (dec6[0] - dec0[0]) / (dec6[1] - dec0[1]),
+           "decode8_tokens_per_s": (dec1[0] - dec6[0]) / (dec1[1] - dec6[1]),
+           "lockcheck_installed": lockcheck.installed(),
+           "leakcheck_installed": leakcheck.installed(),
+           "violations": lockcheck.violations(), "leaks": leaks}
+    print(JOB_RESULT + json.dumps(out), flush=True)
+    return 0
+
+
+def _job_result(client, job_id):
+    lines = [ln for ln in client.get_job_logs(job_id).splitlines()
+             if ln.startswith(JOB_RESULT)]
+    return json.loads(lines[-1][len(JOB_RESULT):]) if lines else None
+
+
+def _wait_job(client, job_id, timeout_s, seen=None):
+    """Poll ``job_id`` to a terminal state; ``seen`` gets the seconds at
+    which each status was first seen."""
+    from ray_tpu_torch.job_submission import JobStatus
+
+    t0 = time.perf_counter()
+    while True:
+        status = client.get_job_status(job_id)
+        if seen is not None:
+            seen.setdefault(status, time.perf_counter() - t0)
+        if status in JobStatus.TERMINAL:
+            return status
+        if time.perf_counter() - t0 > timeout_s:
+            fail(f"ops: job {job_id} still {status} after {timeout_s} s:\n"
+                 f"{client.get_job_logs(job_id)[-3000:]}")
+        time.sleep(0.05)
+
+
+def submit_gpt2_job(rt, client, run_dir, address, n_layers, dtype):
+    """Write the job driver into ``run_dir`` and submit it with both runtime
+    checkers on; returns (job id, its result line, status timings)."""
+    from ray_tpu_torch.job_submission import JobStatus
+
+    run_dir.mkdir(parents=True, exist_ok=True)
+    (run_dir / JOB_SCRIPT).write_text(_job_driver_source())
+    t0 = time.perf_counter()
+    job = client.submit_job(
+        entrypoint=f"{sys.executable} {JOB_SCRIPT} {address} {n_layers} "
+                   f"{dtype}",
+        runtime_env={"working_dir": str(run_dir),
+                     "env_vars": dict(JOB_ENV)})
+    seen = {"submitted": time.perf_counter() - t0}
+    status = _wait_job(client, job, JOB_TIMEOUT_S, seen)
+    result = _job_result(client, job)
+    if status != JobStatus.SUCCEEDED or result is None:
+        fail(f"ops: the GPT-2 job ended {status}:\n"
+             f"{client.get_job_logs(job)[-4000:]}")
+    return job, result, seen
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _http_get(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return resp.read().decode()
+
+
+def _cli(*args):
+    """``python -m ray_tpu_torch.scripts <args>`` as a subprocess."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ray_tpu_torch.scripts",
+                           *args], capture_output=True, text=True,
+                          timeout=120, cwd=str(ROOT))
+    if proc.returncode != 0:
+        fail(f"ops: ray_tpu_torch.scripts {' '.join(args)} exited "
+             f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout), time.perf_counter() - t0
+
+
+def _probe_task():
+    import sys as _sys
+
+    return os.getpid(), "torch" in _sys.modules
+
+
+def phase_cluster_ops(torch, np, rt, card, cluster, node_a, node_b, procs,
+                      cluster_summary):
+    """Phase 20, inside phase 13's cluster before its teardown: a submitted
+    job serves GPT-2 124M on the card (20a), the dashboard (20b), the CLI as
+    a subprocess (20c), the autoscaler adding and removing a node (20d)."""
+    from ray_tpu_torch.core.runtime import get_runtime
+    from ray_tpu_torch.job_submission import (_STOP_WAIT_S, JobStatus,
+                                              JobSubmissionClient,
+                                              group_members)
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.util import flightrec
+
+    out = {}
+    t_phase = time.perf_counter()
+    _wait_card_free(rt, "ops", "phase 13's actors")
+    try:
+        import aiohttp  # noqa: F401
+        have_aiohttp = True
+    except ImportError:
+        have_aiohttp = False
+    dash = None
+    if have_aiohttp:
+        from ray_tpu_torch.dashboard import start_dashboard
+
+        dash = start_dashboard(port=_free_port())
+
+    # 20a. The GPT-2 job, then one that fails and one that is stopped.
+    client = JobSubmissionClient()
+    run_dir = _phase_dir("phase20", fresh=True)
+    L = transformer.gpt2_small().n_layers
+    job, res, seen = submit_gpt2_job(rt, client, run_dir,
+                                     cluster.gcs_address, L, JOB_DTYPE)
+    want_streams = cluster_summary["actor"]["greedy_streams"]
+    if res["streams"] != want_streams:
+        bad = [n for n in want_streams if res["streams"].get(n)
+               != want_streams[n]]
+        fail(f"ops: the job's greedy streams differ from phase 13's actor's: "
+             f"{bad}")
+    want = {"wgmma": L * res["prefills"], "split": L * res["decode_steps"]}
+    if res["launches"] != want or not all(want.values()):
+        fail(f"ops: K4 launches by route in the job's actor "
+             f"{res['launches']}, wanted {want} = {L} layers x (prefills "
+             f"{res['prefills']}, decode steps {res['decode_steps']})")
+    if not (res["lockcheck_installed"] and res["leakcheck_installed"]):
+        fail(f"ops: the job's driver ran without its checkers: {res}")
+    if res["violations"] or res["leaks"]:
+        fail(f"ops: the job's driver: lock-order violations "
+             f"{res['violations']}, leaks after shutdown() {res['leaks']}")
+    info = res["actor"]
+    if (info["engine"] != "PagedLLMEngine" or info["attention_kernel"] != "cuda"
+            or torch_device_type(info["device"]) != DEVICE):
+        fail(f"ops: the job's engine actor is {info}")
+    procs.add(info["pid"])
+    _wait_card_free(rt, "ops", "the job's actor")
+    p13 = cluster_summary["actor"]
+    job_a = {"job_id": job, "status_s": seen, "driver_pid": res["pid"],
+             "actor_pid": info["pid"], "setup_s": info["setup_s"],
+             "launches": res["launches"], "prefills": res["prefills"],
+             "decode_steps": res["decode_steps"], "wall_s": res["wall_s"],
+             "decode_tokens_per_s": res["decode_tokens_per_s"],
+             "wall8_s": res["wall8_s"],
+             "decode8_tokens_per_s": res["decode8_tokens_per_s"]}
+    log(f"[ops] 20a job {job}: submit -> RUNNING {seen['RUNNING']:.2f} s -> "
+        f"SUCCEEDED {seen['SUCCEEDED']:.2f} s; its driver (pid {res['pid']}, "
+        f"lockcheck and leakcheck on) built {info['engine']} gpt2_small in a "
+        f"num_gpus=1 actor (worker {info['pid']}; set-up "
+        + ", ".join(f"{k} {v:.1f}" for k, v in info["setup_s"].items())
+        + f" s) and served phase 4's {len(want_streams)} greedy requests in "
+        f"{res['wall_s']:.2f} s: decode {res['decode_tokens_per_s']:.1f} "
+        f"tokens/s; then phase 13's 8 requests in {res['wall8_s']:.2f} s: "
+        f"decode {res['decode8_tokens_per_s']:.1f} tokens/s (phase 13's "
+        f"actor {p13['decode_tokens_per_s']:.1f}, 8 requests); streams "
+        f"equal phase 13's; K4 wgmma "
+        f"{want['wgmma']} = {L} x {res['prefills']} prefills, split "
+        f"{want['split']} = {L} x {res['decode_steps']} decode steps; no "
+        f"lock-order violation, no leak after shutdown(); GPU back to 1  "
+        f"[{card}]")
+
+    t0 = time.perf_counter()
+    failed = client.submit_job(
+        entrypoint=f"{sys.executable} -c \"import sys; print('job exits 3'); "
+                   f"sys.exit(3)\"")
+    if (_wait_job(client, failed, 120) != JobStatus.FAILED
+            or client.get_job_info(failed)["returncode"] != 3
+            or "job exits 3" not in client.get_job_logs(failed)):
+        fail(f"ops: the exit-3 job: {client.get_job_info(failed)}")
+    sleeper = client.submit_job(
+        entrypoint=f"{sys.executable} -c \"import time; time.sleep(600)\"")
+    deadline = time.monotonic() + 60
+    while client.get_job_status(sleeper) != JobStatus.RUNNING:
+        if time.monotonic() > deadline:
+            fail("ops: the sleeping job never ran")
+        time.sleep(0.05)
+    pgid = get_runtime().gcs.jobs[sleeper].driver_pid
+    members = group_members(pgid)
+    t_stop = time.monotonic()
+    if not client.stop_job(sleeper) or _wait_job(client, sleeper, 60) \
+            != JobStatus.STOPPED:
+        fail(f"ops: stop_job: {client.get_job_info(sleeper)}")
+    while True:
+        try:
+            os.killpg(pgid, 0)
+        except ProcessLookupError:
+            break
+        if time.monotonic() - t_stop > _STOP_WAIT_S + 12:
+            fail(f"ops: the stopped job's process group {pgid} is alive: "
+                 f"{group_members(pgid)} (before stop_job: {members})")
+        time.sleep(0.05)
+    gone_s = time.monotonic() - t_stop
+    ends = {j: client.get_job_status(j) for j in (job, failed, sleeper)}
+    log(f"[ops] 20a a job exiting 3 ended FAILED (returncode 3, its line in "
+        f"the log); a sleeping job ended STOPPED under stop_job and its "
+        f"process group {pgid} ({', '.join(m['comm'] for m in members)}) "
+        f"was gone {gone_s:.2f} s after stop_job"
+        + (f" (it outlived SIGTERM: SIGKILL after {_STOP_WAIT_S:.0f} s; "
+           f"before stop_job {members})" if gone_s >= _STOP_WAIT_S else "")
+        + f"; both in {time.perf_counter() - t0:.2f} s")
+    out["jobs"] = {"gpt2": job_a, "ends": ends}
+
+    # 20b. The dashboard.
+    if dash is None:
+        log("[ops] 20b aiohttp absent: the dashboard waits")
+        out["dashboard"] = "aiohttp absent"
+    else:
+        t0 = time.perf_counter()
+        try:
+            nodes = json.loads(_http_get(f"{dash.url}/api/nodes"))
+            card_nodes = [n for n in nodes if n.get("state") == "ALIVE"
+                          and n["resources_total"].get("GPU") == 1.0]
+            if (len(card_nodes) != 1 or any(
+                    k.startswith("TPU") for n in nodes
+                    for k in n["resources_total"])):
+                fail(f"ops: /api/nodes {nodes}")
+            jobs = {j["job_id"]: j["status"]
+                    for j in json.loads(_http_get(f"{dash.url}/api/jobs"))}
+            if any(jobs.get(j) != s for j, s in ends.items()):
+                fail(f"ops: /api/jobs {jobs}, wanted {ends}")
+            stats = json.loads(_http_get(f"{dash.url}/api/node_stats"))
+            if len(stats) != 2 or any("error" in n or n.get("workers") is None
+                                      for n in stats):
+                fail(f"ops: /api/node_stats {stats}")
+            text = _http_get(f"{dash.url}/metrics")
+            tok = [ln for ln in text.splitlines()
+                   if ln.startswith("ray_tpu_serve_tokens_total{")
+                   and 'deployment="job-actor"' in ln]
+            ttft = [ln for ln in text.splitlines()
+                    if ln.startswith("ray_tpu_serve_ttft_s_count{")
+                    and 'deployment="job-actor"' in ln
+                    and 'phase="total"' in ln]
+            n_tok = (sum(len(t) for t in res["streams"].values())
+                     + res["tokens8"])
+            n_req = len(want_streams) + res["requests8"]
+            if (not tok or sum(float(ln.rsplit(" ", 1)[1]) for ln in tok)
+                    != n_tok or not ttft or sum(
+                    float(ln.rsplit(" ", 1)[1]) for ln in ttft) != n_req):
+                fail(f"ops: /metrics: the job actor's series {tok} {ttft}, "
+                     f"wanted {n_tok} tokens and {n_req} TTFTs")
+        finally:
+            dash.stop()
+        out["dashboard"] = {"s": time.perf_counter() - t0, "jobs": jobs,
+                            "nodes": len(nodes)}
+        log(f"[ops] 20b dashboard: /api/nodes shows the card node with GPU 1 "
+            f"and no TPU key; /api/jobs lists the three jobs "
+            f"({', '.join(sorted(ends.values()))}); /api/node_stats answers "
+            f"for both daemons; /metrics holds the job actor's "
+            f"ray_tpu_serve_tokens_total ({n_tok}) and ray_tpu_serve_ttft_s "
+            f"({n_req}); {time.perf_counter() - t0:.2f} s")
+
+    # 20c. The CLI as a subprocess.
+    status, status_s = _cli("status", "--gcs", cluster.gcs_address, "--json")
+    alive = [n for n in status["nodes"] if n.get("alive")]
+    if (len(alive) != 2 or sorted(n["resources"].get("GPU", 0)
+                                  for n in alive) != [0, 1.0]):
+        fail(f"ops: status --json nodes {status['nodes']}")
+    session = flightrec.session_dir()
+    dbg, debug_s = _cli("debug", "--session", session, "--gcs",
+                        cluster.gcs_address, "--json")
+    by_pid = {p["pid"]: p for p in dbg["processes"]}
+    killed = cluster_summary["kill"]["pid"]
+    dead = by_pid.get(killed)
+    if (dead is None or dead["alive"] or dead["clean_exit"]
+            or not any(f":{killed} is DEAD" in d for d in dbg["diagnosis"])):
+        fail(f"ops: debug does not name phase 13's SIGKILLed worker "
+             f"{killed} as a death: {dead}, {dbg['diagnosis'][:10]}")
+    drv = by_pid.get(res["pid"])
+    if drv is None or drv["alive"] or not drv["clean_exit"] or any(
+            f":{res['pid']} " in d for d in dbg["diagnosis"]):
+        fail(f"ops: debug: the job's driver {res['pid']} is {drv}")
+    # The job's driver ends its actor with rt.kill, which SIGKILLs the
+    # actor's worker (the daemon's kill_actor_worker), as in the JAX
+    # package: its ring has no shutdown record, and debug names it DEAD.
+    actor = info["pid"]
+    actor_ring = by_pid.get(actor)
+    if (actor_ring is None or actor_ring["alive"] or actor_ring["clean_exit"]
+            or not any(f":{actor} is DEAD" in d for d in dbg["diagnosis"])):
+        fail(f"ops: debug: the job's actor worker {actor}, killed by "
+             f"rt.kill, is {actor_ring}, {dbg['diagnosis'][:10]}")
+    out["cli"] = {"status_s": status_s, "debug_s": debug_s,
+                  "rings": len(dbg["processes"]),
+                  "deaths": len(dbg["diagnosis"])}
+    log(f"[ops] 20c python -m ray_tpu_torch.scripts status --gcs --json: "
+        f"both nodes alive, GPU 1 on one ({status_s:.2f} s); debug --session "
+        f"--gcs --json over {len(dbg['processes'])} rings names phase 13's "
+        f"SIGKILLed worker {killed} DEAD, the job's driver {res['pid']} a "
+        f"clean exit, and the job's actor worker {actor}, which rt.kill "
+        f"SIGKILLed, DEAD; {len(dbg['diagnosis'])} lines of diagnosis "
+        f"({debug_s:.2f} s)")
+
+    # 20d. The autoscaler adds a node for demand nothing can hold.
+    out["autoscaler"] = _phase_autoscale(rt, cluster, node_a,
+                                         cluster_summary)
+    out["s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _phase_autoscale(rt, cluster, node_a, cluster_summary):
+    from ray_tpu_torch.autoscaler import (Autoscaler, AutoscalerConfig,
+                                          GcsAutoscalerView,
+                                          LocalDaemonNodeProvider, NodeType)
+
+    arena = cluster_summary["arena_bytes"]
+    if arena != CLUSTER_ARENA:      # the new daemon's arena, cut as phase 13's
+        os.environ["RAY_TPU_OBJECT_STORE_MEMORY"] = str(arena)
+    provider = LocalDaemonNodeProvider(cluster.gcs_address)
+    scaler = Autoscaler(provider, AutoscalerConfig(
+        node_types=[NodeType("cpu-probe", {"CPU": 2, AUTOSCALE_PROBE: 1},
+                             max_workers=1)],
+        idle_timeout_s=AUTOSCALE_IDLE_S, update_interval_s=0.1),
+        runtime=GcsAutoscalerView())
+    try:
+        t0 = time.perf_counter()
+        ref = rt.remote(resources={AUTOSCALE_PROBE: 1})(_probe_task).remote()
+        while not any(d.get(AUTOSCALE_PROBE) for d in
+                      _gcs_call(cluster, "pending_resource_demands")):
+            if time.perf_counter() - t0 > 30:
+                fail("ops: the probe task never parked as a demand")
+            time.sleep(0.05)
+        parked = time.perf_counter() - t0
+        scaler.start()
+        while not provider.non_terminated_nodes():
+            if time.perf_counter() - t0 > 60:
+                fail("ops: the autoscaler launched no node")
+            time.sleep(0.05)
+        inst = provider.non_terminated_nodes()[0]
+        registered = time.perf_counter() - t0
+        pid, has_torch = rt.get(ref, timeout=120)
+        result = time.perf_counter() - t0
+        if has_torch:
+            fail("ops: the probe task's worker imported torch")
+        t1 = time.perf_counter()
+        while provider.non_terminated_nodes():
+            if time.perf_counter() - t1 > 60:
+                fail("ops: the idle node was never terminated")
+            time.sleep(0.1)
+        terminated = time.perf_counter() - t1
+        while True:
+            nodes = _gcs_call(cluster, "list_nodes")
+            gone = [n for n in nodes if n["node_id"] == inst.node_id]
+            if gone and not gone[0]["alive"]:
+                break
+            if time.perf_counter() - t1 > 60:
+                fail(f"ops: the terminated node is still alive: {gone}")
+            time.sleep(0.1)
+        left = time.perf_counter() - t1
+    finally:
+        scaler.stop()
+        provider.shutdown()
+        os.environ.pop("RAY_TPU_OBJECT_STORE_MEMORY", None)
+    card = [n for n in nodes if n["node_id"] == node_a.node_id]
+    if not card or not card[0]["alive"] or card[0]["resources"].get(
+            "GPU") != 1.0 or rt.available_resources().get("GPU") != 1.0:
+        fail(f"ops: the card node after the autoscaler: {card}")
+    log(f"[ops] 20d autoscaler (LocalDaemonNodeProvider, one CPU node type "
+        f"with {AUTOSCALE_PROBE}, max_workers 1, idle {AUTOSCALE_IDLE_S:.0f} "
+        f"s): the probe task parked as a demand in {parked:.2f} s; a daemon "
+        f"launched and registered {registered:.2f} s after the submit, the "
+        f"task ran in its worker {pid} (no torch imported) at {result:.2f} "
+        f"s; idle -> terminated {terminated:.2f} s, out of the alive set "
+        f"{left:.2f} s; the card node untouched, GPU 1 free")
+    return {"parked_s": parked, "registered_s": registered,
+            "result_s": result, "terminated_s": terminated,
+            "left_alive_set_s": left}
+
+
 def _leaf_names(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -6341,6 +6845,9 @@ def main() -> None:
     done(18)
     rl = phase_rl(torch, np, card, counts)
     done(19)
+    ops = cluster.pop("ops")
+    log(f"[time] phase 20 (inside phase 13) took {ops['s']:.1f} s")
+    done(20)
 
     def bf16_case(label):
         return next(c for c in cases
@@ -6383,6 +6890,7 @@ def main() -> None:
             for r in ("wgmma", "split")},
         "tier_launches_by_route": tier["launches"],
         "dag_launches_by_route": dag["launches"],
+        "job_launches_by_route": ops["jobs"]["gpt2"]["launches"],
         "llm_rl_launches": rl["launches"]["paged_attention"],
         "llm_rl_launches_by_route": {
             r: rl["launches"][f"paged_attention/{r}"]
@@ -6416,7 +6924,7 @@ def main() -> None:
          "spec": spec,
          "disagg": disagg, "runtime": runtime, "serve": serving,
          "cluster": cluster, "tier": tier, "dag": dag, "trainer": trainer,
-         "data": data, "rl": rl},
+         "data": data, "rl": rl, "ops": ops},
         indent=1))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,6 +12,25 @@ groups, with the card (``GPU``) as the accelerator resource.
 
 import os as _os
 
+if _os.environ.get("RAY_TPU_LOCK_ORDER_CHECK_ENABLED", "").lower() in (
+        "1", "true", "yes", "on"):
+    # Instrument threading BEFORE the submodule imports below create the
+    # package's module-level locks (config._lock, runtime._init_lock, ...):
+    # installing any later leaves those invisible to the lock-order
+    # validator. devtools imports nothing back from the package, so this is
+    # cycle-safe; with the knob off devtools is never imported at all.
+    from ray_tpu_torch.devtools import lockcheck as _lockcheck
+
+    _lockcheck.install()
+
+if _os.environ.get("RAY_TPU_LEAK_CHECK_ENABLED", "").lower() in (
+        "1", "true", "yes", "on"):
+    # Same top-of-import rule: threads and fds created while the submodules
+    # below import must already carry allocation-site stamps.
+    from ray_tpu_torch.devtools import leakcheck as _leakcheck
+
+    _leakcheck.install()
+
 if _os.environ.get("RAY_TPU_JIT_CHECK_ENABLED", "").lower() in (
         "1", "true", "yes", "on"):
     # The steady-state guard wraps torch.Tensor's implicit-read methods;

@@ -330,6 +330,17 @@ class Config:
     trace_max_traces = _Flag(2048)
 
     # -- debugging ------------------------------------------------------------
+    # Opt-in runtime lock-order validator (ray_tpu_torch.devtools.lockcheck):
+    # threading.Lock/RLock/Condition are replaced with instrumented wrappers
+    # that track per-thread held-sets, maintain a global acquisition-order
+    # graph, and raise LockOrderError on an inversion. Dev/test only — adds
+    # per-acquire bookkeeping to every lock in the process.
+    lock_order_check_enabled = _Flag(False)
+    # Opt-in runtime leak validator (ray_tpu_torch.devtools.leakcheck):
+    # threads, os.open/os.pipe fds and sockets are stamped with their
+    # allocation site; a caller snapshots live threads/fds/shm segments
+    # before its work and names what survives its teardown. Dev/test only.
+    leak_check_enabled = _Flag(False)
     # Opt-in steady-state guard (ray_tpu_torch.devtools.jitcheck): inside
     # jitcheck.steady_state() — entered by the serve engines after warmup —
     # an implicit device->host read of a tensor or a kernel library built

@@ -39,7 +39,7 @@ from ray_tpu_torch.core.exceptions import (
     TaskError,
     WorkerDiedError,
 )
-from ray_tpu_torch.core.gcs import ActorInfo, NodeInfo
+from ray_tpu_torch.core.gcs import ActorInfo, JobInfo, NodeInfo
 from ray_tpu_torch.core.ids import ActorID, JobID, NodeID, ObjectID, TaskID
 from ray_tpu_torch.core.lease_table import is_block_lease
 from ray_tpu_torch.core.object_ref import ObjectRef
@@ -122,6 +122,19 @@ class _GcsClientAdapter:
 
     def cluster_resources(self) -> Dict[str, float]:
         return self._client.call("cluster_resources")
+
+    # -- jobs -----------------------------------------------------------------
+
+    @property
+    def jobs(self) -> Dict[Any, JobInfo]:
+        return {j.job_id: j for j in self._client.call("list_jobs")}
+
+    def add_job(self, info: JobInfo) -> None:
+        self._client.call("add_job", info.job_id, info.entrypoint,
+                          info.driver_pid, info.metadata)
+
+    def finish_job(self, job_id, status: str = "SUCCEEDED") -> None:
+        self._client.call("finish_job", job_id, status)
 
     # -- KV -------------------------------------------------------------------
 

@@ -26,6 +26,7 @@ hooks come with those checkers.
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import os
 import pickle
 import signal
@@ -56,6 +57,10 @@ from ray_tpu_torch.util import flightrec
 from ray_tpu_torch.utils.logging import get_logger, log_swallowed
 
 logger = get_logger("gcs_server")
+
+# Set by main(): only a GCS that is its own process writes its stacks to a
+# file of the session when a health tick comes late.
+_DUMP_STALL_STACKS = False
 
 # An actor's lease wait or its start on a daemon past this is logged as a
 # warning (each scheduling step is logged at DEBUG): the trail a creation
@@ -170,6 +175,12 @@ class GcsService:
         # threshold (a saturated pool of 128 handlers used to declare live
         # nodes dead in 5 s).
         self._hb_lock = threading.Lock()
+        # The health loop's own punctuality: ticks that woke more than a
+        # period late (the GCS process itself stalled) and the worst
+        # lateness, read by health_loop_stats.
+        self._late_ticks = 0
+        self._worst_late_s = 0.0
+        self._stall_stacks_path = ""
         # Clients whose death cleanup already ran (on_client_closed): late
         # grants to them are refused instead of leaking. Bounded (uuids
         # never repeat, so old entries are only a leak) and lifted on
@@ -328,8 +339,15 @@ class GcsService:
         cfg = config()
         period = cfg.health_check_period_s
         threshold = cfg.health_check_failure_threshold
-        while not self._stopped.wait(period):
+        stacks = self._open_stall_stacks() if _DUMP_STALL_STACKS else None
+        while True:
+            waited = time.monotonic()
+            if self._stopped.wait(period):
+                break
+            late = time.monotonic() - waited - period
             now = time.time()
+            if late > period:
+                self._on_late_tick(late, now, stacks)
             dead: List[NodeID] = []
             with self._hb_lock:
                 for node_id, last in list(self._heartbeats.items()):
@@ -343,6 +361,56 @@ class GcsService:
                 self._watchdog_tick(now)
             except Exception:  # noqa: BLE001 — diagnostics never kill health
                 log_swallowed(logger, "watchdog tick")
+        if stacks is not None:
+            stacks.close()
+
+    def _open_stall_stacks(self):
+        path = os.path.join(flightrec.session_dir(),
+                            f"gcs-{os.getpid()}-stall-stacks.txt")
+        try:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            f = open(path, "a")
+        except OSError:
+            log_swallowed(logger, "stall stacks file")
+            return None
+        self._stall_stacks_path = path
+        return f
+
+    def _on_late_tick(self, late: float, now: float, stacks=None) -> None:
+        """The health tick woke more than a period late: this process was
+        held (a starved host, the GIL, a GC pass, SIGSTOP), so heartbeats
+        that arrived meanwhile sat unread. Credit the stall to every node
+        instead of counting it as their silence: each stamp moves forward by
+        the lateness (never past now). A daemon silent on its own still ages
+        out threshold periods after its last heartbeat, stall excluded."""
+        self._late_ticks += 1
+        self._worst_late_s = max(self._worst_late_s, late)
+        load = os.getloadavg()
+        with self._hb_lock:
+            for node_id, last in self._heartbeats.items():
+                self._heartbeats[node_id] = min(now, last + late)
+            n = len(self._heartbeats)
+        logger.warning(
+            "health tick woke %.2f s late (load %.2f %.2f %.2f): the GCS "
+            "itself stalled; %d nodes' heartbeat stamps re-based (stacks "
+            "in %s)", late, *load, n, self._stall_stacks_path or "-")
+        flightrec.record("health", "gcs", f"tick late {late:.2f}s")
+        if stacks is not None:
+            # Every thread's stack as the tick resumes, dumped from this
+            # thread with the GIL held. faulthandler's timer thread could
+            # dump during the stall, but it walks the frames of threads
+            # that are running, and after an 8 s SIGSTOP it crashed the
+            # GCS (SIGSEGV) now and then.
+            stacks.write(f"--- health tick {late:.2f} s late at {now:.3f}\n")
+            stacks.flush()
+            faulthandler.dump_traceback(file=stacks, all_threads=True)
+            stacks.flush()
+
+    def health_loop_stats(self) -> dict:
+        """Late health ticks of this GCS (the process's own stalls)."""
+        return {"late_ticks": self._late_ticks,
+                "worst_late_s": self._worst_late_s,
+                "stacks_path": self._stall_stacks_path}
 
     def _watchdog_tick(self, now: float) -> None:
         cfg = config()
@@ -1529,12 +1597,20 @@ class GcsService:
     def has_function(self, function_id: str) -> bool:
         return self.store.get_function(function_id) is not None
 
-    def add_job(self, job_id: JobID, entrypoint: str = "", pid: int = 0) -> None:
+    def add_job(self, job_id: JobID, entrypoint: str = "", pid: int = 0,
+                metadata: Optional[Dict[str, str]] = None) -> None:
         self.store.add_job(JobInfo(job_id=job_id, driver_pid=pid,
-                                   entrypoint=entrypoint))
+                                   entrypoint=entrypoint,
+                                   metadata=dict(metadata or {})))
 
     def finish_job(self, job_id: JobID, status: str = "SUCCEEDED") -> None:
         self.store.finish_job(job_id, status)
+
+    def list_jobs(self) -> List[JobInfo]:
+        """The job table: drivers, and jobs submitted through
+        ``job_submission`` (keyed by their submission id)."""
+        with self.store._lock:
+            return list(self.store.jobs.values())
 
     def next_job_id(self) -> JobID:
         return JobID.next()
@@ -1866,6 +1942,12 @@ def serve(port: int = 0, host: str = "127.0.0.1",
 
 
 def main(argv=None) -> int:
+    from ray_tpu_torch.devtools.lockcheck import maybe_install
+
+    maybe_install()  # lock_order_check_enabled: instrument before any locks
+    from ray_tpu_torch.devtools.leakcheck import maybe_install as _leak_install
+
+    _leak_install()  # leak_check_enabled: stamp allocation sites early
     # SIGUSR1 → all-thread stack dump, same live-hang debug aid the worker
     # and node-daemon entry points install.
     import faulthandler
@@ -1884,6 +1966,8 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     set_config(Config())
     flightrec.init("gcs")
+    global _DUMP_STALL_STACKS
+    _DUMP_STALL_STACKS = True   # its own process: late ticks dump its stacks
     service, server = serve(args.port, args.host, args.snapshot,
                             args.restore_from)
     print(f"GCS_ADDRESS={server.address}", flush=True)

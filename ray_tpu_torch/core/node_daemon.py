@@ -1643,6 +1643,12 @@ class NodeDaemon:
 
 
 def main(argv=None) -> int:
+    from ray_tpu_torch.devtools.lockcheck import maybe_install
+
+    maybe_install()  # lock_order_check_enabled: instrument before any locks
+    from ray_tpu_torch.devtools.leakcheck import maybe_install as _leak_install
+
+    _leak_install()  # leak_check_enabled: stamp allocation sites early
     import faulthandler
 
     try:

@@ -322,6 +322,18 @@ class _Deferred:
         return out + (self.state,) if self.state is not None else out
 
 
+def _subimport_or_defer(name: str):
+    """cloudpickle's ``subimport`` (a module that a by-value function or
+    class names as a global) as a deferring reader runs it: the module if
+    this process has it, else a placeholder re-encoded as the same import.
+    Running it would import torch in the GCS, whose health loop then stalls
+    for as long as torch's libraries take to load."""
+    if name in sys.modules:
+        return sys.modules[name]
+    return _Deferred._make("call", (cloudpickle.cloudpickle.subimport,
+                                    (name,)))
+
+
 def _load_global_or_defer(module: str, name: str):
     """``_load_global`` as a deferring reader runs it (for a placeholder
     another deferring process re-encoded)."""
@@ -352,6 +364,8 @@ class _DeferringUnpickler(pickle._Unpickler):
         return _Deferred._make("global", (module, name))
 
     def find_class(self, module, name):
+        if module == "cloudpickle.cloudpickle" and name == "subimport":
+            return _subimport_or_defer
         if module == __name__ or module not in sys.modules:
             return self.resolve(module, name)
         return super().find_class(module, name)

@@ -876,6 +876,12 @@ def _install_stack_dumper() -> None:
 
 
 def main() -> int:
+    from ray_tpu_torch.devtools.lockcheck import maybe_install
+
+    maybe_install()  # lock_order_check_enabled: instrument before any locks
+    from ray_tpu_torch.devtools.leakcheck import maybe_install as _leak_install
+
+    _leak_install()  # leak_check_enabled: stamp allocation sites early
     _die_with_parent()
     _install_stack_dumper()
     if os.environ.get("RAY_TPU_PROFILE_WORKER"):

@@ -17,6 +17,12 @@ port, so several worlds can run side by side. A gloo collective whose peer
 died waits forever; so every collective carries ``timeout_s``, the world
 has a deadline, and when one rank fails, or the deadline passes, every
 rank is killed and the call raises with the failed rank's traceback.
+
+The deadline has two parts. Each rank marks its join once its process
+group is up; ``_STARTUP_S`` bounds the spawn up to the last join (cold
+interpreters importing torch under a loaded host), and ``timeout_s`` counts
+from that last join, so the time a world may run ``fn`` does not shrink
+with a slow start.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from datetime import timedelta
 from typing import Any, Callable, List
 
 _POLL_S = 0.05
+_STARTUP_S = 120.0      # spawn to the last rank's join
 
 
 class WorldError(RuntimeError):
@@ -42,8 +49,9 @@ def run_world(fn: Callable, world_size: int, *args, backend: str = "gloo",
               timeout_s: float = 120.0) -> List[Any]:
     """Run ``fn(rank, world_size, *args)`` on every rank of a new world and
     return the results in rank order. Raises ``WorldError`` (every rank
-    killed) when a rank fails or the world is not done within
-    ``timeout_s``."""
+    killed) when a rank fails, when not every rank has joined within
+    ``_STARTUP_S`` of the spawn, or when the world is not done within
+    ``timeout_s`` of the last join."""
     with tempfile.TemporaryDirectory(prefix="rtpu-world-") as tmp:
         job = os.path.join(tmp, "job.pkl")
         with open(job, "wb") as f:
@@ -70,21 +78,35 @@ def run_world(fn: Callable, world_size: int, *args, backend: str = "gloo",
                 p.wait()
 
 
+def _joined(tmp: str, rank: int) -> bool:
+    return os.path.exists(os.path.join(tmp, f"joined{rank}"))
+
+
 def _collect(procs, tmp: str, timeout_s: float) -> List[Any]:
-    deadline = time.monotonic() + timeout_s
+    startup_deadline = time.monotonic() + _STARTUP_S
+    deadline = None     # timeout_s from the last join, once every rank joined
     while any(p.poll() is None for p in procs):
         failed = [r for r, p in enumerate(procs)
                   if p.poll() not in (None, 0)]
         if failed:
             raise WorldError(_failure(procs, tmp, failed[0]))
-        if time.monotonic() > deadline:
+        now = time.monotonic()
+        if deadline is None:
+            waiting = [r for r in range(len(procs)) if not _joined(tmp, r)]
+            if not waiting:
+                deadline = now + timeout_s
+            elif now > startup_deadline:
+                _dump_stacks(procs, waiting)
+                raise WorldError(f"world of {len(procs)} not started within "
+                                 f"{_STARTUP_S} s; ranks {waiting} not joined; "
+                                 f"rank {waiting[0]}'s stacks:\n"
+                                 f"{_stderr_tail(tmp, waiting[0])}")
+        elif now > deadline:
             stuck = [r for r, p in enumerate(procs) if p.poll() is None]
-            for r in stuck:         # each rank dumps its stacks (faulthandler)
-                os.kill(procs[r].pid, signal.SIGUSR1)
-            time.sleep(1.0)
+            _dump_stacks(procs, stuck)
             raise WorldError(f"world of {len(procs)} not done within "
-                             f"{timeout_s} s; ranks {stuck} still running; "
-                             f"rank {stuck[0]}'s stacks:\n"
+                             f"{timeout_s} s of its last join; ranks {stuck} "
+                             f"still running; rank {stuck[0]}'s stacks:\n"
                              f"{_stderr_tail(tmp, stuck[0])}")
         time.sleep(_POLL_S)
     failed = [r for r, p in enumerate(procs) if p.returncode != 0]
@@ -95,6 +117,13 @@ def _collect(procs, tmp: str, timeout_s: float) -> List[Any]:
         with open(os.path.join(tmp, f"result{rank}.pkl"), "rb") as f:
             out.append(pickle.load(f))
     return out
+
+
+def _dump_stacks(procs, ranks) -> None:
+    for r in ranks:             # each rank dumps its stacks (faulthandler)
+        if procs[r].poll() is None:
+            os.kill(procs[r].pid, signal.SIGUSR1)
+    time.sleep(1.0)
 
 
 def _failure(procs, tmp: str, rank: int) -> str:
@@ -115,18 +144,20 @@ def _rank_main(tmp: str, rank: int, world_size: int) -> None:
     import faulthandler
     import traceback
 
+    # Before torch's import, so a rank still importing dumps its stacks too.
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
     import torch
     import torch.distributed as dist
 
     with open(os.path.join(tmp, "job.pkl"), "rb") as f:
         fn, args, backend, timeout_s = pickle.load(f)
     torch.set_num_threads(1)
-    faulthandler.register(signal.SIGUSR1, all_threads=True)
     try:
         store = dist.FileStore(os.path.join(tmp, "store"), world_size)
         dist.init_process_group(backend, store=store, rank=rank,
                                 world_size=world_size,
                                 timeout=timedelta(seconds=timeout_s))
+        open(os.path.join(tmp, f"joined{rank}"), "w").close()
         try:
             result = fn(rank, world_size, *args)
         finally:

@@ -9,9 +9,12 @@ tracing: both of those only observe live, orderly processes, so a killed
 process takes its last state with it. Every process that calls
 :func:`init` appends compact binary events to a bounded mmap'd ring file
 under the session dir at each state transition that matters for a
-postmortem (in the port so far: shm channel create/attach and
-stall/resume, serve sheds). The kernel owns the dirty pages, so the file
-is readable after the process is gone, no flush required.
+postmortem, at the same sites as the JAX package: task and actor lifecycle
+edges in the core runtime, the GCS, the node daemons and the workers, RPC
+connect/fail, lease grant/carve/revoke, DAG channel stall/resume, serve
+admission and sheds, collective enter/exit. The kernel owns the dirty
+pages, so the file is readable by ``ray-tpu-torch debug``
+(``devtools/postmortem.py``) after the process is gone, no flush required.
 
 Ring format (version ``RTFR1``): a 64-byte header followed by fixed
 128-byte slots. Fixed slots make wraparound trivial and keep a torn

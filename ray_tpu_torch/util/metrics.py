@@ -330,6 +330,27 @@ class MetricsAggregator:
             return [(k, ts, snap) for k, (ts, snap)
                     in sorted(self._reports.items())]
 
+    _BEACON_METRIC = "ray_tpu_flightrec_last_write_ts"
+
+    def process_meta(self) -> List[Tuple[Tuple, float, Optional[float]]]:
+        """``[(key, report_ts, beacon_ts)]`` for every report STILL HELD —
+        including stale ones (no eviction on this read): the health
+        watchdog needs the last report time of a wedged process to age it
+        into ``stalled``/``dead``, which the evicting ``_live`` read would
+        erase. ``beacon_ts`` is the process's flight-recorder progress
+        beacon (last ring-write wall ts), None if it ships none."""
+        with self._lock:
+            items = list(self._reports.items())
+        out: List[Tuple[Tuple, float, Optional[float]]] = []
+        for key, (ts, snap) in items:
+            beacon = None
+            for m in snap:
+                if m.get("name") == self._BEACON_METRIC:
+                    for _tags, value in m.get("samples", ()):
+                        beacon = max(beacon or 0.0, float(value))
+            out.append((key, ts, beacon))
+        return out
+
     def prometheus_text(self, now: Optional[float] = None) -> str:
         """Merged cluster-wide exposition: every live process's series,
         labeled with ``node_id``/``component``/``pid``."""

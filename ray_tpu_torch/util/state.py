@@ -124,8 +124,9 @@ def list_objects(limit: int = 10_000) -> List[Dict[str, Any]]:
 def list_jobs() -> List[Dict[str, Any]]:
     rt = get_runtime()
     return [
-        {"job_id": j.job_id.hex(), "status": j.status, "entrypoint": j.entrypoint}
-        for j in rt.gcs.jobs.values()
+        {"job_id": j.job_id if isinstance(j.job_id, str) else j.job_id.hex(),
+         "status": j.status, "entrypoint": j.entrypoint}
+        for j in list(rt.gcs.jobs.values())
     ]
 
 

@@ -201,20 +201,31 @@ class _SpanBuffer:
 _BUFFER = _SpanBuffer()
 
 
-def _ship(batch: list) -> None:
-    """Ship a batch into the runtime's GCS task-event stream in one call;
-    with no runtime up the batch is dropped, logged at debug level."""
-    rt = _runtime()
+def _ship(batch: list, runtime=None) -> None:
+    """Ship a batch into the GCS task-event stream of ``runtime`` (else of
+    the runtime that is up) in one call; with no runtime the batch is
+    dropped, logged at debug level."""
+    rt = runtime if runtime is not None else _runtime()
     if rt is None:
         from ray_tpu_torch.utils.logging import get_logger
 
         get_logger("tracing").debug(
             "dropped %d span(s): no runtime to ship them to", len(batch))
         return
-    rt.gcs.record_task_events(batch)
+    record_batch = getattr(rt.gcs, "record_task_events", None)
+    if record_batch is not None:
+        record_batch(batch)
+    else:
+        for event in batch:
+            rt.gcs.record_task_event(event)
 
 
-def _record(event: dict) -> None:
+def _record(event: dict, runtime=None) -> None:
+    if runtime is not None:
+        # An explicit runtime (a driver's CoreWorker, a test's sink) gets
+        # the span now: the caller named the destination.
+        _ship([event], runtime)
+        return
     if _SINK is not None:
         try:
             _SINK(event)
@@ -269,7 +280,7 @@ def emit(name: str, ctx: Optional[tuple], *,
 
 
 @contextlib.contextmanager
-def span(name: str, *,
+def span(name: str, *, runtime=None,
          attrs: Optional[dict] = None) -> Iterator[Tuple[str, str]]:
     """Open a user span: child of the active context (a fresh trace root
     otherwise, with the head-based sampling decision made here). Work
@@ -308,7 +319,7 @@ def span(name: str, *,
             if attrs:
                 event["attrs"] = attrs
             try:
-                _record(event)
+                _record(event, runtime)
             except Exception:  # noqa: BLE001 — tracing must never break work
                 from ray_tpu_torch.utils.logging import (get_logger,
                                                          log_swallowed)

@@ -157,6 +157,44 @@ def test_actor_with_torch_arguments_leaves_gcs_and_daemon_without_torch(
     rt.kill(a)
 
 
+class _TorchUser:
+    """Names the ``torch`` module as a global: its by-value class pickles
+    that as cloudpickle's ``subimport("torch")``."""
+
+    def zeros(self):
+        import sys as _sys
+
+        return torch.zeros(2).tolist(), os.getpid()
+
+
+def test_actor_class_naming_torch_leaves_gcs_and_daemon_without_torch(
+        cluster, driver):
+    """The GCS reads a spec whose class names torch without running its
+    ``subimport``: importing torch held the GCS's GIL for seconds on the
+    card's host (a late health tick, the card node's lost heartbeats)."""
+    daemon = cluster.nodes[0].proc.pid
+    # The class rides in the actor's arguments, which the GCS reads.
+    a = rt.remote(_Holder).remote(_TorchUser)
+    (cls,), worker_has_torch = rt.get(a.echo.remote(), timeout=120)
+    assert cls().zeros()[0] == [0.0, 0.0] and worker_has_torch
+    assert not _has_torch(cluster.gcs_proc.pid) and not _has_torch(daemon)
+    rt.kill(a)
+    blob = serialization.dumps(_TorchUser)
+    code = textwrap.dedent(f"""
+        import sys
+        from ray_tpu_torch.core import serialization as s
+        cls = s.loads_deferred({blob!r})
+        again = s.loads_deferred(s.dumps(cls))
+        assert "torch" not in sys.modules
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.split() == ["ok"], \
+        proc.stderr[-2000:]
+
+
 def test_init_with_address_refuses_new_runtime_options(cluster):
     for kw in ({"num_cpus": 2}, {"num_gpus": 1}, {"resources": {"CPU": 1}},
                {"system_config": {"gcs_shards": 2}}, {"num_nodes": 2}):

@@ -30,6 +30,11 @@ process's ``num_gpus=1`` actor gives the in-process engine's greedy streams
 (2 layers, f32), and a SIGKILLed GPU worker's card memory and grant come
 back.
 
+A submitted job on the card: its driver (both runtime checkers on) serves
+the six greedy requests of chip_smoke's phase 4 on a ``num_gpus=1`` engine
+actor at 2 layers in f32, equal to the plain path's streams, with K4
+launched in the actor, and records no lock-order violation or leak.
+
 The cluster KV tier on the card: the tier's one-op extract (into pinned
 host memory) and insert round-trip a bf16 chain bit for bit, and a store
 hit at gpt2_small widths with 2 layers (f32) keeps a fresh prefill's
@@ -902,6 +907,54 @@ def test_sigkilled_gpu_worker_gives_its_card_back(gpu_cluster):
     while free0 - torch.cuda.mem_get_info()[0] > 256 << 20:
         assert time.monotonic() < deadline, "the card's memory did not return"
         time.sleep(0.1)
+
+
+@pytest.mark.gpu
+def test_submitted_job_serves_on_the_kernel(cuda, tmp_path):
+    """chip_smoke's phase 20a at 2 layers in f32: a submitted job's driver
+    serves phase 4's six greedy requests on a ``num_gpus=1`` engine actor;
+    its streams equal the plain path's in this process (``"gather"``, the
+    card's plain path), K4 launched in the actor (f32: every call on the
+    split route), and the driver, with both
+    runtime checkers on, records no lock-order violation and no leak."""
+    import os
+    import sys
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.cluster import Cluster
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    cluster = Cluster(num_nodes=1, resources_per_node={"CPU": 4, "GPU": 1})
+    rt.init(address=cluster.gcs_address)
+    try:
+        job, res, _seen = cs.submit_gpt2_job(
+            rt, JobSubmissionClient(), tmp_path, cluster.gcs_address, 2,
+            "float32")
+        cfg = transformer.gpt2_small(n_layers=2, dtype=torch.float32)
+        plain = PagedLLMEngine(
+            transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                    device="cuda"),
+            cfg, device="cuda", attention_kernel="gather", name="job-plain")
+        want, _wall = cs._serve(torch, plain, cs._pipeline_requests(np),
+                                "plain")
+        assert res["streams"] == {n: r["tokens"] for n, r in want.items()}
+        assert res["launches"] == {
+            "wgmma": 0, "split": 2 * (res["prefills"] + res["decode_steps"])}
+        assert res["launches"]["split"] > 0
+        assert res["actor"]["attention_kernel"] == "cuda"
+        assert res["actor"]["pid"] != os.getpid()
+        assert res["violations"] == [] and res["leaks"] == []
+        deadline = time.monotonic() + 60
+        while rt.available_resources().get("GPU", 0) != 1.0:
+            assert time.monotonic() < deadline
+            time.sleep(0.1)
+    finally:
+        rt.shutdown()
+        cluster.shutdown()
 
 
 # -- the cluster KV tier on the card -------------------------------------------

@@ -11,6 +11,12 @@ deltas over the same requests equal JAX's: tokens delivered, the TTFT
 histogram's observation counts by phase, prefix-hit tokens and the shed
 counter. Both registries are process-wide, so every check reads a delta
 under a deployment name no other test uses.
+
+Then ``tests/test_tracing.py`` on the port's runtime and Serve stack: a
+streamed LLM request's connected trace and its TTFT decomposition, the
+trace through ``timeline`` and the CLI's span tree (equal to JAX's
+``format_trace_tree``), the incremental timeline, head-based sampling and
+the batched export.
 """
 
 import collections
@@ -203,3 +209,200 @@ def test_unsampled_root_emits_nothing(models, monkeypatch):
         ttr.set_context(None)
         ttr.set_sink(None)
     assert root[2] is False and spans == []
+
+
+# -- ``tests/test_tracing.py`` on the port's runtime and Serve stack ---------
+# The streamed LLM request's connected trace, the CLI tree, the incremental
+# timeline, TestSampling's four and the batched export; the DAG tick spans
+# are held by tests/test_torch_dag.py.
+@pytest.fixture
+def runtime():
+    import ray_tpu_torch as rt
+
+    rt.init(resources={"CPU": 4})
+    yield rt
+    rt.shutdown()
+
+
+@pytest.fixture
+def fresh_config():
+    """Restore the default config after a test that overrides flags."""
+    from ray_tpu_torch.core.config import Config, set_config
+
+    yield set_config
+    set_config(Config())
+
+
+def _span_events(events, name=None):
+    spans = [e for e in events if e.get("kind") == "span"]
+    if name is not None:
+        spans = [e for e in spans if e.get("name") == name]
+    return spans
+
+
+def _ids(events):
+    return {e.get("span_id") or e["task_id"] for e in events}
+
+
+def _gcs():
+    from ray_tpu_torch.core.runtime import get_runtime
+
+    return get_runtime().gcs
+
+
+class TestServeTraceE2E:
+    def test_streamed_llm_request_yields_connected_trace(self, runtime):
+        """One streamed request through handle -> router -> replica ->
+        engine produces a single connected tree, retrievable by trace id,
+        whose TTFT spans decompose the engine-measured TTFT."""
+        from ray_tpu_torch import serve
+
+        cfg = ttf.tiny(max_seq_len=64)
+        LM = tllm.llm_deployment(
+            cfg, lambda: ttf.init_params(cfg, 0, device="cpu"),
+            name="LM", slots=2, chunk=4, device="cpu")
+        try:
+            handle = serve.run(LM.bind())
+            with ttr.span("client") as (trace_id, _client_span):
+                gen = handle.options(stream=True).remote(
+                    {"prompt_ids": [7, 3, 11], "max_new_tokens": 8})
+                assert gen.trace_id == trace_id
+                items = list(gen)
+            assert items and items[-1]["finish_reason"] == "stop"
+            ttft = items[-1]["ttft_s"]
+            ttr.flush()
+
+            events = _gcs().trace(trace_id)
+            names = {e["name"] for e in events}
+            for expected in ("client", "serve.request", "serve.router_pick",
+                             "serve.replica_queue", "llm.admission_wait",
+                             "llm.prefill", "llm.decode_chunk"):
+                assert expected in names, f"missing span {expected}: {names}"
+            ids = _ids(events)
+            orphans = [e["name"] for e in events
+                       if e.get("parent_span_id")
+                       and e["parent_span_id"] not in ids]
+            assert not orphans, f"disconnected spans: {orphans}"
+            roots = [e for e in events if not e.get("parent_span_id")]
+            assert [e["name"] for e in roots] == ["client"]
+            pick = _span_events(events, "serve.router_pick")[0]
+            assert pick["attrs"]["deployment"] == "LM"
+            assert "replica" in pick["attrs"]
+            first = lambda n: min(  # noqa: E731
+                _span_events(events, n), key=lambda e: e["time"])
+            parts = (first("llm.admission_wait")["duration"]
+                     + first("llm.prefill")["duration"]
+                     + first("llm.decode_chunk")["duration"])
+            assert ttft > 0
+            assert abs(parts - ttft) <= 0.10 * ttft + 0.015, \
+                f"TTFT decomposition {parts:.4f}s vs measured {ttft:.4f}s"
+        finally:
+            serve.shutdown()
+
+    def test_trace_reaches_timeline_and_cli_tree(self, runtime):
+        """The same trace is retrievable through the timeline view (with
+        flow events) and renders as the CLI span tree, as JAX's does."""
+        from ray_tpu.scripts import format_trace_tree as jax_tree
+
+        from ray_tpu_torch.scripts import format_trace_tree
+
+        with ttr.span("request") as (trace_id, _sid):
+            with ttr.span("inner"):
+                pass
+        ttr.flush()
+
+        view = runtime.timeline(trace_id=trace_id)
+        assert {e["name"] for e in view if e["ph"] == "X"} == \
+            {"request", "inner"}
+        assert [e["ph"] for e in view if e["cat"] == "trace"] == ["s", "f"]
+
+        events = _gcs().trace(trace_id)
+        tree = format_trace_tree(events)
+        assert "request" in tree
+        assert "    inner" in tree  # nested under the root
+        assert tree == jax_tree(events)
+
+    def test_timeline_feed_is_incremental(self, runtime):
+        with ttr.span("a"):
+            pass
+        ttr.flush()
+        first = runtime.timeline(client="t-incr")
+        with ttr.span("b"):
+            pass
+        ttr.flush()
+        second = runtime.timeline(client="t-incr")
+        assert len(second) == len(first) + 1
+        assert second[-1]["name"] == "b"
+
+
+class TestSampling:
+    def test_rate_zero_propagates_but_emits_nothing(self, runtime,
+                                                    fresh_config):
+        from ray_tpu_torch.core.config import Config
+
+        fresh_config(Config({"trace_sample_rate": 0.0}))
+        with ttr.span("root") as (trace_id, _sid):
+            assert not ttr.is_sampled()
+            with ttr.span("child"):
+                assert ttr.current_context()[0] == trace_id
+                assert not ttr.is_sampled()
+        ttr.flush()
+        assert _span_events(_gcs().trace(trace_id)) == []
+
+    def test_rate_one_emits_connected_spans(self, runtime):
+        with ttr.span("root") as (trace_id, root_sid):
+            assert ttr.is_sampled()
+            with ttr.span("child"):
+                pass
+        ttr.flush()
+        child = _span_events(_gcs().trace(trace_id), "child")[0]
+        assert child["parent_span_id"] == root_sid
+
+    def test_unsampled_root_suppresses_actor_task_events(self, runtime,
+                                                         fresh_config):
+        from ray_tpu_torch.core.config import Config
+
+        @runtime.remote
+        class A:
+            def f(self):
+                return 1
+
+        a = A.remote()
+        fresh_config(Config({"trace_sample_rate": 0.0}))
+        with ttr.span("root") as (trace_id, _sid):
+            assert runtime.get(a.f.remote()) == 1
+        ttr.flush()
+        assert _gcs().trace(trace_id) == []
+
+    def test_gate_off_costs_no_context(self, runtime, fresh_config):
+        from ray_tpu_torch.core.config import Config
+
+        fresh_config(Config({"trace_enabled": False}))
+        assert ttr.new_root_context() is None
+        with ttr.span("root") as (trace_id, _sid):
+            assert not ttr.is_sampled()
+        ttr.flush()
+        assert _gcs().trace(trace_id) == []
+
+
+class TestBatchedExport:
+    def test_spans_ship_in_batches_not_per_rpc(self, runtime, monkeypatch):
+        gcs = _gcs()
+        calls = {"batches": 0, "events": 0}
+        real = gcs.record_task_events
+
+        def counting(events):
+            calls["batches"] += 1
+            calls["events"] += len(events)
+            return real(events)
+
+        monkeypatch.setattr(gcs, "record_task_events", counting)
+        ttr.flush()  # start from an empty buffer
+        n = 300
+        ctx = ttr.new_root_context()
+        assert ctx is not None and ctx[2]
+        for _ in range(n):
+            ttr.emit("bulk", ctx, duration=0.001)
+        ttr.flush()
+        assert calls["events"] >= n
+        assert calls["batches"] <= n // 32

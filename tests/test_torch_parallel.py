@@ -37,6 +37,7 @@ from ray_tpu.parallel.ring_attention import (
 )
 from ray_tpu.parallel.sharding import ShardingRules as JRules
 from ray_tpu.parallel.sharding import logical_sharding as jlogical_sharding
+from ray_tpu_torch.parallel import launch
 from ray_tpu_torch.parallel.launch import WorldError, run_world
 from ray_tpu_torch.parallel.mesh import MeshSpec, mesh_shape
 
@@ -267,14 +268,18 @@ def _fail_rank(rank, world):
 
 
 def test_launcher_kills_a_hung_world_within_its_deadline():
+    # The world deadline counts from the ranks' last join, so a slow start
+    # (two cold torch imports on a loaded host) cannot eat it: both ranks
+    # reach the hang, and the kill comes within a fixed bound of it.
     with tempfile.TemporaryDirectory() as pid_dir:
-        t0 = time.monotonic()
         with pytest.raises(WorldError, match="not done within"):
             run_world(_hang_rank, 2, pid_dir, timeout_s=15)
-        assert time.monotonic() - t0 < 30
-        pids = [int(open(os.path.join(pid_dir, f)).read())
-                for f in sorted(os.listdir(pid_dir))]
+        killed_at = time.time()
+        files = [os.path.join(pid_dir, f) for f in sorted(os.listdir(pid_dir))]
+        pids = [int(open(f).read()) for f in files]
         assert len(pids) == 2
+        hung_at = max(os.path.getmtime(f) for f in files)
+        assert killed_at - hung_at < 30
         for pid in pids:
             with pytest.raises(ProcessLookupError):
                 os.kill(pid, 0)
@@ -282,3 +287,16 @@ def test_launcher_kills_a_hung_world_within_its_deadline():
     with pytest.raises(WorldError, match="KeyError: 'rank one fails'"):
         run_world(_fail_rank, 2, timeout_s=120)
     assert time.monotonic() - t0 < 60
+
+
+def test_launcher_bounds_the_start_up_apart_from_the_deadline(monkeypatch):
+    # No rank can join within 10 ms of its spawn: the start-up bound fires,
+    # names the ranks that had not joined, and kills every rank.
+    monkeypatch.setattr(launch, "_STARTUP_S", 0.01)
+    with tempfile.TemporaryDirectory() as pid_dir:
+        t0 = time.monotonic()
+        with pytest.raises(WorldError, match=r"not started within 0.01 s; "
+                                             r"ranks \[0, 1\] not joined"):
+            run_world(_hang_rank, 2, pid_dir, timeout_s=600)
+        assert time.monotonic() - t0 < 30
+        assert os.listdir(pid_dir) == []

@@ -194,11 +194,12 @@ def test_serve_knobs_match_the_jax_defaults(monkeypatch):
     port = config()
     names = [n for n, v in vars(Config).items()
              if type(v).__name__ == "_Flag"]
-    assert len(names) == 86   # 21 serve knobs (the KV tier's 5 among
+    assert len(names) == 88   # 21 serve knobs (the KV tier's 5 among
     #                           them), 9 of the transport and observability
     #                           modules, 14 of the runtime, 34 of the
     #                           multi-process cluster, 5 of the compiled
-    #                           DAG and the collectives, 3 of RLlib
+    #                           DAG and the collectives, 3 of RLlib, 2 of
+    #                           the runtime checkers
     for n in names:
         if n == "object_spilling_dir":  # by design: "" = under TMPDIR
             assert port.object_spilling_dir == ""
