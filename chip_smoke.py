@@ -353,6 +353,20 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    the card node untouched. Phase 13 ends by printing the GCS's late health
    ticks (``health_loop_stats``) and copies its stall stacks, if any, to
    ``chiprun_out/gcs_stall_stacks.txt``.
+21. lint — last, in this process, after phase 19. 21a:
+   ``ray_tpu_torch.devtools.lint.main(["--check-baseline", "--profile"])``
+   (the port's raylint and its torch tier over ``ray_tpu_torch/``) must
+   return 0; the findings by check and each check's ms are printed. 21b:
+   phase 4's engine (``gpt2_small``, full width, bf16, its seed and
+   defaults) answers phase 4's 8 requests, then one 16-token
+   ``Generator.generate`` runs, all with the steady-state guard
+   (``jitcheck``) installed, while ``sys.monitoring`` local ``PY_START``
+   events on the code objects of the lint's declared hot scopes in
+   ``serve/llm.py`` and ``models/generate.py`` count their entries: every
+   declared serving scope must be entered, K4's launches, set to 0 just
+   before and read just after, must be n_layers x the engine's prefills on
+   the wgmma route and n_layers x its decode steps on the split route, and
+   the guard must record no violation.
 
 In phases 5 and 8-14 a greedy stream that departs from its reference must
 do so at a near tie: the plain path's top-2 logit gap there under 1e-3.
@@ -6781,6 +6795,211 @@ def _phase_autoscale(rt, cluster, node_a, cluster_summary):
             "left_alive_set_s": left}
 
 
+# -- phase 21: the static lint and its hot scopes ----------------------------
+# The lint's hot-scope files that the serving path runs (the RL scopes run
+# in phase 19, under their own gates).
+LINT_SERVING_FILES = ("serve/llm.py", "models/generate.py")
+LINT_GENERATE_TOKENS = 16
+
+
+def _lint_report(out, err):
+    """(findings by check, ms by phase) from ``lint.main``'s summary line
+    ``raylint: clean (N baselined: check=n, ...)`` and ``--profile``'s
+    lines ``  <phase> <ms> ms``."""
+    import re
+
+    m = re.search(r"raylint: clean \((\d+) baselined: ([^)]*)\)", out)
+    if m is None:
+        fail(f"lint: no summary line in its output: {out!r}")
+    by_check = {}
+    for part in m.group(2).split(", "):
+        if "=" in part:
+            k, v = part.split("=")
+            by_check[k] = int(v)
+    if sum(by_check.values()) != int(m.group(1)):
+        fail(f"lint: findings by check {by_check} do not add up to "
+             f"{m.group(1)}")
+    ms = {}
+    for line in err.splitlines():
+        parts = line.split()
+        if len(parts) == 3 and parts[2] == "ms":
+            ms[parts[0]] = float(parts[1])
+    if "total" not in ms:
+        fail(f"lint: no --profile lines in its output: {err!r}")
+    return by_check, ms
+
+
+def _scope_codes(torchlint):
+    """code object -> (file, scope name, qualname) for every function that
+    the lint's HOT_SCOPES declares in the serving files."""
+    import importlib
+
+    codes = {}
+    for path in LINT_SERVING_FILES:
+        mod = importlib.import_module(
+            "ray_tpu_torch." + path[:-3].replace("/", "."))
+        names = torchlint.HOT_SCOPES[path]
+        for obj in list(vars(mod).values()):
+            if getattr(obj, "__module__", None) != mod.__name__:
+                continue
+            if isinstance(obj, type):
+                fns = [obj.__dict__.get(n) for n in names]
+            else:
+                fns = [obj] if getattr(obj, "__name__", None) in names else []
+            for fn in fns:
+                code = getattr(fn, "__code__", None)
+                if code is not None:
+                    codes[code] = (path, fn.__name__, fn.__qualname__)
+        found = {n for p, n, _ in codes.values() if p == path}
+        if set(names) - found:
+            fail(f"lint: HOT_SCOPES names {sorted(set(names) - found)} in "
+                 f"{path}, which has no such function")
+    return codes
+
+
+class _ScopeEntries:
+    """Counts entries into the given code objects through ``sys.monitoring``
+    local ``PY_START`` events (set on those code objects alone)."""
+
+    def __init__(self, codes):
+        self.codes = codes
+        self.entries = {code: 0 for code in codes}
+        self._lock = threading.Lock()
+        self.tool = None
+
+    def _on_start(self, code, _offset):
+        with self._lock:
+            self.entries[code] += 1
+
+    def __enter__(self):
+        mon = getattr(sys, "monitoring", None)
+        if mon is None:
+            fail("lint: sys.monitoring needs Python 3.12 or later")
+        self.tool = next((i for i in range(6) if mon.get_tool(i) is None),
+                         None)
+        if self.tool is None:
+            fail("lint: no free sys.monitoring tool id")
+        mon.use_tool_id(self.tool, "chip_smoke phase 21")
+        mon.register_callback(self.tool, mon.events.PY_START, self._on_start)
+        for code in self.codes:
+            mon.set_local_events(self.tool, code, mon.events.PY_START)
+        return self
+
+    def __exit__(self, *exc):
+        mon = sys.monitoring
+        for code in self.codes:
+            mon.set_local_events(self.tool, code, 0)
+        mon.register_callback(self.tool, mon.events.PY_START, None)
+        mon.free_tool_id(self.tool)
+
+
+def phase_lint(torch, np, card, counts):
+    """21a: the port's lint in this process, clean against its baseline.
+    21b: phase 4's engine and requests and one ``Generator.generate`` under
+    the steady-state guard, each declared serving hot scope's entries
+    counted: every one must run, K4 on both routes, no violation."""
+    import contextlib
+    import io
+
+    from ray_tpu_torch.devtools import jitcheck, lint, torchlint
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.models.generate import Generator
+    from ray_tpu_torch.serve.llm import PagedLLMEngine
+
+    t_phase = time.perf_counter()
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = lint.main(["--check-baseline", "--profile"])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"lint: --check-baseline returned {rc}:\n{out.getvalue()}"
+             f"{err.getvalue()}")
+    by_check, ms = _lint_report(out.getvalue(), err.getvalue())
+    summary = {"a": {"rc": rc, "wall_s": wall, "by_check": by_check,
+                     "ms": ms, "python": sys.version.split()[0]}}
+    log(f"[lint] 21a python -m ray_tpu_torch.devtools.lint --check-baseline "
+        f"--profile in this process (Python {summary['a']['python']}): "
+        f"clean, {sum(by_check.values())} baselined findings {by_check}; "
+        f"{wall:.2f} s wall  [{card}]")
+    log("[lint] 21a ms by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(ms.items(), key=lambda kv: -kv[1]))
+        + f"  [{card}]")
+
+    codes = _scope_codes(torchlint)
+    cfg = transformer.gpt2_small()
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     device=DEVICE)
+    eng = PagedLLMEngine(params, cfg, device=DEVICE)
+    del params
+    eng.warmup()
+    if eng._pg.attention_kernel != "cuda":
+        fail(f"lint: engine resolved attention to {eng._pg.attention_kernel!r}")
+    gen = Generator(eng.params, cfg, device=DEVICE)
+    reqs = _requests(np)
+    prompt = next(r["prompt"] for r in reqs if r["name"] == "short")
+    jitcheck.install()
+    jitcheck.clear_violations()
+    try:
+        with _ScopeEntries(codes) as scopes:
+            counts.reset()
+            st0 = eng.stats()
+            results, wall = _serve(torch, eng, reqs, "lint")
+            launches = counts.read()
+            st1 = eng.stats()
+            toks = gen.generate(prompt, max_new_tokens=LINT_GENERATE_TOKENS)
+            torch.cuda.synchronize()
+    finally:
+        violations = jitcheck.violations()
+        jitcheck.uninstall()
+    _check_streams(reqs, results, cfg.vocab_size)
+    if len(toks) != LINT_GENERATE_TOKENS or not all(
+            0 <= t < cfg.vocab_size for t in toks):
+        fail(f"lint: Generator.generate gave {toks}")
+    d_pref = int(st1["prefill_forwards"] - st0["prefill_forwards"])
+    d_dec = int(st1["decode_forwards"] - st0["decode_forwards"])
+    by_route = {r: launches[f"paged_attention/{r}"]
+                for r in ("wgmma", "split")}
+    if by_route != {"wgmma": cfg.n_layers * d_pref,
+                    "split": cfg.n_layers * d_dec} or not all(
+                        by_route.values()):
+        fail(f"lint: K4 by route {by_route}, wanted wgmma {cfg.n_layers} x "
+             f"{d_pref} prefills and split {cfg.n_layers} x {d_dec} decode "
+             f"steps, both above 0")
+    if violations:
+        fail(f"lint: steady-state violations on the card: {violations}")
+    entries = {q: scopes.entries[c] for c, (_p, _n, q) in sorted(
+        codes.items(), key=lambda kv: kv[1])}
+    by_scope = {}
+    for code, (path, name, _q) in codes.items():
+        key = f"{path}:{name}"
+        by_scope[key] = by_scope.get(key, 0) + scopes.entries[code]
+    unentered = sorted(k for k, v in by_scope.items() if v == 0)
+    if unentered:
+        fail(f"lint: declared hot scopes never entered on the card: "
+             f"{unentered} (entries {entries})")
+    if eng.kv.active_blocks() != 0:
+        fail(f"lint: {eng.kv.active_blocks()} blocks still pinned after the "
+             f"run")
+    eng.close()
+    del eng, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["b"] = {"entries_by_scope": by_scope, "entries": entries,
+                    "launches": by_route, "prefill_forwards": d_pref,
+                    "decode_forwards": d_dec, "generate_tokens": len(toks),
+                    "serve_wall_s": wall, "violations": 0}
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"[lint] 21b phase 4's engine, its 8 requests and one "
+        f"{LINT_GENERATE_TOKENS}-token Generator.generate under jitcheck: "
+        f"hot-scope entries {entries}; K4 wgmma {by_route['wgmma']} = "
+        f"{cfg.n_layers} x {d_pref} prefills, split {by_route['split']} = "
+        f"{cfg.n_layers} x {d_dec} decode steps; no steady-state "
+        f"violation  [{card}]")
+    log(f"[lint] phase 21 took {summary['phase_s']:.1f} s")
+    return summary
+
+
 def _leaf_names(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -6848,6 +7067,8 @@ def main() -> None:
     ops = cluster.pop("ops")
     log(f"[time] phase 20 (inside phase 13) took {ops['s']:.1f} s")
     done(20)
+    lint_run = phase_lint(torch, np, card, counts)
+    done(21)
 
     def bf16_case(label):
         return next(c for c in cases
@@ -6895,6 +7116,7 @@ def main() -> None:
         "llm_rl_launches_by_route": {
             r: rl["launches"][f"paged_attention/{r}"]
             for r in ("wgmma", "split")},
+        "lint_launches_by_route": lint_run["b"]["launches"],
     }]
     for name, (replaces, _) in FLASH.items():
         mine = [c for c in flash_cases if c["kernel"] == name]
@@ -6924,7 +7146,7 @@ def main() -> None:
          "spec": spec,
          "disagg": disagg, "runtime": runtime, "serve": serving,
          "cluster": cluster, "tier": tier, "dag": dag, "trainer": trainer,
-         "data": data, "rl": rl, "ops": ops},
+         "data": data, "rl": rl, "ops": ops, "lint": lint_run},
         indent=1))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -128,18 +128,22 @@ class Config:
     # strictly lower gang_priority. 0 disables preemption.
     gang_preemption_enabled = _Flag(True)
     # Simulated-cluster harness (core/sim_cluster.py): hosts per synthetic
-    # slice, slices per synthetic pod, and the stub daemons' heartbeat
-    # period (keep it well under the health-check death bound).
+    # slice when fabricating topology labels for stub daemons.
     sim_hosts_per_slice = _Flag(16)
+    # Simulated-cluster harness: slices per synthetic pod.
     sim_slices_per_pod = _Flag(4)
+    # Simulated-cluster harness: stub-daemon heartbeat period. Keep well
+    # under health_check_period_s * health_check_failure_threshold or the
+    # watchdog will declare sim nodes dead.
     sim_heartbeat_period_s = _Flag(0.5)
     # Memory monitor: above this node memory-usage fraction the daemon
     # kills the newest busy task worker. >= 1.0 disables it.
     memory_monitor_threshold = _Flag(0.95)
     # Seconds between memory-monitor sweeps.
     memory_monitor_period_s = _Flag(1.0)
-    # Health-check period, and missed heartbeats before a node is dead.
+    # Health-check period: seconds between node heartbeats.
     health_check_period_s = _Flag(1.0)
+    # Missed heartbeats before a node is declared dead.
     health_check_failure_threshold = _Flag(5)
     # A node (or component) whose last report is older than this many
     # periods, but younger than the death bound, is classified stalled.
@@ -157,6 +161,8 @@ class Config:
     # Batched leases: a submitter asks its node for up to lease_batch_max
     # workers in one RPC (a capacity block) instead of one at a time.
     lease_batch_enabled = _Flag(True)
+    # Max leases requested in one capacity block (the batch amortization
+    # ceiling; partial grants below this are normal).
     lease_batch_max = _Flag(16)
     # Bound on concurrent lease-request threads of one process.
     lease_requester_threads = _Flag(16)
@@ -164,6 +170,8 @@ class Config:
     # drained by its own thread; past gcs_ingest_queue_max it drops (and
     # counts) the oldest.
     gcs_ingest_async_enabled = _Flag(True)
+    # Staging-queue capacity of that ingest; overflow drops (and counts)
+    # the oldest, never blocks.
     gcs_ingest_queue_max = _Flag(4096)
 
     # -- RPC ------------------------------------------------------------------
@@ -174,8 +182,10 @@ class Config:
     # Frame-coalescing window in microseconds for non-urgent lone frames
     # on a hot connection; 0 (the default) never delays a frame.
     rpc_coalesce_window_us = _Flag(0.0)
-    # Caps on one coalesced sendmsg batch: frames, and payload bytes.
+    # Caps on one coalesced sendmsg batch: at most this many frames...
     rpc_max_batch_frames = _Flag(64)
+    # ...and at most this many payload bytes (a single larger frame still
+    # goes out alone — the cap bounds added latency, not frame size).
     rpc_max_batch_bytes = _Flag(1 * 1024 * 1024)
     # Entries kept in each process's task-spec template caches (encoder and
     # store); eviction only costs a re-send of the template.
@@ -271,6 +281,8 @@ class Config:
     # would break bit-identity with runner-local sampling, so it runs each
     # request on arrival and waits for nothing.
     rl_inference_max_batch = _Flag(0)
+    # JAX's flush window for a partial inference batch, in seconds (unread
+    # here, as above).
     rl_inference_window_s = _Flag(0.001)
 
     # -- timeouts -------------------------------------------------------------

@@ -75,6 +75,8 @@ def run_world(fn: Callable, world_size: int, *args, backend: str = "gloo",
                 if p.poll() is None:
                     os.killpg(p.pid, signal.SIGKILL)
             for p in procs:
+                # raylint: ignore[untimed-wait] — reaps a rank that exited
+                # or was just SIGKILLed, which no process can ignore.
                 p.wait()
 
 

@@ -62,6 +62,9 @@ def _shift(x: torch.Tensor, group, shift: int) -> torch.Tensor:
     out = torch.empty_like(x)
     for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, dst, group),
                                        dist.P2POp(dist.irecv, out, src, group)]):
+        # raylint: ignore[untimed-wait] — bounded by the process group's own
+        # timeout (init_process_group's, set by launch and TorchConfig): a
+        # lost peer fails the op there instead of parking the rank.
         req.wait()
     return out
 

@@ -22,6 +22,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ray_tpu_torch.devtools import jitcheck
 from ray_tpu_torch.rllib.rl_module import (RLModule, RLModuleSpec, spec_for_env,
                                            tree_map)
 
@@ -171,9 +172,9 @@ class SingleAgentEnvRunner:
                 self._inference.values.remote(last_obs)))
         else:
             with torch.inference_mode():
-                last_val = self.module.forward_inference(
-                    self._params, torch.from_numpy(last_obs))[
-                        "vf_preds"].numpy()
+                out = self.module.forward_inference(
+                    self._params, torch.from_numpy(last_obs))
+                last_val = jitcheck.device_get(out["vf_preds"]).numpy()
 
         return {
             "obs": obs_buf,

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 import ray_tpu_torch
+from ray_tpu_torch.devtools import jitcheck
 from ray_tpu_torch.rllib.rl_module import RLModule, RLModuleSpec, tree_map
 from ray_tpu_torch.utils.logging import get_logger, log_swallowed
 
@@ -76,10 +77,13 @@ class InferenceActor:
                 logits = self.module.forward_inference(
                     self._params, obs_t)["action_dist_inputs"]
                 n = obs_t.shape[0]
-                return (torch.argmax(logits, dim=-1).numpy(),
-                        np.zeros(n, np.float32), np.zeros(n, np.float32))
+                actions = jitcheck.device_get(torch.argmax(logits, dim=-1))
+                return (actions.numpy(), np.zeros(n, np.float32),
+                        np.zeros(n, np.float32))
             a, logp, v = self.module.sample_with_noise(
                 self._params, obs_t, torch.from_numpy(np.array(noise)))
+            # one read of the three outputs, as the JAX actor's device_get
+            a, logp, v = jitcheck.device_get((a, logp, v))
             return a.numpy(), logp.numpy(), v.numpy()
 
     def values(self, obs: np.ndarray) -> np.ndarray:

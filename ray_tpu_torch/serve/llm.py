@@ -399,8 +399,10 @@ class LLMEngine:
                         if not req.tokens and not req.done:
                             # Timed slice as a safety net only: the exiting
                             # driver hands off via _wake_inflight, and token
-                            # arrival notifies directly. req.cond wraps
-                            # _state_lock, so wait() releases it.
+                            # arrival notifies directly.
+                            # raylint: ignore[blocking-under-lock] — req.cond
+                            # wraps _state_lock (Condition(self._state_lock)
+                            # in submit), so wait() releases the held lock.
                             req.cond.wait(timeout=0.01)
         finally:
             self._cancel(req)

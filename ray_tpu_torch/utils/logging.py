@@ -22,8 +22,8 @@ def log_swallowed(logger: logging.Logger, context: str) -> None:
     teardown."""
     try:
         logger.debug("swallowed exception in %s", context, exc_info=True)
-    except Exception:  # noqa: BLE001 — the helper itself must not raise
-        pass
+    except Exception:  # raylint: ignore[swallowed-exception] — the helper
+        pass  # itself must not raise
 
 
 def get_logger(component: str) -> logging.Logger:
