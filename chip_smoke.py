@@ -368,6 +368,13 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    the wgmma route and n_layers x its decode steps on the split route, and
    the guard must record no violation.
 
+At the end of phase 13's cluster run (after 16, 17b and 18c) and of the
+in-process runtimes of phases 17, 18 and 19, the GCS must hold none of the
+train step's phase spans (``train.step``, ``lm.forward``, ``lm.loss``,
+``train.backward``, ``train.optimizer``): no phase traces its steps, and
+the step opens its spans only inside a trace (``tracing.step_span``); the
+count and the GCS's event total are printed.
+
 In phases 5 and 8-14 a greedy stream that departs from its reference must
 do so at a near tie: the plain path's top-2 logit gap there under 1e-3.
 
@@ -3714,6 +3721,8 @@ def phase_cluster(torch, np, card, counts, runtime_summary, serve_summary,
                                                procs, train, mesh)
     # Phase 18c, the Data pipeline across processes, after it.
     summary["data"] = phase_data_cluster(torch, np, rt, card, node_b)
+    summary["spans"] = _phase_spans_shipped("phase 13's cluster (16, 17b, "
+                                            "18c)")
     # Phase 20, cluster operations, last on this cluster.
     summary["ops"] = phase_cluster_ops(torch, np, rt, card, cluster, node_a,
                                        node_b, procs, summary)
@@ -4817,6 +4826,26 @@ def _phase_dag_pipeline(torch, np, rt, card, cfg, procs):
 
 # -- phase 17, Train and Tune ------------------------------------------------
 TRAINER_LOSS_TOL = 1e-3               # a trainer's step vs phase 6's: relative
+PHASE_SPANS = ("train.step", "lm.forward", "lm.loss", "train.backward",
+               "train.optimizer")
+
+
+def _phase_spans_shipped(where):
+    """The train step's phase spans among the task events of the GCS the
+    driver is attached to, after this process's flush: none, since no
+    phase traces its steps."""
+    from ray_tpu_torch.core import runtime as runtime_mod
+    from ray_tpu_torch.util import tracing
+
+    tracing.flush()
+    events = runtime_mod.get_runtime().gcs.task_events()
+    n = sum(e.get("name") in PHASE_SPANS for e in events)
+    log(f"[spans] {where}: {n} phase span(s) of the train step among the "
+        f"GCS's {len(events)} task events")
+    if n:
+        fail(f"{where}: {n} phase spans of untraced train steps reached the "
+             f"GCS")
+    return {"phase_spans": n, "task_events": len(events)}
 TRAINER_CKPT_AT_ONCE = 4              # full checkpoints on disk at once, at most
 MESH_TRAINER_STEPS = 6                # 17b: steps 0..5, a checkpoint every 2
 MESH_TRAINER_KILL = 5                 # 17b: the first worker dies at this step
@@ -5478,6 +5507,7 @@ def phase_trainer(torch, np, card, counts, train, cluster_trainer):
         summary["a"] = _trainer_in_process(torch, np, rt_train, card, counts,
                                            train, phase)
         summary["c"] = _tune_on_card(torch, np, rt, card, counts)
+        summary["spans"] = _phase_spans_shipped("17a, 17c")
     finally:
         rt.shutdown()
         tempfile.tempdir = old_tmp
@@ -5876,6 +5906,7 @@ def phase_data(torch, np, card, counts, train, trainer, cluster_data):
         else:
             log("[ppo] gymnasium is absent here: 18d's PPO run (env runners "
                 "on SyntheticAtariEnv) waits for it; the learner leg ran")
+        summary["spans"] = _phase_spans_shipped("18a, 18b, 18d")
     finally:
         rt.shutdown()
     shutil.rmtree(_phase_dir("phase18"))
@@ -6334,6 +6365,7 @@ def phase_rl(torch, np, card, counts):
         summary["a"] = _llm_rl(torch, np, rt, card, counts)
         summary["b"] = _impala_learners(torch, np, card)
         summary["c"] = _inference_pool(torch, np, rt, card)
+        summary["spans"] = _phase_spans_shipped("19a, 19b, 19c")
     finally:
         rt.shutdown()
     if importlib.util.find_spec("gymnasium") is None:

@@ -1,0 +1,11 @@
+"""Device time a step, in ms, of the operations launched inside
+``lm.forward`` (the forward: the embedding, the blocks, the final layer
+norm and the tied head), over the phase window of
+``portbench/phases.py``; nothing where the program emits no such span."""
+
+from portbench import phases
+
+
+def read(run):
+    got = phases.of(run)
+    return None if got is None else got["ms_per_step"].get("forward")

@@ -12,6 +12,15 @@ JAX's partitioner compiles in (gradient reductions over the batch axes,
 tensor-parallel reductions). The AdamW moments are DTensors placed like
 their parameters, and ``grad_norm`` is the norm over all shards.
 
+``step`` opens the spans ``train.step`` (attribute ``tokens``: the batch's
+token count), ``train.backward`` (``loss.backward()``: the recomputation
+under remat, the gradient kernels, autograd's accumulation into the leaves)
+and ``train.optimizer`` (the zero-fill of missing gradients, the global
+norm, the optimizer's step) under the active trace context, where a
+trace was asked for (``tracing.step_span``: never a trace of their own, so
+an untraced loop of steps ships nothing); ``lm_loss`` opens ``lm.forward``
+and ``lm.loss`` inside ``train.step``. They read nothing from the device.
+
 Parameters are a dict of leaf tensors that require grad; ``step`` updates
 them IN PLACE (JAX returns new arrays and donates the old ones, so
 ``donate`` is accepted and does nothing) and returns the same dict. The
@@ -30,6 +39,7 @@ from torch.distributed.tensor import DTensor, distribute_tensor
 from ray_tpu_torch.parallel.mesh import compute_mesh, replicated
 from ray_tpu_torch.parallel.sharding import (ShardingRules, logical_sharding,
                                              pytree_shardings, shard_pytree)
+from ray_tpu_torch.util import tracing
 from ray_tpu_torch.utils.device import resolve_device
 
 
@@ -250,18 +260,24 @@ def make_train_step(*, loss_fn: Callable, init_params_fn: Callable,
         return params, optimizer.init(params)
 
     def step(params, opt_state, batch):
-        leaves = list(_leaves(params))
-        for p in leaves:
-            p.grad = None
-        loss = loss_fn(params, place_batch(batch, mesh, batch_sh, dev))
-        loss.backward()
-        for p in leaves:               # optax updates (and decays) every leaf
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        gnorm = torch.linalg.vector_norm(torch.stack(
-            [_full(torch.linalg.vector_norm(p.grad, dtype=torch.float32))
-             for p in leaves]))
-        opt_state.step()
+        tokens = batch.get("tokens")
+        with tracing.step_span("train.step", attrs=None if tokens is None
+                               else {"tokens": tokens.numel()}):
+            leaves = list(_leaves(params))
+            for p in leaves:
+                p.grad = None
+            loss = loss_fn(params, place_batch(batch, mesh, batch_sh, dev))
+            with tracing.step_span("train.backward"):
+                loss.backward()
+            with tracing.step_span("train.optimizer"):
+                for p in leaves:       # optax updates (and decays) every leaf
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                gnorm = torch.linalg.vector_norm(torch.stack(
+                    [_full(torch.linalg.vector_norm(p.grad,
+                                                    dtype=torch.float32))
+                     for p in leaves]))
+                opt_state.step()
         return params, opt_state, {"loss": _full(loss.detach()),
                                    "grad_norm": gnorm}
 

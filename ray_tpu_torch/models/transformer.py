@@ -49,6 +49,7 @@ from ray_tpu_torch.parallel.mesh import compute_mesh, mesh_shape, replicated
 from ray_tpu_torch.parallel.sharding import (ShardingRules, constrain,
                                              shard_pytree)
 from ray_tpu_torch.parallel.spmd import axis_index, pbroadcast, psum, spmd
+from ray_tpu_torch.util import tracing
 from ray_tpu_torch.utils.device import resolve_device
 
 
@@ -509,12 +510,16 @@ def lm_loss(params: Dict, batch: Dict[str, torch.Tensor],
             config: TransformerConfig, *, mesh=None,
             rules: Optional[ShardingRules] = None) -> torch.Tensor:
     """Next-token LM loss. batch: {"tokens": [B, L]} (optionally
-    "loss_mask"). Under a mesh the loss is a replicated DTensor scalar."""
+    "loss_mask"). Under a mesh the loss is a replicated DTensor scalar.
+    Opens the spans ``lm.forward`` (the logits) and ``lm.loss`` (the
+    cross-entropy) inside a trace that was asked for (``step_span``)."""
     tokens = _place_tokens(batch["tokens"], mesh)
-    logits = forward(params, tokens, config, mesh=mesh, rules=rules)
-    batch = {k: _place_tokens(v, mesh) for k, v in batch.items()}
-    return _next_token_loss(logits, tokens, batch,
-                            _constrainer(mesh, rules or ShardingRules()))
+    with tracing.step_span("lm.forward"):
+        logits = forward(params, tokens, config, mesh=mesh, rules=rules)
+    with tracing.step_span("lm.loss"):
+        batch = {k: _place_tokens(v, mesh) for k, v in batch.items()}
+        return _next_token_loss(logits, tokens, batch,
+                                _constrainer(mesh, rules or ShardingRules()))
 
 
 def pp_lm_loss(params: Dict, batch: Dict[str, torch.Tensor],

@@ -3,7 +3,8 @@
 Counterpart of ``ray_tpu/util/tracing.py``: a (trace_id, span_id, sampled)
 triple rides a context variable, instrumented code paths (the serve
 engines' admission, prefill and decode-chunk spans) emit span events under
-an explicit context, and :func:`span` opens a user span.
+an explicit context, :func:`span` opens a user span, and :func:`step_span`
+one around work repeated every step (the train step's phases).
 
 Cost model: with ``trace_enabled=0`` every potential span costs one flag
 check. With tracing on, head-based sampling (``trace_sample_rate``) is
@@ -18,6 +19,16 @@ otherwise into a bounded in-module buffer that a due or explicit
 runtime up the batch is dropped, logged at debug level, as the JAX module
 does. Spans carry the runtime's node id as their ``node_id`` (the process id
 with no runtime).
+
+Clock: every span carries ``start_ns`` and ``end_ns``, integer nanoseconds
+of ``CLOCK_REALTIME`` as :func:`time.time_ns` reads it. That is the clock
+``torch.profiler`` (Kineto) stamps its host events with on Linux (torch 2.11
+and 2.13: a ``record_function`` range and a CUDA launch record fall inside a
+``time.time_ns()`` pair taken around them), and the device activity it
+records is converted onto it, so a span lines up with a profiler trace
+without any offset. ``time`` (the end, in seconds) and ``duration`` are
+derived from the same two stamps for the readers that take seconds
+(``timeline``, ``format_trace_tree``).
 """
 
 from __future__ import annotations
@@ -256,27 +267,51 @@ def emit(name: str, ctx: Optional[tuple], *,
 
     ``ctx`` is a (trace_id, span_id, sampled) triple; the span parents to
     ``ctx``'s span unless ``parent_span_id`` overrides. Returns the new
-    span id, or None when the trace is unsampled / ctx is absent."""
+    span id, or None when the trace is unsampled / ctx is absent.
+
+    The span ends at ``end_time`` (``time.time()`` seconds; now if None)
+    and starts ``duration`` earlier. Callers time ``duration`` on another
+    clock (``perf_counter``), so ``start_ns`` is that interval laid back
+    from the end: exact as long as the wall clock was not stepped inside
+    it."""
     if ctx is None or (len(ctx) > 2 and not ctx[2]):
         return None
     sid = span_id or _new_id()
-    now = end_time if end_time is not None else time.time()
+    end_ns = (int(end_time * 1e9) if end_time is not None
+              else time.time_ns())
+    start_ns = end_ns - max(0, int(float(duration) * 1e9))
+    event = _event(name, sid, ctx[0],
+                   parent_span_id if parent_span_id is not None else ctx[1],
+                   start_ns, end_ns, attrs)
+    _record(event)
+    return sid
+
+
+def _event(name: str, span_id: str, trace_id: str,
+           parent_span_id: Optional[str], start_ns: int, end_ns: int,
+           attrs: Optional[dict]) -> dict:
+    """A finished span's event: ``start_ns``/``end_ns`` on the profiler's
+    clock, and ``time``/``duration`` (seconds) derived from them."""
+    # A wall-clock step back inside the span would end it before it began
+    # (JAX's spans time the duration on the monotonic clock instead): it
+    # then ends where it began, as ``emit`` clamps a negative duration.
+    start_ns = min(start_ns, end_ns)
     event = {
-        "task_id": sid,
+        "task_id": span_id,
         "name": name,
         "state": "FINISHED",
         "kind": "span",
-        "time": now,
-        "duration": max(0.0, float(duration)),
-        "trace_id": ctx[0],
-        "parent_span_id": (parent_span_id if parent_span_id is not None
-                           else ctx[1]),
+        "time": end_ns / 1e9,
+        "duration": (end_ns - start_ns) / 1e9,
+        "start_ns": start_ns,
+        "end_ns": end_ns,
+        "trace_id": trace_id,
+        "parent_span_id": parent_span_id,
         "node_id": _node_id(),
     }
     if attrs:
         event["attrs"] = attrs
-    _record(event)
-    return sid
+    return event
 
 
 @contextlib.contextmanager
@@ -296,35 +331,43 @@ def span(name: str, *, runtime=None,
         sampled = trace_enabled() and _decide_sampled()
     span_id = _new_id()
     set_context((trace_id, span_id, sampled))
-    # Duration comes from the monotonic clock (immune to NTP steps /
-    # wall-clock adjustments mid-span); the event timestamp stays wall time
-    # so spans line up with the engines' emitted spans.
-    started_mono = time.monotonic()
+    # Both ends from the one clock the profiler stamps (module docstring).
+    start_ns = time.time_ns()
     try:
         yield (trace_id, span_id)
     finally:
+        end_ns = time.time_ns()
         set_context(parent)
         if sampled:
-            event = {
-                "task_id": span_id,
-                "name": name,
-                "state": "FINISHED",
-                "kind": "span",
-                "time": time.time(),
-                "duration": time.monotonic() - started_mono,
-                "trace_id": trace_id,
-                "parent_span_id": parent[1] if parent else None,
-                "node_id": _node_id(),
-            }
-            if attrs:
-                event["attrs"] = attrs
             try:
-                _record(event, runtime)
+                _record(_event(name, span_id, trace_id,
+                               parent[1] if parent else None, start_ns,
+                               end_ns, attrs), runtime)
             except Exception:  # noqa: BLE001 — tracing must never break work
                 from ray_tpu_torch.utils.logging import (get_logger,
                                                          log_swallowed)
 
                 log_swallowed(get_logger("tracing"), "span finalize")
+
+
+@contextlib.contextmanager
+def step_span(name: str, *,
+              attrs: Optional[dict] = None) -> Iterator[Optional[tuple]]:
+    """A :func:`span` around work that repeats every step (the train step's
+    phases), opened only inside a trace someone asked for: a sampled
+    context from a span, a request, or a caller that carried its trace into
+    this task. It never starts a trace, and never joins the trace of its
+    own that a task no caller traced runs as (its trace id is its span id,
+    ``core/worker_main._begin_trace``): a loop of steps would otherwise
+    ship a trace's events every step into the GCS's bounded event table,
+    where they evict the cluster's task events. Yields None where it opens
+    nothing, at the cost of one context read."""
+    ctx = _CTX.get()
+    if ctx is None or not ctx[2] or ctx[0] == ctx[1]:
+        yield None
+        return
+    with span(name, attrs=attrs) as ids:
+        yield ids
 
 
 def context_for_spec() -> Optional[Tuple[str, str, bool]]:

@@ -166,6 +166,18 @@ class TestTrainStepFactory:
         assert r["param"] == ("R", "S(2)")      # (data, tensor) sub-mesh
         assert tuple(results[1]["mu_spec"]) == ("pipe", "fsdp", "tensor")
 
+    def test_sharded_step_emits_phase_spans(self, results):
+        """The mesh path runs the same step, so the same spans, nested the
+        same way, one set a step, inside the caller's trace."""
+        r = _ok(results, "train")
+        phases = [("lm.forward", "train.step", True),
+                  ("lm.loss", "train.step", True),
+                  ("train.backward", "train.step", True),
+                  ("train.optimizer", "train.step", True),
+                  ("train.step", "fit", True)]
+        assert [tuple(s) for s in r["spans"]] == (
+            phases * len(r["losses"]) + [("fit", None, True)])
+
 
 class TestMLP:
     def test_mlp_descends(self):

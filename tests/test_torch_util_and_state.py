@@ -369,6 +369,11 @@ def test_task_events_since_survives_truncation():
 
 
 def test_span_duration_uses_monotonic_clock():
+    """Named as the JAX package's test. The port's span departs from it by
+    design (ROADMAP): the duration is the interval between the two stamps,
+    both read from the clock torch.profiler stamps host events with, not
+    from the monotonic clock; a wall-clock step back inside the span gives
+    a duration of 0, never a negative one."""
     from unittest import mock
 
     from ray_tpu_torch.util import tracing
@@ -383,13 +388,31 @@ def test_span_duration_uses_monotonic_clock():
     class _Rt:
         gcs = _GcsSink()
 
+    # The span's stamps and its duration come from one clock, the one
+    # torch.profiler stamps host events with (time.time_ns): the duration
+    # is the interval between the two stamps, whatever time.time reads.
     rt = _Rt()
-    with mock.patch.object(tracing.time, "time", return_value=1234.0):
+    stamps = iter([1234_000_000_000, 1234_050_000_000])
+    with mock.patch.object(tracing.time, "time", return_value=99.0), \
+            mock.patch.object(tracing.time, "time_ns",
+                              side_effect=lambda: next(stamps)):
         with tracing.span("probe", runtime=rt):
-            time.sleep(0.05)
+            time.sleep(0.01)
     [event] = rt.gcs.events
-    assert event["time"] == 1234.0
-    assert event["duration"] >= 0.04
+    assert (event["start_ns"], event["end_ns"]) == (1234_000_000_000,
+                                                    1234_050_000_000)
+    assert event["time"] == 1234.05
+    assert event["duration"] == 0.05
+
+    # The wall clock stepped back 2 s inside the span: it ends where it began.
+    stamps = iter([1234_000_000_000, 1232_000_000_000])
+    with mock.patch.object(tracing.time, "time_ns",
+                           side_effect=lambda: next(stamps)):
+        with tracing.span("stepped", runtime=rt):
+            pass
+    event = rt.gcs.events[-1]
+    assert event["start_ns"] == event["end_ns"] == 1232_000_000_000
+    assert event["duration"] == 0.0 and event["time"] == 1232.0
 
 
 def test_phase_histograms_and_summary_in_process(ray_start_regular):

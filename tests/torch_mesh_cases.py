@@ -193,6 +193,7 @@ def train_steps(rank, spec, cfg_kw, params, batches, loss, lr,
     from ray_tpu_torch.models.convert import params_from_numpy
     from ray_tpu_torch.parallel.sharding import (ShardingRules,
                                                  logical_sharding)
+    from ray_tpu_torch.util import tracing
 
     cfg = _cfg(cfg_kw)
     mesh = _mesh(spec)
@@ -218,10 +219,28 @@ def train_steps(rank, spec, cfg_kw, params, batches, loss, lr,
            "mu": tuple(str(x) for x in state["exp_avg"].placements),
            "nu": tuple(str(x) for x in state["exp_avg_sq"].placements),
            "losses": [], "grad_norms": []}
-    for tokens in batches:
-        p, opt, m = bundle.step(p, opt, {"tokens": _t(tokens)})
-        out["losses"].append(m["loss"].item())
-        out["grad_norms"].append(m["grad_norm"].item())
+    spans = []
+    tracing.set_sink(spans.append)
+    try:
+        with tracing.span("fit"):
+            for tokens in batches:
+                p, opt, m = bundle.step(p, opt, {"tokens": _t(tokens)})
+                out["losses"].append(m["loss"].item())
+                out["grad_norms"].append(m["grad_norm"].item())
+    finally:
+        tracing.set_sink(None)
+    # (name, its parent's name, inside its parent) for every span emitted
+    by_id = {s["task_id"]: s for s in spans}
+
+    def inside(s, parent):
+        return parent is None or (parent["start_ns"] <= s["start_ns"]
+                                  <= s["end_ns"] <= parent["end_ns"])
+
+    out["spans"] = [
+        (s["name"], by_id[s["parent_span_id"]]["name"]
+         if s["parent_span_id"] else None,
+         inside(s, by_id.get(s["parent_span_id"])))
+        for s in spans]
     ev = training.make_eval_step(
         loss_fn=loss_fn, param_shardings=bundle.param_shardings,
         batch_sharding=bundle.batch_sharding, mesh=mesh)
