@@ -8,8 +8,12 @@ with the same weights: blocks are STACKED on a leading ``layers`` dim,
 to ``vocab_multiple`` and the output projection is tied to ``tok_embed``.
 
 :func:`forward` is a Python loop over the stacked blocks (JAX's
-``lax.scan``): ``params["blocks"][name][i]`` is a view, so gradients land in
-the stacked leaf. ``remat=True`` wraps each block in
+``lax.scan``). It unbinds each stacked leaf once, before the loop, so
+layer ``i`` gets views of the stacks and the backward writes each stacked
+gradient with one ``stack`` of the layers' gradients (indexing,
+``v[layer]``, would zero-fill a whole stacked gradient a layer and add
+``n_layers`` of them up). ``unbound_forwards`` counts the forwards.
+``remat=True`` wraps each block in
 ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint``): policy "full"
 recomputes the whole block, policy "dots" saves the outputs of the
 projection GEMMs (``aten.mm``/``addmm``: JAX's
@@ -34,6 +38,7 @@ collectives inside.
 from __future__ import annotations
 
 import functools
+import threading
 from dataclasses import dataclass, replace
 from typing import Dict, Optional, Union
 
@@ -51,6 +56,13 @@ from ray_tpu_torch.parallel.sharding import (ShardingRules, constrain,
 from ray_tpu_torch.parallel.spmd import axis_index, pbroadcast, psum, spmd
 from ray_tpu_torch.util import tracing
 from ray_tpu_torch.utils.device import resolve_device
+
+
+# Forwards that took the layers' parameters by one unbind of the stacked
+# leaves, since import (or since a caller reset it to 0). Several threads run
+# forwards at once (trials of one process), so it is bumped under a lock.
+unbound_forwards = 0
+_count_lock = threading.Lock()
 
 
 def pad_vocab(n: int, multiple: int = 128) -> int:
@@ -479,15 +491,20 @@ def forward(params: Dict, tokens: torch.Tensor, config: TransformerConfig,
 
     With ``mesh`` (and ``rules``, default ``ShardingRules()``) the
     parameters are DTensors on the mesh, the logits a DTensor laid out
-    ``("batch", "seq_act", "vocab")``."""
+    ``("batch", "seq_act", "vocab")``. The layers' ``dim 0`` must not be
+    split over the mesh (``pp_lm_loss`` takes a ``pipe``-split stack)."""
+    global unbound_forwards
     c = config
     rules = rules or ShardingRules()
     cstr = _constrainer(mesh, rules)
     h = _embed(params, _place_tokens(tokens, mesh), c, cstr)
     block = _remat(make_block_fn(c, mesh, rules), c)
-    blocks = params["blocks"]
+    # Outside the remat wrapper, so the recompute does not repeat it.
+    layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
+    with _count_lock:
+        unbound_forwards += 1
     for layer in range(c.n_layers):
-        h = block(h, {k: v[layer] for k, v in blocks.items()})
+        h = block(h, {k: v[layer] for k, v in layers.items()})
     logits = _logits(params, h, c).to(c.dtype)
     return cstr(logits, ("batch", "seq_act", "vocab"))
 

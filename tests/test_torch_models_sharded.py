@@ -136,10 +136,12 @@ class TestTransformer:
     @pytest.mark.parametrize("mesh_index", range(len(FORWARD_MESHES)),
                              ids=[str(m) for m in FORWARD_MESHES])
     def test_sharded_forward_parity(self, results, mesh_index):
-        """Any mesh layout computes JAX's single-device logits."""
+        """Any mesh layout computes JAX's single-device logits, taking
+        the DTensor leaves' layers by one unbind."""
         r = _ok(results, f"forward_{mesh_index}")
         np.testing.assert_allclose(r["logits"], results[1]["forward"],
                                    rtol=2e-4, atol=2e-4)
+        assert r["unbound_forwards"] == 1
 
     def test_ring_attention_model_parity(self, results):
         """attn_impl='ring' under a seq-split mesh matches JAX's dense."""

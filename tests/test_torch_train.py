@@ -115,6 +115,92 @@ def test_remat_gives_the_same_gradients(attn):
         assert torch.equal(a, b)
 
 
+REMATS = {"off": dict(remat=False), "full": dict(remat=True),
+          "dots": dict(remat=True, remat_policy="dots")}
+
+
+def _route_case(remat, seed=0):
+    """``tiny(n_layers=4)`` under ``REMATS[remat]``, its parameters as
+    gradient leaves and a batch."""
+    cfg = ttf.tiny(n_layers=4, **REMATS[remat])
+    params = ttrain._tree_map(lambda t: t.requires_grad_(True),
+                              ttf.init_params(cfg, seed, device="cpu"))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16),
+                           generator=torch.Generator().manual_seed(seed))
+    return cfg, params, tokens
+
+
+def _indexed_lm_loss(params, tokens, cfg):
+    """``lm_loss`` with each layer's parameters taken as ``v[layer]`` from
+    the stacked leaves: the route before the one-unbind take."""
+    cstr = ttf._constrainer(None, None)
+    h = ttf._embed(params, tokens, cfg, cstr)
+    block = ttf._remat(ttf.make_block_fn(cfg), cfg)
+    for layer in range(cfg.n_layers):
+        h = block(h, {k: v[layer] for k, v in params["blocks"].items()})
+    logits = ttf._logits(params, h, cfg).to(cfg.dtype)
+    return ttf._next_token_loss(logits, tokens, {"tokens": tokens}, cstr)
+
+
+@pytest.mark.parametrize("remat", list(REMATS))
+def test_unbound_layers_give_the_indexed_gradients(remat):
+    """Each slice of the stacked gradient is the tensor that indexing adds
+    to exact zeros: loss and every leaf's gradient are bit-equal."""
+    cfg, unbound, tokens = _route_case(remat)
+    _, indexed, _ = _route_case(remat)
+    loss_u = ttf.lm_loss(unbound, {"tokens": tokens}, cfg)
+    loss_i = _indexed_lm_loss(indexed, tokens, cfg)
+    assert torch.equal(loss_u, loss_i)
+    loss_u.backward()
+    loss_i.backward()
+    for a, b in zip(ttrain._leaves(unbound), ttrain._leaves(indexed)):
+        assert torch.equal(a.grad, b.grad)
+
+
+class _StackedOps(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts, by op, the results shaped like a whole stacked leaf."""
+
+    def __init__(self, shapes):
+        super().__init__()
+        self.shapes, self.ops = shapes, {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if isinstance(out, torch.Tensor) and tuple(out.shape) in self.shapes:
+            self.ops[func] = self.ops.get(func, 0) + 1
+        return out
+
+
+@pytest.mark.parametrize("remat", ["off", "full"])
+def test_backward_stacks_each_leaf_once(remat):
+    """The backward writes each stacked gradient with one ``stack`` of its
+    layers' gradients: no zero-filled whole-stack buffer a layer
+    (``select_backward``) and no adds of them, which grow as layers²."""
+    cfg, params, tokens = _route_case(remat)
+    blocks = params["blocks"]
+    loss = ttf.lm_loss(params, {"tokens": tokens}, cfg)
+    counter = _StackedOps({tuple(v.shape) for v in blocks.values()})
+    with counter:
+        loss.backward()
+    aten = torch.ops.aten
+    assert counter.ops.get(aten.stack.default) == len(blocks)
+    assert not {aten.zeros.default, aten.new_zeros.default,
+                aten.zeros_like.default, aten.select_backward.default,
+                aten.add.Tensor, aten.add_.Tensor} & set(counter.ops)
+
+
+def test_forward_counts_unbound_forwards():
+    """Each forward, bare or under ``lm_loss``, adds one to
+    ``unbound_forwards``."""
+    cfg, params, tokens = _route_case("off")
+    before = ttf.unbound_forwards
+    with torch.no_grad():
+        ttf.forward(params, tokens, cfg)
+        assert ttf.unbound_forwards == before + 1
+        ttf.lm_loss(params, {"tokens": tokens}, cfg)
+    assert ttf.unbound_forwards == before + 2
+
+
 def test_loss_mask_and_unported_options():
     jcfg, tcfg = _configs("learned", "dense")
     jparams = jtf.init_params(jcfg, jax.random.key(2))

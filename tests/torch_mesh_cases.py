@@ -177,11 +177,13 @@ def sharded_forward(rank, spec, cfg_kw, params, tokens):
     placed = transformer.shard_params(
         params_from_numpy(params, "cpu"), transformer.logical_axes(cfg),
         mesh, rules)
+    before = transformer.unbound_forwards
     with torch.no_grad():
         logits = transformer.forward(placed, _t(tokens), cfg, mesh=mesh,
                                      rules=rules)
     return {"logits": _full(logits),
-            "placements": tuple(str(p) for p in logits.placements)}
+            "placements": tuple(str(p) for p in logits.placements),
+            "unbound_forwards": transformer.unbound_forwards - before}
 
 
 def train_steps(rank, spec, cfg_kw, params, batches, loss, lr,
