@@ -225,7 +225,8 @@ def make_train_step(*, loss_fn: Callable, init_params_fn: Callable,
                     optimizer: Optional[AdamW] = None,
                     batch_logical: Optional[Tuple] = ("batch", None),
                     donate: bool = True,
-                    device: Optional[Union[str, torch.device]] = None
+                    device: Optional[Union[str, torch.device]] = None,
+                    after_step: Optional[Callable[[], None]] = None
                     ) -> TrainStepBundle:
     """Build ``(init, step)`` on one device, or over ``mesh`` (with
     ``logical_params``, the tree of logical axes mirroring the parameters,
@@ -237,7 +238,10 @@ def make_train_step(*, loss_fn: Callable, init_params_fn: Callable,
     JAX's signature and does nothing: ``step`` updates in place. The
     metrics are device tensors (reading them synchronises), whole on every
     rank: ``loss`` and ``grad_norm``, the global L2 norm of the gradients
-    before the update (``optax.global_norm``)."""
+    before the update (``optax.global_norm``). ``after_step()``, where
+    given, runs after each optimizer step inside ``train.optimizer``: the
+    model's state outside the parameters moves there (an MoE's expert
+    bias, ``models.lfm2.end_step``)."""
     del donate
     optimizer = optimizer or adamw(3e-4)
     if mesh is None:
@@ -278,6 +282,8 @@ def make_train_step(*, loss_fn: Callable, init_params_fn: Callable,
                                                     dtype=torch.float32))
                      for p in leaves]))
                 opt_state.step()
+                if after_step is not None:
+                    after_step()
         return params, opt_state, {"loss": _full(loss.detach()),
                                    "grad_norm": gnorm}
 

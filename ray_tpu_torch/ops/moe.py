@@ -9,19 +9,43 @@ back to [B, S, D], weighted by the router probability. Under a mesh the
 parameters are DTensors whose expert dim is split over ``expert`` (by
 :func:`logical_axes` and the rules) and DTensor inserts the collectives
 the einsums need, as XLA does for JAX.
+
+:func:`moe_topk` is the dropless top-k layer of sigmoid-routed models
+(LFM2-MoE, DeepSeek-V3): the router scores every expert, a selection-only
+bias picks each token's ``top_k``, and the layer computes the share that
+the experts it holds (``held``, a range of expert ids: one card's part of
+an expert-parallel layer) give, with no token dropped however uneven the
+load. It reads nothing from the device on the host: the assignments held
+are sorted by expert into a buffer sized for the worst case, and the
+grouped products take the groups' offsets as a device tensor. ``topk_calls``
+counts its calls (under ``_count_lock``; several threads run layers at
+once).
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
-from ray_tpu_torch.ops.layers import gelu
+from ray_tpu_torch.ops.layers import gelu, matmul_f32
 from ray_tpu_torch.parallel.mesh import replicated
+from ray_tpu_torch.util import tracing
 from ray_tpu_torch.utils.device import resolve_device
+
+# moe_topk calls since import (or since a caller reset it to 0).
+topk_calls = 0
+_count_lock = threading.Lock()
+
+# Rows of each expert's group in the sorted buffer are padded to a multiple
+# of this, so every group starts on a 16-byte boundary in bf16 whichever
+# dim the grouped products split (the backward's weight gradient groups
+# along the rows).
+GROUP_ALIGN = 16
 
 
 @dataclass(frozen=True)
@@ -124,3 +148,168 @@ def moe_ffn(params: Dict, x: torch.Tensor,
     metrics = {"aux_loss": aux_loss,
                "dropped_fraction": 1.0 - keep.float().mean()}
     return y.reshape(B, S, D), metrics
+
+
+# ---------------------------------------------------------------------------
+# Dropless top-k with sigmoid scores (LFM2-MoE, DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+def _swiglu(h):
+    """``silu(gate) * up`` for ``h`` = [gate | up] on its last dim."""
+    gate, up = h.chunk(2, dim=-1)
+    return F.silu(gate) * up
+
+
+def route_topk(x, router, bias, top_k: int, *, scaling: float = 1.0,
+               norm: bool = True):
+    """``(idx, weights)``, both [T, top_k]: the experts each token of ``x``
+    [T, D] picks and their weights. The scores ``sigmoid(x @ router)`` of
+    every expert are taken in f32; ``bias`` [E] counts for the choice only
+    (the top ``top_k`` of ``scores + bias``, no gradient through it); the
+    weights are the picked scores, normalised to sum 1 (``norm``, plus
+    1e-6) and times ``scaling``, in f32."""
+    scores = torch.sigmoid(x.float() @ router.float())
+    idx = torch.topk(scores.detach() + bias, top_k, dim=-1).indices
+    w = scores.gather(1, idx)
+    if norm:
+        w = w / (w.sum(dim=-1, keepdim=True) + 1e-6)
+    return idx, w * scaling
+
+
+def _held_layout(idx, held: range):
+    """Where the assignments to the experts in ``held`` go in the grouped
+    products' buffer, from device tensors alone: ``(rows, assign, ends)``.
+
+    The assignments held are sorted by expert (stable: token order within
+    an expert), each expert's group padded to ``GROUP_ALIGN`` rows. The
+    buffer has ``R = T * min(k, len(held)) + len(held) * (GROUP_ALIGN - 1)``
+    rows, room for every assignment held even when every token picks only
+    held experts, so none is dropped. ``rows`` [T, k] is each assignment's
+    buffer row (``R`` for one not held), ``assign`` [R] each buffer row's
+    assignment ``t * k + j`` (``T * k`` for padding and the unused tail),
+    ``ends`` [n] the groups' end rows in int32 (the grouped products'
+    offsets)."""
+    T, k = idx.shape
+    n, dev = len(held), idx.device
+    A = GROUP_ALIGN
+    R = T * min(k, n) + n * (A - 1)
+    local = idx.reshape(-1) - held.start
+    key = torch.where((local >= 0) & (local < n), local,
+                      torch.full_like(local, n))
+    counts = torch.zeros(n + 1, dtype=torch.int64, device=dev).index_add_(
+        0, key, torch.ones_like(key))
+    sorted_key, order = torch.sort(key, stable=True)
+    start = torch.cumsum(counts, 0) - counts
+    ends = torch.cumsum((counts[:n] + A - 1) // A * A, 0)
+    pstart = torch.cat([ends.new_zeros(1), ends])
+    rank = torch.arange(T * k, device=dev) - start[sorted_key]
+    slot = torch.where(sorted_key < n, pstart[sorted_key] + rank,
+                       torch.full_like(rank, R))
+    rows = torch.empty_like(slot).scatter_(0, order, slot)
+    assign = torch.full((R + 1,), T * k, dtype=torch.int64,
+                        device=dev).scatter_(
+        0, rows, torch.arange(T * k, device=dev))[:R]
+    return rows.view(T, k), assign, ends.to(torch.int32)
+
+
+class _GatherRows(torch.autograd.Function):
+    """``cat([x, zero row])[idx]`` whose backward is a gather as well:
+    ``back`` [len(x), m] lists, for each row of ``x``, the rows of the
+    output that read it (``len(idx)``, a zero row, for none), and a row's
+    gradient is the sum of theirs. The rows of the sorted buffer and the
+    assignments are each other's inverse maps, so neither direction needs
+    an atomic add or the sort that advanced indexing's backward makes."""
+
+    @staticmethod
+    def forward(ctx, x, idx, back):
+        ctx.save_for_backward(back)
+        return torch.cat([x, x.new_zeros(1, x.shape[-1])]).index_select(
+            0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        back, = ctx.saved_tensors
+        g = torch.cat([g, g.new_zeros(1, g.shape[-1])])
+        gx = g.index_select(0, back.reshape(-1)).view(*back.shape, -1)
+        return gx.sum(dim=1), None, None
+
+
+def _looped_experts(x, w13, w2, idx, w, held: range):
+    """The same sum by a loop over the held experts, each product one f32
+    accumulation rounded to ``x``'s dtype as the grouped products round
+    it. It reads each expert's tokens on the host: the plain route."""
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    with tracing.step_span("moe.experts"):
+        for g, e in enumerate(held):
+            t, j = (idx == e).nonzero(as_tuple=True)
+            h = matmul_f32(x[t], w13[g]).to(x.dtype)
+            yg = matmul_f32(_swiglu(h), w2[g]).to(x.dtype)
+            y = y.index_add(0, t, yg.float() * w[t, j, None])
+    return y
+
+
+def moe_topk(params: Dict, x: torch.Tensor, bias: torch.Tensor, *,
+             top_k: int, held: range, scaling: float = 1.0,
+             norm: bool = True, load_out: Optional[torch.Tensor] = None,
+             route_out: Optional[torch.Tensor] = None,
+             route: str = "auto") -> torch.Tensor:
+    """Dropless top-k MoE FFN: what the experts in ``held`` give.
+
+    ``x`` [..., D]; ``params``: ``router`` [D, E] over all E experts (f32
+    for f32 logits: a router rounded to ``x``'s dtype rounds them),
+    ``w13`` [n, D, 2F] (gate then up) and ``w2`` [n, F, D] for the
+    ``n = len(held)`` experts held, in ``x``'s dtype; ``bias`` [E] f32,
+    the selection-only expert bias. Each token picks ``top_k`` of all E
+    (:func:`route_topk`); an assignment to an expert held adds
+    ``weight * w2(silu(w1 x) * w3 x)``, one to an expert not held adds
+    nothing (that is another card's share). Returns [..., D] in ``x``'s
+    dtype, the sum taken in f32.
+
+    ``load_out`` [E] int64, where given, receives every expert's count of
+    assignments by copy (a recomputation under remat writes the same
+    counts again); ``route_out`` [T, top_k] int64 the picks, likewise.
+    ``route``: ``grouped`` (``torch._grouped_mm`` over the
+    sorted buffer, no host sync: bf16 only), ``loop`` (one product pair an
+    expert) or ``auto`` (grouped for bf16 on the card, loop elsewhere).
+
+    Opens the spans ``moe.route`` (the router through the sort and the
+    gather), ``moe.experts`` (the grouped products and the SwiGLU) and
+    ``moe.combine`` (the weighted sum) inside a trace someone asked for
+    (``tracing.step_span``). The recomputation under remat opens them
+    again where it runs in the trace's context (``models/lfm2.py`` carries
+    the forward's into it), so they time the forward and the recompute."""
+    global topk_calls
+    with _count_lock:
+        topk_calls += 1
+    shape = x.shape
+    x = x.reshape(-1, shape[-1])
+    T, D = x.shape
+    if route == "auto":
+        route = ("grouped" if x.is_cuda and x.dtype == torch.bfloat16
+                 else "loop")
+    with tracing.step_span("moe.route"):
+        idx, w = route_topk(x, params["router"], bias, top_k,
+                            scaling=scaling, norm=norm)
+        if load_out is not None:
+            flat = idx.reshape(-1)
+            load_out.copy_(torch.zeros_like(load_out).index_add_(
+                0, flat, torch.ones_like(flat)))
+        if route_out is not None:
+            route_out.copy_(idx)
+        if route == "grouped":
+            rows, assign, ends = _held_layout(idx, held)
+            xb = _GatherRows.apply(x, assign // top_k, rows)
+    if route == "loop":
+        y = _looped_experts(x, params["w13"], params["w2"], idx, w, held)
+        return y.to(x.dtype).reshape(shape)
+    if route != "grouped":
+        raise ValueError(f"unknown moe route {route!r}")
+    # Rows past the last group are never read: the grouped products leave
+    # them unwritten.
+    with tracing.step_span("moe.experts"):
+        h = torch._grouped_mm(xb, params["w13"], offs=ends)
+        yb = torch._grouped_mm(_swiglu(h), params["w2"], offs=ends)
+    with tracing.step_span("moe.combine"):
+        yg = _GatherRows.apply(yb, rows.reshape(-1), assign[:, None])
+        y = (yg.view(T, top_k, D).float() * w[..., None]).sum(dim=1)
+    return y.to(x.dtype).reshape(shape)
