@@ -27,7 +27,11 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    mma.sync, f32 on the CUDA cores), and K2 + K3 against SDPA's whole
    backward; there the bf16 tensor-core kernels' errors (o, dq, dk, dv)
    must stay within twice those of torch's SDPA against the same plain
-   versions. Times are
+   versions; the MLP epilogue's kernel pair (``csrc/bias_gelu.cu``) at
+   GPT-2 XL's [16384, 6400] and medium's [16384, 4096] activations and at
+   ragged shapes, against its plain versions (within one bf16 rounding of
+   the f32 expression), timed beside the eager chain it replaces and
+   ``F.gelu(approximate="tanh")``. Times are
    device times: the card sleeps before each timed call until the host
    has queued it (see ``Timer``);
 4. engine — ``PagedLLMEngine`` on ``gpt2_small()`` at full width (bf16,
@@ -46,7 +50,8 @@ Phases (any failure exits non-zero; no phase catches an error and goes on):
    remat=True)``, 16 × 1024 tokens a step, AdamW(3e-4, weight_decay=0.1),
    3 warm-up and 10 timed steps with the launch counts set to 0 just
    before and read just after (per step: the flash forward 2 × n_layers,
-   forward plus the remat recompute, dq and dkv n_layers each); a finite,
+   forward plus the remat recompute, dq and dkv n_layers each, and the
+   bias-GELU forward 2 × n_layers and backward n_layers); a finite,
    falling loss; tokens/s, step time, peak memory; then one step under
    torch.profiler;
 7. train end to end — gpt2_small widths with 2 layers, f32, B=2, L=1024:
@@ -417,6 +422,8 @@ COUNTERS = {
     "flash_forward": ("flash_attention", "forward_launches"),
     "flash_dq": ("flash_attention", "dq_launches"),
     "flash_dkv": ("flash_attention", "dkv_launches"),
+    "bias_gelu_forward": ("bias_gelu", "bias_gelu_forward_launches"),
+    "bias_gelu_backward": ("bias_gelu", "bias_gelu_backward_launches"),
 }
 # The train step's shape (bench.py's configuration).
 TRAIN_B, TRAIN_L, TRAIN_WARMUP, TRAIN_STEPS = 16, 1024, 3, 10
@@ -1287,6 +1294,154 @@ def phase_flash_kernels(torch, np, card):
     return cases
 
 
+# The MLP epilogue's kernel pair: (label, rows, cols, timed). Rows are the
+# train step's tokens (16 x 1024); 4099 rows and 1000 columns leave a ragged
+# row split and a ragged column tile.
+BIAS_GELU_SHAPES = [("gpt2-xl", 16384, 6400, True),
+                    ("gpt2-medium", 16384, 4096, True),
+                    ("ragged rows", 4099, 6400, False),
+                    ("ragged columns", 4099, 1000, False)]
+BIAS_GELU_REL = 2 ** -7   # one bf16 step (2^-8) of either side's rounding
+
+
+def _bias_gelu_bound(rows, cols):
+    """Least bytes a direction: forward reads y (f32) and b and writes pre
+    and out (bf16); backward reads g and pre and writes dpre and db."""
+    fwd = rows * cols * (4 + 2 + 2) + cols * 2
+    bwd = rows * cols * (2 + 2 + 2) + cols * 2
+    return {"forward": fwd, "backward": bwd}
+
+
+def _within_bf16(torch, got, want, what):
+    """``got`` within one bf16 step of ``want`` (relative), plus 1e-5 of
+    ``want``'s largest entry where the value itself nears 0 (gelu' crosses
+    0 near -0.75: both sides cancel there). Returns the largest error."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        fail(f"bias_gelu {what}: non-finite output")
+    err = (got - want).abs()
+    lim = BIAS_GELU_REL * want.abs() + 1e-5 * want.abs().max()
+    if (err > lim).any():
+        fail(f"bias_gelu {what}: {int((err > lim).sum())} elements beyond "
+             f"one bf16 step, max abs err {err.max().item():.3e}")
+    return err.max().item()
+
+
+def phase_bias_gelu(torch, card):
+    """The MLP epilogue's forward and backward kernels against their plain
+    versions (the same expressions in f32 torch ops), their launch
+    counters, and at GPT-2 XL's and medium's train shapes their device
+    times beside the bytes bound, the eager chain they replace and the
+    library's ``F.gelu(approximate="tanh")`` (a yardstick only: the port
+    never calls it)."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import bias_gelu as bg
+    from ray_tpu_torch.ops import layers
+
+    timer = Timer(torch)
+    gen = torch.Generator(device=DEVICE).manual_seed(24)
+    cases = []
+    for label, rows, cols, timed in BIAS_GELU_SHAPES:
+        def rnd(*shape, scale=1.0):
+            return torch.randn(*shape, generator=gen, device=DEVICE) * scale
+
+        # Pre-activations of a few units, over GELU's curved part and its
+        # flat tails; gradients as the down-projection hands them back.
+        y, b = rnd(rows, cols, scale=2.0), rnd(cols, scale=0.5).bfloat16()
+        g = rnd(rows, cols, scale=0.05).bfloat16()
+        f0 = bg.bias_gelu_forward_launches
+        b0 = bg.bias_gelu_backward_launches
+        pre, out = bg.bias_gelu_forward(y, b)
+        no_pre, out2 = bg.bias_gelu_forward(y, b, keep_pre=False)
+        dpre, db = bg.bias_gelu_backward(g, pre)
+        dpre2, db2 = bg.bias_gelu_backward(g, pre)
+        torch.cuda.synchronize()
+        if (bg.bias_gelu_forward_launches - f0,
+                bg.bias_gelu_backward_launches - b0) != (2, 2):
+            fail(f"bias_gelu {label}: launches not counted")
+        want_pre, want_out = bg.bias_gelu_reference(y, b)
+        want_dpre, _ = bg.bias_gelu_backward_reference(g, pre)
+        if not torch.equal(pre, want_pre):
+            fail(f"bias_gelu {label}: pre is not bf16(y + b) bit for bit")
+        if no_pre is not None or not torch.equal(out, out2):
+            fail(f"bias_gelu {label}: the forward without pre differs")
+        if not (torch.equal(dpre, dpre2) and torch.equal(db, db2)):
+            fail(f"bias_gelu {label}: two backward calls differ")
+        errs = {"out": _within_bf16(torch, out, want_out, f"{label} out"),
+                "dpre": _within_bf16(torch, dpre, want_dpre,
+                                     f"{label} dpre")}
+        # db against the f32 sum of the kernel's own rounded dpre: the
+        # partials and their reduction alone (f32 sums in another order).
+        want_db = dpre.float().sum(0)
+        errs["db"] = (db - want_db).abs().max().item()
+        if errs["db"] > 1e-5 * want_db.abs().max().item() + 1e-6:
+            fail(f"bias_gelu {label}: db max abs err {errs['db']:.3e} from "
+                 f"the column sums of dpre")
+        rec = {"case": label, "rows": rows, "cols": cols, "errs": errs,
+               "splits": {"forward": bg._splits(y.device, rows, cols, 0),
+                          "backward": bg._splits(y.device, rows, cols, 1)}}
+        if not timed:
+            log(f"[kernel] bias_gelu {label} [{rows}, {cols}]: within one "
+                f"bf16 step ({errs})")
+            cases.append(rec)
+            continue
+
+        # The eager chain it replaces (linear's bias add and cast, then
+        # gelu's bf16 ops) and the library's GELU, each with its autograd.
+        ye = y.detach().requires_grad_(True)
+        be = b.detach().requires_grad_(True)
+
+        def eager():
+            return layers.gelu((ye + be.float()).to(torch.bfloat16))
+
+        def library():
+            return F.gelu((ye + be).to(torch.bfloat16), approximate="tanh")
+
+        out_e, out_l = eager(), library()
+
+        def grad_of(o):
+            # The f32 gradient of y re-cast to bf16, as the GEMM's backward
+            # takes it.
+            dy, dbe = torch.autograd.grad(o, (ye, be), g, retain_graph=True)
+            return dy.to(torch.bfloat16), dbe
+
+        with torch.no_grad():
+            ms = {"forward": timer(lambda: bg.bias_gelu_forward(y, b)),
+                  "no_pre": timer(lambda: bg.bias_gelu_forward(
+                      y, b, keep_pre=False)),
+                  "backward": timer(lambda: bg.bias_gelu_backward(g, pre))}
+        with torch.enable_grad():
+            plain = {"forward": timer(eager, iters=5),
+                     "backward": timer(lambda: grad_of(out_e), iters=5)}
+            lib = {"forward": timer(library, iters=5),
+                   "backward": timer(lambda: grad_of(out_l), iters=5)}
+        nbytes = _bias_gelu_bound(rows, cols)
+        bound = {d: n / HBM_BYTES_PER_S * 1e3 for d, n in nbytes.items()}
+        rec.update(ms=ms["forward"], backward_ms=ms["backward"],
+                   no_pre_ms=ms["no_pre"], plain_ms=plain["forward"],
+                   plain_backward_ms=plain["backward"],
+                   library_ms=lib["forward"],
+                   library_backward_ms=lib["backward"],
+                   bound_ms=bound["forward"],
+                   backward_bound_ms=bound["backward"], bound_by="bytes",
+                   bytes=nbytes,
+                   x_bound=ms["forward"] / bound["forward"],
+                   backward_x_bound=ms["backward"] / bound["backward"])
+        cases.append(rec)
+        for d in ("forward", "backward"):
+            log(f"[kernel] bias_gelu {d:8s} {label} [{rows}, {cols}]: err "
+                f"{errs}  kernel {ms[d]:.4f} ms = "
+                f"{nbytes[d] / ms[d] / 1e6:.0f} GB/s, "
+                f"{ms[d] / bound[d]:.2f}x bound  plain (eager chain) "
+                f"{plain[d]:.4f} ms  library {lib[d]:.4f} ms  bound "
+                f"{bound[d]:.4f} ms (bytes)  [{card}]")
+        log(f"[kernel] bias_gelu forward without pre {label}: "
+            f"{ms['no_pre']:.4f} ms  [{card}]")
+        del ye, be, out_e, out_l
+    return cases
+
+
 # -- phase 6 -----------------------------------------------------------------
 def _profile_step(torch, step, card):
     """Where a train step's time goes: torch.profiler over one step. Device
@@ -1364,7 +1519,8 @@ def phase_train(torch, np, card, counts):
     n = cfg.n_layers
     want = {"flash_forward": 2 * n, "flash_dq": n, "flash_dkv": n,
             "paged_attention": 0, "paged_attention/wgmma": 0,
-            "paged_attention/split": 0}
+            "paged_attention/split": 0, "bias_gelu_forward": 2 * n,
+            "bias_gelu_backward": n}
     for i, got in enumerate(per_step):
         if got != want:
             fail(f"train step {i}: launches {got}, wanted {want} (forward "
@@ -1388,7 +1544,8 @@ def phase_train(torch, np, card, counts):
         f"{peak / 2**30:.2f} GiB  [{card}]")
     log(f"[train] loss {losses[0]:.4f} -> {losses[-1]:.4f}, grad norm "
         f"{norms[0]:.3f} -> {norms[-1]:.3f}; launches a step: flash forward "
-        f"{2 * n}, dq {n}, dkv {n} (total {launches})")
+        f"{2 * n}, dq {n}, dkv {n}, bias-GELU forward {2 * n}, backward {n} "
+        f"(total {launches})")
 
     def one_step():
         nonlocal params, opt
@@ -1467,8 +1624,10 @@ def phase_train_end_to_end(torch, np, counts):
         loss.backward()
         ran = {k: v - before[k] for k, v in counts.read().items()}
         if attn == "flash" and not all(
-                ran[n] for n in ("flash_forward", "flash_dq", "flash_dkv")):
-            fail(f"train e2e bf16: the flash kernels did not run ({ran})")
+                ran[n] for n in ("flash_forward", "flash_dq", "flash_dkv",
+                                 "bias_gelu_forward", "bias_gelu_backward")):
+            fail(f"train e2e bf16: the flash or bias-GELU kernels did not "
+                 f"run ({ran})")
         grads = {name: p.grad for name, p in zip(
             _leaf_names(params), training._leaves(params))}
         bf16[attn] = (abs(loss.item() - ld) / abs(ld), rel_errs(grads))
@@ -1555,9 +1714,11 @@ def _mesh_step_run(torch, np, card, counts, mesh, policy, want_losses):
     losses = [x.item() for x in losses]
     norms = [x.item() for x in norms]
     n = cfg.n_layers
+    # DTensor activations keep linear_gelu's eager chain: no bias-GELU.
     want = {"flash_forward": 2 * n, "flash_dq": n, "flash_dkv": n,
             "paged_attention": 0, "paged_attention/wgmma": 0,
-            "paged_attention/split": 0}
+            "paged_attention/split": 0, "bias_gelu_forward": 0,
+            "bias_gelu_backward": 0}
     for i, got in enumerate(per_step):
         if got != want:
             fail(f"mesh {policy} step {i}: launches {got}, wanted {want}")
@@ -5252,8 +5413,11 @@ def _trainer_in_process(torch, np, rt_train, card, counts, train, phase):
             fail(f"trainer 17a step {h['step']}: launches {h['launches']}, "
                  f"wanted {want}")
     total = {k: want[k] * (steps + 1) for k in want}
-    if {k: launches[k] for k in want} != total or any(
-            launches[k] for k in launches if k not in want):
+    # Each step launches the bias-GELU pair as often as K1 and K2.
+    total.update(bias_gelu_forward=total["flash_forward"],
+                 bias_gelu_backward=total["flash_dq"])
+    if {k: launches[k] for k in total} != total or any(
+            launches[k] for k in launches if k not in total):
         fail(f"trainer 17a: launches {launches} in the run, wanted {total}")
     losses = {h["step"]: h["loss"] for h in step_reports}
     _check_step_losses("trainer 17a vs phase 6", losses,
@@ -5965,8 +6129,11 @@ def _data_trainer(torch, np, rt_data, rt_train, card, counts, train, trainer):
             fail(f"data 18b step {h['step']}: launches {h['launches']}, "
                  f"wanted {want}")
     total = {k: want[k] * steps for k in want}
-    if {k: launches[k] for k in want} != total or any(
-            launches[k] for k in launches if k not in want):
+    # Each step launches the bias-GELU pair as often as K1 and K2.
+    total.update(bias_gelu_forward=total["flash_forward"],
+                 bias_gelu_backward=total["flash_dq"])
+    if {k: launches[k] for k in total} != total or any(
+            launches[k] for k in launches if k not in total):
         fail(f"data 18b: launches {launches} in the run, wanted {total}")
     losses = [h["loss"] for h in hist]
     if losses != train["losses"]:
@@ -6070,7 +6237,8 @@ def _llm_rl(torch, np, rt, card, counts):
                 "paged_attention/split": k4["split"],
                 "flash_forward": n * (rollouts + updates),
                 "flash_dq": n * updates, "flash_dkv": n * updates}
-        if launches != want or not all(want.values()):
+        if ({k: launches[k] for k in want} != want
+                or not all(want.values())):
             fail(f"llm-rl: launches {launches}, wanted {want} (prefills "
                  f"{d_pref}, decode steps {d_dec}, {rollouts} behavior "
                  f"forwards, {updates} updates)")
@@ -7063,6 +7231,7 @@ def main() -> None:
     counts = Counts()
     cases, threshold = phase_kernels(torch, np, card)
     flash_cases = phase_flash_kernels(torch, np, card)
+    bias_gelu_cases = phase_bias_gelu(torch, card)
     done(3)
     engine = phase_engine(torch, np, card, counts)
     e2e = phase_end_to_end(torch, np)
@@ -7167,12 +7336,29 @@ def main() -> None:
             "library_ms": timed["library_ms"],
             "timed_case": "B=16 L=1024 H=12 D=64 causal bf16",
         })
+    xl = next(c for c in bias_gelu_cases if c["case"] == "gpt2-xl")
+    for d, key in (("forward", "ms"), ("backward", "backward_ms")):
+        pre = "" if d == "forward" else "backward_"
+        kernels.append({
+            "name": f"bias_gelu_{d}", "route": "cuda",
+            "design": "CUDA cores, 16-byte vectors, one wave of row splits",
+            "source": "ray_tpu_torch/ops/csrc/bias_gelu.cu",
+            "replaces": "the eager bias add, bf16 cast and tanh GELU "
+                        "(port only: no TPU kernel)",
+            "launches": train["launches"][f"bias_gelu_{d}"],
+            "max_abs_err": max(max(c["errs"].values())
+                               for c in bias_gelu_cases),
+            "ms": xl[key], "plain_ms": xl[f"plain_{pre}ms"],
+            "bound_ms": xl[f"{pre}bound_ms"], "bound_by": "bytes",
+            "library_ms": xl[f"library_{pre}ms"],
+            "timed_case": "[16384, 6400] (GPT-2 XL's MLP) bf16",
+        })
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kind": kind, "count": count, "kernels": kernels,
          "cases": cases, "paged_threshold": threshold,
-         "flash_cases": flash_cases,
+         "flash_cases": flash_cases, "bias_gelu_cases": bias_gelu_cases,
          "engine": engine, "end_to_end": e2e, "train": train,
          "train_end_to_end": train_e2e, "mesh": mesh, "slotted": slotted,
          "spec": spec,

@@ -64,13 +64,17 @@ TORCH_CHECKS = ("host-sync", "compile-churn")
 #: Coverage-guarded: when the file is in the scan set, every named scope
 #: must exist, so a rename retires the declaration loudly, not silently.
 #: The JAX package's table with one remap: the port's inference actor
-#: serves each runner's step through ``infer`` (no batching thread).
+#: serves each runner's step through ``infer`` (no batching thread); and
+#: one addition, the port's own bias-GELU kernel wrapper, which runs in
+#: every layer of every train step and serving forward.
 HOT_SCOPES: Dict[str, Tuple[str, ...]] = {
     "serve/llm.py": ("_step_inner", "_run_decode"),
     "models/generate.py": ("generate",),
     "rllib/env_runner.py": ("sample",),
     "rllib/learner.py": ("update",),
     "rllib/inference.py": ("infer",),
+    "ops/bias_gelu.py": ("linear_gelu", "forward", "backward",
+                         "_forward_cuda", "_backward_cuda", "_splits"),
 }
 
 #: Method names whose call results are tensors wherever they appear (the

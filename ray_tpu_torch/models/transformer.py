@@ -48,8 +48,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ray_tpu_torch.ops.flash_attention import flash_attention
-from ray_tpu_torch.ops.layers import (gelu, layer_norm, linear, matmul,
-                                      matmul_f32, rope, softmax_cross_entropy)
+from ray_tpu_torch.ops.layers import (layer_norm, linear, linear_gelu,
+                                      matmul, matmul_f32, rope,
+                                      softmax_cross_entropy)
 from ray_tpu_torch.parallel.mesh import compute_mesh, mesh_shape, replicated
 from ray_tpu_torch.parallel.sharding import (ShardingRules, constrain,
                                              shard_pytree)
@@ -258,7 +259,7 @@ def _block_tail(h, bp, o, dtype, cstr=_no_constraint):
     h = cstr(h + _out_proj(o, bp["wo"], bp["bo"], dtype),
              ("batch", "seq_act", None))
     x = layer_norm(h, bp["ln2_g"], bp["ln2_b"])
-    u = cstr(gelu(linear(x, bp["w_up"], bp["b_up"])),
+    u = cstr(linear_gelu(x, bp["w_up"], bp["b_up"]),
              ("batch", "seq_act", "mlp"))
     return cstr(h + linear(u, bp["w_down"], bp["b_down"]),
                 ("batch", "seq_act", None))
@@ -424,7 +425,7 @@ def make_tp_block_fn(config: TransformerConfig, mesh, rules: ShardingRules):
         h = h + row(o).to(c.dtype) + bp["bo"]
 
         x = column(layer_norm(h, bp["ln2_g"], bp["ln2_b"]))
-        u = gelu(linear(x, bp["w_up"], bp["b_up"]))
+        u = linear_gelu(x, bp["w_up"], bp["b_up"])
         d = row(matmul_f32(u, bp["w_down"]))
         # Bias in f32 then cast: the order of ops.layers.linear.
         return h + (d + bp["b_down"].float()).to(c.dtype)

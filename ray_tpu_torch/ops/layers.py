@@ -7,6 +7,8 @@ linear accumulate and bias add, the loss). :func:`matmul_f32` gives the JAX
 f32 output on the card, f32 operands everywhere else; on DTensors too,
 for which :func:`_register_mm_dtype_sharding` gives DTensor the sharding
 rules of that product (``aten.mm.dtype``), which it lacks.
+:func:`linear_gelu` is ``gelu(linear(...))``; on plain bf16 CUDA tensors it
+runs as that product and the hand-written kernels of ``ops/bias_gelu.py``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import math
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from ray_tpu_torch.ops import bias_gelu
 
 
 def layer_norm(x, gamma, beta, eps: float = 1e-5):
@@ -136,6 +140,17 @@ def linear(x, w, b=None):
     if b is not None:
         y = y + b.float()
     return y.to(x.dtype)
+
+
+def linear_gelu(x, w, b):
+    """``gelu(linear(x, w, b))``, the MLP's up-projection. Plain bf16 CUDA
+    tensors with a width a multiple of 8 take one GEMM and one hand-written
+    kernel a direction (``ops/bias_gelu.py``: GELU in f32, rounded once);
+    everything else (CPU tensors, DTensors, f32 operands) runs this very
+    expression."""
+    if bias_gelu.takes(x, w, b):
+        return bias_gelu.linear_gelu(x, w, b)
+    return gelu(linear(x, w, b))
 
 
 def softmax_cross_entropy(logits, labels, ignore_index: int = -100):

@@ -19,6 +19,12 @@ floored at 1e-3 of the model's largest (bk's gradient is 0 in exact
 arithmetic: both paths give rounding noise there), the losses of 3 AdamW
 steps 1e-4 relative.
 
+The MLP epilogue's kernel pair (``csrc/bias_gelu.cu``) at ragged and full
+shapes: ``pre`` bit for bit, ``out`` and ``dpre`` within one bf16 step of
+the plain versions (plus 1e-5 of the largest value where gelu' crosses 0),
+``db`` the f32 column sums of the kernel's own ``dpre``; ``linear_gelu`` on
+bf16 CUDA tensors within bf16 steps of f32 autograd, one launch each way.
+
 The core runtime on the card: ``gpu_resources()`` registers the card; a bf16
 CUDA tensor goes through ``put``/``get`` bit for bit below and above the
 arena threshold; the paged engine hosted in a ``num_gpus=1`` actor gives the
@@ -62,6 +68,7 @@ import pytest
 import torch
 
 from ray_tpu_torch.models import training, transformer
+from ray_tpu_torch.ops import bias_gelu as bg
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops import layers
 from ray_tpu_torch.ops import paged_attention as pa
@@ -512,6 +519,88 @@ def test_matmul_f32_runs_bf16_with_f32_output(cuda):
                                rtol=1e-2)
     torch.testing.assert_close(wg.grad.float(), wr.grad, atol=1e-2,
                                rtol=1e-2)
+
+
+# -- the MLP epilogue's kernel pair ---------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,cols", [(1, 8), (7, 40), (1000, 264),
+                                       (4099, 3072), (16384, 1000)])
+def test_bias_gelu_kernels_match_plain_versions(cuda, rows, cols):
+    """pre bit for bit; out and dpre within one bf16 step of the plain
+    versions (1e-5 of the largest where gelu' nears 0); db the column sums
+    of the kernel's own dpre to f32 rounding; two calls the same bits; one
+    launch counted a call."""
+    gen = torch.Generator(device="cuda").manual_seed(rows + cols)
+    y = torch.randn(rows, cols, generator=gen, device="cuda") * 2
+    b = (torch.randn(cols, generator=gen, device="cuda") * 0.5).bfloat16()
+    g = (torch.randn(rows, cols, generator=gen, device="cuda")
+         * 0.05).bfloat16()
+    f0, b0 = bg.bias_gelu_forward_launches, bg.bias_gelu_backward_launches
+    pre, out = bg.bias_gelu_forward(y, b)
+    dpre, db = bg.bias_gelu_backward(g, pre)
+    assert (bg.bias_gelu_forward_launches - f0,
+            bg.bias_gelu_backward_launches - b0) == (1, 1)
+    want_pre, want_out = bg.bias_gelu_reference(y, b)
+    want_dpre, _ = bg.bias_gelu_backward_reference(g, pre)
+    assert torch.equal(pre, want_pre)
+    for got, want in ((out, want_out), (dpre, want_dpre)):
+        got, want = got.float(), want.float()
+        lim = 2 ** -7 * want.abs() + 1e-5 * want.abs().max()
+        assert ((got - want).abs() <= lim).all()
+    col_sums = dpre.float().sum(0)
+    torch.testing.assert_close(db, col_sums, rtol=1e-5,
+                               atol=1e-5 * col_sums.abs().max().item())
+    assert torch.equal(bg.bias_gelu_forward(y, b, keep_pre=False)[1], out)
+    assert all(torch.equal(a, c) for a, c in zip(
+        bg.bias_gelu_backward(g, pre), (dpre, db)))
+
+
+@pytest.mark.gpu
+def test_bias_gelu_kernels_take_no_rows(cuda):
+    """Zero rows: empty outputs and a zero bias gradient, not the unwritten
+    partials."""
+    y = torch.empty(0, 64, device="cuda")
+    b = torch.ones(64, device="cuda").bfloat16()
+    pre, out = bg.bias_gelu_forward(y, b)
+    dpre, db = bg.bias_gelu_backward(torch.empty_like(pre), pre)
+    assert pre.shape == out.shape == dpre.shape == (0, 64)
+    assert torch.equal(db, torch.zeros(64, device="cuda"))
+
+
+@pytest.mark.gpu
+def test_linear_gelu_on_the_card(cuda):
+    """``linear_gelu`` on bf16 CUDA tensors takes the kernels (one launch
+    each way) and stays within bf16 steps of f32 autograd of the same
+    expression; an f32 call keeps the eager chain and launches nothing."""
+    rng = np.random.default_rng(17)
+
+    def rnd(*shape, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape) * scale,
+                            dtype=torch.float32, device="cuda")
+
+    x, w, b = rnd(3, 50, 64), rnd(64, 96, scale=0.2), rnd(96, scale=0.5)
+    g = rnd(3, 50, 96)
+    xb, wb, bb = (t.bfloat16().requires_grad_(True) for t in (x, w, b))
+    f0, b0 = bg.bias_gelu_forward_launches, bg.bias_gelu_backward_launches
+    out = layers.linear_gelu(xb, wb, bb)
+    out.backward(g.bfloat16())
+    assert (bg.bias_gelu_forward_launches - f0,
+            bg.bias_gelu_backward_launches - b0) == (1, 1)
+    xr, wr, br = (t.bfloat16().float().requires_grad_(True)
+                  for t in (x, w, b))
+    want = layers.gelu(xr @ wr + br)
+    want.backward(g.bfloat16().float())
+    for got, ref in ((out, want), (xb.grad, xr.grad), (wb.grad, wr.grad),
+                     (bb.grad, br.grad)):
+        assert got.dtype == torch.bfloat16
+        scale = ref.abs().max().item()
+        assert (got.float() - ref.detach()).abs().max().item() \
+            <= 2 ** -6 * scale
+    with torch.no_grad():
+        assert torch.equal(layers.linear_gelu(xb, wb, bb), out.detach())
+    f1 = bg.bias_gelu_forward_launches
+    layers.linear_gelu(x, w, b)
+    assert bg.bias_gelu_forward_launches == f1
 
 
 # -- prefill/decode disaggregation on the card -----------------------------------
